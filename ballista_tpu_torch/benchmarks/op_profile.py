@@ -1,0 +1,169 @@
+"""Where a TPC-H query's time goes on one CUDA device, operator by operator.
+
+    python -m ballista_tpu_torch.benchmarks.op_profile --sf 1 --queries 3 5
+
+For each query, over tables generated at `--sf` (seed 19940101) and
+uploaded before timing:
+- `collect()` and `run_plan` wall times (host clock around work that ends
+  in a synchronize; median of `--reps`);
+- device-busy time per `run_plan` (sum of kernel times from
+  torch.profiler) and its share of the `run_plan` wall time;
+- each operator's exclusive wall and device-busy time, and its costliest
+  kernels: the node runs alone on its children's cached outputs;
+- the kernels that took the most device time, and the device time under
+  each of the torch ops the join and aggregate paths are built from
+  (sort, searchsorted, index_select, cumsum, ...; inclusive, so an op
+  that calls another counts its kernels too).
+It prints one line per number and writes them all as JSON to `--out`.
+Needs a CUDA device; it fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ..client import SessionContext
+from ..datagen import register_tpch
+from ..exec.plan import ExecNode, Run, run_plan
+from .queries import TPCH_QUERIES
+
+
+class _Cached(ExecNode):
+    """Stands in for a child: returns its already computed output."""
+
+    def __init__(self, node: ExecNode, out):
+        self.schema, self.capacity, self.children = node.schema, node.capacity, ()
+        self._out = out
+
+    def evaluate(self, run):
+        return self._out
+
+
+def _wall_ms(fn, reps):
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# torch ops whose device time (their kernels') is reported per query
+OPS = ("aten::sort", "aten::searchsorted", "aten::index_select",
+       "aten::gather", "aten::cumsum", "aten::scatter_reduce_",
+       "aten::where", "aten::arange", "aten::cat")
+
+
+def _device_ms(fn, reps, ops=None):
+    """(device-busy ms per call, {kernel name: ms per call}); fills `ops`
+    with {torch op: device ms per call under it} when given."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        # device-side events only: the CPU op that launched a kernel also
+        # reports the kernel's time, and would count it twice
+        if e.device_type != DeviceType.CPU:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            kernels[e.key] = us / 1e3 / reps
+        elif ops is not None and e.key in OPS:
+            us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0))
+            ops[e.key] = us / 1e3 / reps
+    return sum(kernels.values()), kernels
+
+
+def _top(kernels, k):
+    return dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:k])
+
+
+def _post_order(node):
+    for c in node.children:
+        yield from _post_order(c)
+    yield node
+
+
+def profile_query(ctx, sql, reps):
+    df = ctx.sql(sql)
+    plan = ctx.physical_plan(df.plan)
+    inputs = ctx.bind_inputs([leaf.input_id for leaf in plan.leaves()])
+    df.collect()
+    out = {"collect_ms": _wall_ms(df.collect, reps),
+           "run_plan_ms": _wall_ms(lambda: run_plan(plan, inputs), reps)}
+    ops = {}
+    busy, kernels = _device_ms(lambda: run_plan(plan, inputs), reps, ops)
+    out["device_busy_ms"] = busy
+    out["torch_ops_device_ms"] = ops
+    out["masked_slot_sums_ms"] = sum(ms for name, ms in kernels.items()
+                                     if "masked_slot_sums" in name)
+    out["device_busy_share"] = busy / out["run_plan_ms"]
+    out["top_kernels_ms"] = _top(kernels, 12)
+    run = Run(inputs)
+    outputs, ops = {}, []
+    for node in _post_order(plan):
+        kids = node.children
+        node.children = tuple(_Cached(c, outputs[id(c)]) for c in kids)
+        try:
+            outputs[id(node)] = node.evaluate(run)
+            wall = _wall_ms(lambda: node.evaluate(run), reps)
+            dev, kernels = _device_ms(lambda: node.evaluate(run), reps)
+        finally:
+            node.children = kids
+        ops.append({"op": node._label()[:110], "wall_ms": wall,
+                    "device_ms": dev, "kernels_ms": _top(kernels, 4)})
+    out["operators"] = ops
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--queries", type=int, nargs="+", default=[3, 5])
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", default="build/op_profile.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("op_profile: needs a CUDA device")
+    ctx = SessionContext(device="cuda")
+    register_tpch(ctx, args.sf)
+    result = {"device": torch.cuda.get_device_name(0), "sf": args.sf}
+    for q in args.queries:
+        r = profile_query(ctx, TPCH_QUERIES[q], args.reps)
+        result[f"q{q}"] = r
+        print(f"Q{q}: collect {r['collect_ms']:.3f} ms, run_plan "
+              f"{r['run_plan_ms']:.3f} ms, device busy "
+              f"{r['device_busy_ms']:.3f} ms "
+              f"({100 * r['device_busy_share']:.1f} %)", flush=True)
+        for op in r["operators"]:
+            print(f"  {op['device_ms']:9.3f} dev ms {op['wall_ms']:9.3f} "
+                  f"wall ms  {op['op']}", flush=True)
+            for name, ms in op["kernels_ms"].items():
+                print(f"      {ms:9.3f} ms  {name[:90]}", flush=True)
+        for name, ms in r["top_kernels_ms"].items():
+            print(f"  kernel {ms:9.3f} ms  {name[:100]}", flush=True)
+        for name, ms in r["torch_ops_device_ms"].items():
+            print(f"  under {name}: {ms:.3f} device ms", flush=True)
+        print(f"  masked_slot_sums kernel: {r['masked_slot_sums_ms']:.4f} "
+              "device ms", flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,14 +8,16 @@ uploaded to the device column by column, on first use.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import dataclasses
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import batch as B
 from ..exec.plan import run_plan
 from ..planner import logical as L
-from ..planner.physical import create_physical_plan
+from ..planner.physical import PhysicalOptions, create_physical_plan
 from ..schema import Field, Schema
 from .dataframe import DataFrame
 
@@ -41,6 +43,7 @@ class TableProvider:
         self.primary_key = tuple(primary_key) if primary_key else None
         self.num_rows = lengths.pop() if lengths else 0
         self._cols: Dict[str, B.Column] = {}
+        self._inferred_unique = None
 
     @property
     def capacity(self) -> int:
@@ -73,12 +76,15 @@ class SessionContext:
     raises when no CUDA device is present: the port never carries on on
     the CPU unasked (the CPU tests pass device="cpu")."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda",
+                 options: Optional[PhysicalOptions] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SessionContext(device='cuda'): CUDA is not "
                                "available; pass device='cpu' to run on the CPU")
+        self.options = options or PhysicalOptions()
         self.tables: Dict[str, TableProvider] = {}
+        self.warnings = []
 
     def register_host(self, name: str, fields: Sequence[Field],
                       columns: Dict[str, B.HostColumn],
@@ -87,10 +93,23 @@ class SessionContext:
                                           primary_key)
 
     def unique_keys(self, name: str):
-        """Unique column sets for functional-dependency reasoning: the
-        declared primary key."""
-        pk = self.tables[name].primary_key
-        return [pk] if pk else []
+        """Unique column sets for join build-side selection and
+        functional-dependency reasoning: the declared primary key, else
+        the single columns whose values are all distinct (tables of up to
+        a million rows; a NULL counts as one value)."""
+        tp = self.tables[name]
+        if tp.primary_key:
+            return [tp.primary_key]
+        if tp._inferred_unique is None:
+            tp._inferred_unique = []
+            if tp.num_rows <= 1_000_000:
+                for f in tp.fields:
+                    h = tp.host[f.name]
+                    n_distinct = (len(np.unique(h.values[h.validity]))
+                                  + int(not h.validity.all()))
+                    if n_distinct == tp.num_rows:
+                        tp._inferred_unique.append((f.name,))
+        return tp._inferred_unique
 
     def sql(self, query: str) -> DataFrame:
         """Plan a SQL script of SELECT statements; returns the last one."""
@@ -118,14 +137,34 @@ class SessionContext:
                                      else [f.name for f in tp.fields])
         return out
 
-    def physical_plan(self, plan: L.LogicalPlan):
+    def physical_plan(self, plan: L.LogicalPlan,
+                      options: Optional[PhysicalOptions] = None):
         capacities = {name: tp.capacity for name, tp in self.tables.items()}
         return create_physical_plan(plan, capacities,
-                                    self.device)
+                                    options or self.options, self.device)
 
-    def collect(self, plan: L.LogicalPlan):
-        """Execute a logical plan: returns (Batch on the device, Schema)."""
-        exec_plan = self.physical_plan(plan)
-        inputs = self.bind_inputs([leaf.input_id
-                                   for leaf in exec_plan.leaves()])
-        return run_plan(exec_plan, inputs), exec_plan.schema
+    def collect(self, plan: L.LogicalPlan, max_retries: int = 5):
+        """Execute a logical plan: returns (Batch on the device, Schema).
+
+        A plan whose group table outgrows its static capacity raises the
+        run's overflow flag; it is read once per run
+        and the plan is rebuilt with 4x the capacities. After
+        `max_retries` runs that overflowed this raises: a clipped batch
+        would be a wrong answer."""
+        opts = self.options
+        for attempt in range(max_retries):
+            exec_plan = self.physical_plan(plan, opts)
+            inputs = self.bind_inputs([leaf.input_id
+                                       for leaf in exec_plan.leaves()])
+            out, overflow = run_plan(exec_plan, inputs)
+            if overflow is None or not bool(overflow):
+                return out, exec_plan.schema
+            self.warnings.append(
+                f"output overflowed capacity on attempt {attempt + 1} "
+                f"(max_group_table {opts.max_group_table})")
+            opts = dataclasses.replace(
+                opts, max_group_table=opts.max_group_table * 4)
+        raise RuntimeError(
+            f"group output overflowed capacity after {max_retries} "
+            f"runs (last max_group_table {opts.max_group_table // 4}); "
+            "raise max_retries or PhysicalOptions.max_group_table")

@@ -1,5 +1,6 @@
-"""TPC-H orders and lineitem, generated straight into host columns (port of
-the orders and lineitem generators of ballista_tpu/datagen/tpch.py).
+"""TPC-H region, nation, supplier, customer, orders and lineitem, generated
+straight into host columns (port of those generators of
+ballista_tpu/datagen/tpch.py; part and partsupp are not ported yet).
 
 Same seed, same rng streams and the same draws in the same order as the
 JAX package's `generate_table`, so the rows are identical; but instead of a
@@ -33,6 +34,17 @@ STARTDATE = _days(1992, 1, 1)
 CURRENTDATE = _days(1995, 6, 17)
 ENDDATE = _days(1998, 12, 31)
 
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+NATIONS = [
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1),
+    ("EGYPT", 4), ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3),
+    ("INDIA", 2), ("INDONESIA", 2), ("IRAN", 4), ("IRAQ", 4),
+    ("JAPAN", 2), ("JORDAN", 4), ("KENYA", 0), ("MOROCCO", 0),
+    ("MOZAMBIQUE", 0), ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3),
+    ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3),
+    ("UNITED KINGDOM", 3), ("UNITED STATES", 1),
+]
+SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 INSTRUCTIONS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
@@ -51,8 +63,24 @@ ADJS = ["furious", "sly", "careful", "blithe", "quick", "fluffy", "slow",
 
 MONEY = decimal(15, 2)
 
-# table -> (row_count_fn(sf), primary_key, fields)
+# table -> (row_count_fn(sf), primary_key, fields), in generation order
 TPCH_TABLES = {
+    "region": (lambda sf: 5, ("r_regionkey",), (
+        Field("r_regionkey", INT64), Field("r_name", STRING),
+        Field("r_comment", STRING))),
+    "nation": (lambda sf: 25, ("n_nationkey",), (
+        Field("n_nationkey", INT64), Field("n_name", STRING),
+        Field("n_regionkey", INT64), Field("n_comment", STRING))),
+    "supplier": (lambda sf: int(10_000 * sf), ("s_suppkey",), (
+        Field("s_suppkey", INT64), Field("s_name", STRING),
+        Field("s_address", STRING), Field("s_nationkey", INT64),
+        Field("s_phone", STRING), Field("s_acctbal", MONEY),
+        Field("s_comment", STRING))),
+    "customer": (lambda sf: int(150_000 * sf), ("c_custkey",), (
+        Field("c_custkey", INT64), Field("c_name", STRING),
+        Field("c_address", STRING), Field("c_nationkey", INT64),
+        Field("c_phone", STRING), Field("c_acctbal", MONEY),
+        Field("c_mktsegment", STRING), Field("c_comment", STRING))),
     "orders": (lambda sf: int(1_500_000 * sf), ("o_orderkey",), (
         Field("o_orderkey", INT64), Field("o_custkey", INT64),
         Field("o_orderstatus", STRING), Field("o_totalprice", MONEY),
@@ -70,8 +98,8 @@ TPCH_TABLES = {
         Field("l_shipmode", STRING), Field("l_comment", STRING))),
 }
 N_PART = lambda sf: int(200_000 * sf)  # noqa: E731
-N_SUPP = lambda sf: int(10_000 * sf)  # noqa: E731
-N_CUST = lambda sf: int(150_000 * sf)  # noqa: E731
+N_SUPP = TPCH_TABLES["supplier"][0]
+N_CUST = TPCH_TABLES["customer"][0]
 
 Table = Tuple[Tuple[Field, ...], Dict[str, HostColumn]]
 
@@ -105,6 +133,15 @@ def _strings(categories, idx: np.ndarray) -> HostColumn:
                       dictionary.astype(object), None)
 
 
+def _distinct_strings(values) -> HostColumn:
+    """Column of arbitrary strings, dictionary-encoded against their
+    sorted distinct values."""
+    vals = np.asarray(values, dtype=object).astype(str)
+    dictionary, codes = np.unique(vals, return_inverse=True)
+    return HostColumn(codes.astype(np.int32), np.ones(len(vals), dtype=bool),
+                      dictionary.astype(object), None)
+
+
 def _comment_pool(rng: np.random.Generator, n_pool: int,
                   with_special: bool = False):
     """Bounded pool of dbgen-flavored comment sentences."""
@@ -128,6 +165,77 @@ def _comment_pool(rng: np.random.Generator, n_pool: int,
 def _rng(name: str, seed: int) -> np.random.Generator:
     # stable per-table seed — Python's hash() is salted per process
     return np.random.default_rng(seed + zlib.crc32(name.encode()) % 100000)
+
+
+def _phone(rng: np.random.Generator, nk: np.ndarray) -> HostColumn:
+    c = 10 + nk
+    a = rng.integers(100, 1000, len(nk))
+    b = rng.integers(100, 1000, len(nk))
+    d = rng.integers(1000, 10000, len(nk))
+    return _distinct_strings([f"{ci}-{ai}-{bi}-{di}"
+                              for ci, ai, bi, di in zip(c, a, b, d)])
+
+
+def _region(sf: float, seed: int) -> Table:
+    rng = _rng("region", seed)
+    cols = {
+        "r_regionkey": _numeric(np.arange(5), INT64),
+        "r_name": _distinct_strings(REGIONS),
+        "r_comment": _distinct_strings(_comment_pool(rng, 5)),
+    }
+    return TPCH_TABLES["region"][2], cols
+
+
+def _nation(sf: float, seed: int) -> Table:
+    rng = _rng("nation", seed)
+    cols = {
+        "n_nationkey": _numeric(np.arange(25), INT64),
+        "n_name": _distinct_strings([n for n, _ in NATIONS]),
+        "n_regionkey": _numeric(np.array([r for _, r in NATIONS]), INT64),
+        "n_comment": _distinct_strings(_comment_pool(rng, 25)),
+    }
+    return TPCH_TABLES["nation"][2], cols
+
+
+def _supplier(sf: float, seed: int) -> Table:
+    rng = _rng("supplier", seed)
+    n = N_SUPP(sf)
+    keys = np.arange(1, n + 1)
+    nk = rng.integers(0, 25, n)
+    pool = _comment_pool(rng, 1000)
+    # dbgen: some suppliers have 'Customer ... Complaints' comments (Q16)
+    comments = pool[rng.integers(0, 1000, n)].copy()
+    idx = rng.choice(n, max(n // 100, 1), replace=False)
+    comments[idx] = "take Customer deposits Complaints"
+    cols = {
+        "s_suppkey": _numeric(keys, INT64),
+        "s_name": _distinct_strings([f"Supplier#{k:09d}" for k in keys]),
+        "s_address": _strings(pool, rng.integers(0, 1000, n)),
+        "s_nationkey": _numeric(nk, INT64),
+        "s_phone": _phone(rng, nk),
+        "s_acctbal": _numeric(rng.integers(-99999, 999999, n), MONEY),
+        "s_comment": _distinct_strings(comments),
+    }
+    return TPCH_TABLES["supplier"][2], cols
+
+
+def _customer(sf: float, seed: int) -> Table:
+    rng = _rng("customer", seed)
+    n = N_CUST(sf)
+    keys = np.arange(1, n + 1)
+    nk = rng.integers(0, 25, n)
+    pool = _comment_pool(rng, 1000)
+    cols = {
+        "c_custkey": _numeric(keys, INT64),
+        "c_name": _distinct_strings([f"Customer#{k:09d}" for k in keys]),
+        "c_address": _strings(pool, rng.integers(0, 1000, n)),
+        "c_nationkey": _numeric(nk, INT64),
+        "c_phone": _phone(rng, nk),
+        "c_acctbal": _numeric(rng.integers(-99999, 999999, n), MONEY),
+        "c_mktsegment": _strings(SEGMENTS, rng.integers(0, 5, n)),
+        "c_comment": _strings(pool, rng.integers(0, 1000, n)),
+    }
+    return TPCH_TABLES["customer"][2], cols
 
 
 def _orders(sf: float, seed: int) -> Table:
@@ -222,18 +330,22 @@ def _lineitem(sf: float, seed: int, orders: Table) -> Table:
     return TPCH_TABLES["lineitem"][2], cols
 
 
+_GENERATORS = {"region": _region, "nation": _nation, "supplier": _supplier,
+               "customer": _customer, "orders": _orders}
+
+
 def generate_tpch(sf: float, seed: int = 19940101,
                   tables: Optional[Sequence[str]] = None) -> Dict[str, Table]:
-    """{name: (fields, {column: HostColumn})} for orders and/or lineitem."""
+    """{name: (fields, {column: HostColumn})} for the named tables (default:
+    all six ported ones)."""
     names = list(tables or TPCH_TABLES)
     for name in names:
         if name not in TPCH_TABLES:
             raise NotImplementedError(f"TPC-H table {name!r} is not ported yet")
-    orders = _orders(sf, seed)
-    out = {}
-    if "orders" in names:
-        out["orders"] = orders
+    out = {name: _GENERATORS[name](sf, seed)
+           for name in names if name in _GENERATORS}
     if "lineitem" in names:
+        orders = out.get("orders") or _orders(sf, seed)
         out["lineitem"] = _lineitem(sf, seed, orders)
     return out
 

@@ -1,27 +1,57 @@
 """Physical operator tree, run eagerly on torch tensors (port of
 ballista_tpu/exec/plan.py).
 
-Each node's `evaluate` maps {input_id: Batch} to its output Batch on the
-inputs' device; `run_plan` evaluates a whole tree (the JAX package compiled
-it into one XLA program with `compile_stage` instead). Ported so far:
-InputLeaf, OneRowExec, ProjectExec, SortExec and HashAggregateExec in
-`single` mode on the no-key and direct-slot paths.
+Each node's `evaluate` maps a `Run` (the bound inputs, plus the overflow
+flags nodes raise) to its output Batch on the inputs' device; `run_plan`
+evaluates a whole tree (the JAX package compiled it into one XLA program
+with `compile_stage` instead). Ported so far: InputLeaf, OneRowExec,
+FilterExec, ProjectExec, HashAggregateExec in `single` mode (direct-slot
+and sorted layouts), HashJoinExec (unique build; inner, semi and anti),
+SortExec and LimitExec.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..batch import LANE, Batch, Column, round_capacity, row_mask
 from ..exprs import Alias, Col, Expr, bind_expr, expr_name
 from ..ops import segagg
-from ..ops.compact import compaction_perm, gather_batch
+from ..ops.compact import compaction_perm, filter_batch, gather_batch
+from ..ops.gather import gather_columns
+from ..ops.hash import _norm_keys, pack_key_columns, plan_key_packing
 from ..ops.masked_sums import masked_slot_sums
+from ..ops.merge_join import probe_unique
 from ..ops.sort import SortKeySpec, sort_batch
+from ..ops.vsort import compact_batch, sort_batch_columns
 from ..schema import INT64, Field, Schema
 from .aggregate import AggExpr, BoundAgg
+
+# sorted-layout sentinel: dead rows sort behind every normalised key
+DEAD = 2 ** 62
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+class Run:
+    """One evaluation of a plan: its bound inputs, and the overflow flags
+    (0-d bool tensors) raised by nodes whose output outgrew its static
+    capacity. `run_plan` reads them once, at the end."""
+
+    def __init__(self, inputs: Dict[str, Batch]):
+        self.inputs = inputs
+        self.flags: List[torch.Tensor] = []
+
+    def flag_overflow(self, flag: torch.Tensor) -> None:
+        self.flags.append(flag)
 
 
 class ExecNode:
@@ -32,7 +62,7 @@ class ExecNode:
     capacity: int
     children: Tuple["ExecNode", ...] = ()
 
-    def evaluate(self, inputs: Dict[str, Batch]) -> Batch:
+    def evaluate(self, run: Run) -> Batch:
         raise NotImplementedError
 
     def leaves(self) -> List["InputLeaf"]:
@@ -53,6 +83,15 @@ class ExecNode:
         return type(self).__name__
 
 
+def _live_where(b: Batch, pred) -> torch.Tensor:
+    """Live rows of `b` where the bound predicate is true and valid."""
+    live = row_mask(b)
+    if pred is not None:
+        c = pred.fn(b)
+        live = live & c.data.to(torch.bool) & c.validity
+    return live
+
+
 class InputLeaf(ExecNode):
     """Plan input: a table's columns, bound at run time."""
 
@@ -62,8 +101,8 @@ class InputLeaf(ExecNode):
         self.capacity = capacity
         self.children = ()
 
-    def evaluate(self, inputs):
-        return inputs[self.input_id]
+    def evaluate(self, run):
+        return run.inputs[self.input_id]
 
     def _label(self):
         return f"InputLeaf({self.input_id}, cap={self.capacity})"
@@ -79,7 +118,7 @@ class OneRowExec(ExecNode):
         self.device = torch.device(device)
         self.schema = Schema((Field("__one", INT64, nullable=False),), {})
 
-    def evaluate(self, inputs):
+    def evaluate(self, run):
         live = torch.arange(self.capacity, device=self.device) < 1
         data = torch.zeros(self.capacity, dtype=torch.int64, device=self.device)
         return Batch((Column(data, live),),
@@ -87,6 +126,25 @@ class OneRowExec(ExecNode):
 
     def _label(self):
         return "OneRowExec"
+
+
+class FilterExec(ExecNode):
+    """WHERE without an aggregate or join above to fuse it into: the kept
+    rows are compacted to the front."""
+
+    def __init__(self, child: ExecNode, predicate: Expr):
+        self.children = (child,)
+        self.predicate = predicate
+        self.schema = child.schema
+        self.capacity = child.capacity
+        self._bound = bind_expr(predicate, child.schema)
+
+    def evaluate(self, run):
+        b = self.children[0].evaluate(run)
+        return filter_batch(b, self._bound.fn(b))
+
+    def _label(self):
+        return f"FilterExec({self.predicate})"
 
 
 class ProjectExec(ExecNode):
@@ -112,8 +170,8 @@ class ProjectExec(ExecNode):
         self.schema = Schema(fields, dicts, bounds)
         self.capacity = child.capacity
 
-    def evaluate(self, inputs):
-        b = self.children[0].evaluate(inputs)
+    def evaluate(self, run):
+        b = self.children[0].evaluate(run)
         live = row_mask(b)
         cols = []
         for bound in self._bounds:
@@ -126,16 +184,21 @@ class ProjectExec(ExecNode):
 
 
 class HashAggregateExec(ExecNode):
-    """GROUP BY over statically bounded keys (or no keys), mode 'single'
-    (rows -> output). The WHERE clause may ride along as `pre_filter`,
-    fused into the aggregate's live mask.
+    """GROUP BY, mode 'single' (rows -> output). The WHERE clause may ride
+    along as `pre_filter`, fused into the aggregate's live mask.
 
-    Every int64 sum and count of every aggregate goes through ONE
-    `masked_slot_sums` launch; min, max and float sums use the plain
-    MaskedLayout methods."""
+    Keys whose static code bounds multiply to at most MASKED_MAX direct
+    slots (and no keys at all) take the masked layout: every int64 sum and
+    count of every aggregate goes through ONE `masked_slot_sums` launch;
+    min, max and float sums use the plain MaskedLayout methods. Any other
+    GROUP BY sorts the batch by its keys (direct slots up to DIRECT_MAX,
+    else packed or normalised keys) and reduces runs with SortedLayout
+    into `table_size` groups; more groups than that raise the run's
+    overflow flag instead of clipping the answer."""
 
     def __init__(self, child: ExecNode, group_exprs: Sequence[Expr],
                  aggs: Sequence[AggExpr], mode: str = "single",
+                 table_size: Optional[int] = None,
                  group_names: Optional[Sequence[str]] = None,
                  pre_filter: Optional[Expr] = None):
         if mode != "single":
@@ -154,22 +217,55 @@ class HashAggregateExec(ExecNode):
                              else [expr_name(e) for e in group_exprs])
         self._key_nullables = [b.nullable for b in self._group_bounds]
         self._code_bounds = [b.code_bound for b in self._group_bounds]
-        if group_exprs:
-            if any(b is None for b in self._code_bounds):
-                raise NotImplementedError(
-                    "GROUP BY on keys without a static code bound (sorted "
-                    "layout) is not ported yet")
-            T = 1
+        if table_size is None:
+            table_size = min(_next_pow2(max(child.capacity, 16)), 1 << 16)
+        self.table_size = table_size
+        # static grouping-strategy choice: the composite direct-slot count
+        # when every key has a code bound and the product is small enough
+        self._static_direct_T = None
+        if group_exprs and all(b is not None for b in self._code_bounds):
+            prod = 1
             for b, nu in zip(self._code_bounds, self._key_nullables):
-                T *= b + (1 if nu else 0)
-            if T > segagg.MASKED_MAX:
-                raise NotImplementedError(
-                    f"GROUP BY with {T} > {segagg.MASKED_MAX} direct slots "
-                    "(sorted layout) is not ported yet")
+                prod *= b + (1 if nu else 0)
+            if prod <= segagg.DIRECT_MAX:
+                self._static_direct_T = prod
+        self._masked = (not group_exprs or (
+            self._static_direct_T is not None
+            and self._static_direct_T <= segagg.MASKED_MAX))
+        if not group_exprs:
+            self.T = 1
+            self.capacity = LANE
+        elif self._static_direct_T is not None:
+            self.T = self._static_direct_T if self._masked else table_size
+            self.capacity = max(LANE, round_capacity(self._static_direct_T))
         else:
-            T = 1
-        self.T = T
-        self.capacity = max(128, round_capacity(T))
+            # group-count bound from key metadata: distinct group tuples
+            # <= prod over keys of min(dictionary size, int-bound range
+            # width) — hard ingest-time bounds that shrink the table and
+            # the output the operators above carry
+            G = 1
+            cap_now = min(table_size, child.capacity)
+            for gb, nu in zip(self._group_bounds, self._key_nullables):
+                k = gb.code_bound
+                if gb.int_bound is not None:
+                    lo, hi = gb.int_bound
+                    width = int(hi) - int(lo) + 1
+                    k = width if k is None else min(k, width)
+                if k is None or k <= 0:
+                    G = None
+                    break
+                G *= k + (1 if nu else 0)
+                if G >= cap_now:  # bound no tighter than existing sizing
+                    G = None
+                    break
+            if G is not None:
+                table_size = min(table_size, _next_pow2(max(G, 16)))
+                self.table_size = table_size
+            self.T = table_size
+            self.capacity = max(LANE, min(table_size, child.capacity))
+            if G is not None:
+                self.capacity = min(self.capacity,
+                                    max(LANE, round_capacity(G)))
 
         key_fields = tuple(Field(n, b.dtype, b.nullable)
                            for n, b in zip(self._group_names, self._group_bounds))
@@ -201,13 +297,12 @@ class HashAggregateExec(ExecNode):
         agg_fields = tuple(ba.out_field for ba in self._bound_aggs)
         self.schema = Schema(key_fields + agg_fields, dicts, bounds)
 
-    def evaluate(self, inputs):
-        b = self.children[0].evaluate(inputs)
-        live = row_mask(b)
-        if self._pre_bound is not None:
-            mc = self._pre_bound.fn(b)
-            live = live & mc.data.to(torch.bool) & mc.validity
+    def evaluate(self, run):
+        b = self.children[0].evaluate(run)
+        live = _live_where(b, self._pre_bound)
         key_cols = [g.fn(b) for g in self._group_bounds]
+        if not self._masked:
+            return self._evaluate_sorted(run, b, live, key_cols)
         if key_cols:
             slot, T = segagg.direct_slots(key_cols, self._code_bounds, live,
                                           self._key_nullables)
@@ -231,6 +326,42 @@ class HashAggregateExec(ExecNode):
         out_cols = key_out + [ba.finalize(st)
                               for ba, st in zip(self._bound_aggs, states)]
         return self._finish(out_cols, T, n_groups, used)
+
+    def _evaluate_sorted(self, run, b: Batch, live, key_cols):
+        """Sort the whole batch by the group keys (dead rows last), then
+        reduce the runs of equal keys."""
+        if self._static_direct_T is not None:
+            slot, _ = segagg.direct_slots(key_cols, self._code_bounds, live,
+                                          self._key_nullables)
+            norm = [slot.to(torch.int64)]
+        else:
+            # pack bounded keys into shared limbs: fewer sort keys
+            kb = [gb.int_bound
+                  or ((0, gb.code_bound - 1) if gb.code_bound else None)
+                  for gb in self._group_bounds]
+            grp, unp = plan_key_packing(kb, null_slots=True)
+            kcols = key_cols
+            if len(grp) + len(unp) < len(key_cols):
+                kcols = pack_key_columns(key_cols, grp, unp, True)
+            norm = _norm_keys([c.data for c in kcols],
+                              [c.validity for c in kcols])
+        skeys = [torch.where(live, k, DEAD) for k in norm]
+        b, (live,), s_sorted = sort_batch_columns(skeys, b, extra=(live,))
+        # key columns re-evaluated on the sorted batch
+        key_cols = [g.fn(b) for g in self._group_bounds]
+        layout = segagg.layout_from_sorted_keys(s_sorted, live,
+                                                self.table_size)
+        T_used = layout.T  # clamped to row capacity
+        run.flag_overflow(layout.n_groups > T_used)
+        n_groups = layout.n_groups.clamp(max=T_used).to(torch.int32)
+        gvalid = torch.arange(T_used, device=b.device) < n_groups
+        src = layout.run_start
+        out_cols = [Column(kc.data.index_select(0, src),
+                           kc.validity.index_select(0, src) & gvalid)
+                    for kc in key_cols]
+        out_cols += [ba.finalize(ba.partial(b, layout))
+                     for ba in self._bound_aggs]
+        return self._finish(out_cols, T_used, n_groups, None)
 
     def _aggregate(self, b: Batch, layout: segagg.MaskedLayout):
         """(per-slot count(*), per-aggregate state columns).
@@ -285,7 +416,8 @@ class HashAggregateExec(ExecNode):
         return per_slot[count_star], states
 
     def _finish(self, out_cols, T: int, n_groups, used):
-        """Compact the used slots to the front and pad to capacity."""
+        """Compact the used slots to the front (masked layout) and fit the
+        T group rows to the output capacity (n_groups <= capacity)."""
         if used is not None:
             perm, _ = compaction_perm(used)
             out_cols = list(gather_batch(Batch(tuple(out_cols), n_groups),
@@ -295,16 +427,153 @@ class HashAggregateExec(ExecNode):
                             device=n_groups.device) < n_groups
         cols = []
         for c in out_cols:
-            data = torch.zeros(cap, dtype=c.data.dtype, device=c.data.device)
-            data[:T] = c.data
-            valid = torch.zeros(cap, dtype=torch.bool, device=c.data.device)
-            valid[:T] = c.validity
+            data, valid = c.data[:cap], c.validity[:cap]
+            if T < cap:
+                data = torch.cat([data, data.new_zeros(cap - T)])
+                valid = torch.cat([valid, valid.new_zeros(cap - T)])
             cols.append(Column(data, valid & live))
         return Batch(tuple(cols), n_groups)
 
     def _label(self):
         return (f"HashAggregateExec[{self.mode}](keys={self._group_names}, "
                 f"aggs={[a.name for a in self.aggs]}, T={self.T})")
+
+
+class HashJoinExec(ExecNode):
+    """Build on the left child, probe with the right (DataFusion
+    convention), unique build keys only. join_type 'inner' keeps matched
+    probe rows with the build row's columns in front; 'semi' and 'anti'
+    keep the probe rows with and without a match (probe columns only).
+    The output keeps the probe's capacity, matched rows compacted to the
+    front in probe order.
+
+    Not ported yet, and raising NotImplementedError: left and full outer
+    joins and the expanding (duplicate build key) join."""
+
+    def __init__(self, build: ExecNode, probe: ExecNode,
+                 on: Sequence[Tuple[str, str]], join_type: str = "inner",
+                 unique_build: bool = True,
+                 build_pre_filter: Optional[Expr] = None,
+                 probe_pre_filter: Optional[Expr] = None):
+        if join_type not in ("inner", "semi", "anti"):
+            raise NotImplementedError(
+                f"HashJoinExec {join_type} join is not ported yet")
+        # semi/anti only test existence: a duplicate build key is harmless
+        if not (unique_build or join_type in ("semi", "anti")):
+            raise NotImplementedError(
+                "HashJoinExec expanding (duplicate build key) join is not "
+                "ported yet")
+        self.children = (build, probe)
+        self.on = tuple(on)
+        self.join_type = join_type
+        # fused predicates: filtering through the join's live masks
+        self._build_pre = (bind_expr(build_pre_filter, build.schema)
+                           if build_pre_filter is not None else None)
+        self._probe_pre = (bind_expr(probe_pre_filter, probe.schema)
+                           if probe_pre_filter is not None else None)
+        self.capacity = probe.capacity
+        self._build_idx = [build.schema.index_of(a) for a, _ in on]
+        self._probe_idx = [probe.schema.index_of(b) for _, b in on]
+        # dictionary-coded join keys: codes from DIFFERENT dictionaries are
+        # not comparable — remap both sides into the sorted union
+        # dictionary (host-built lookup tables). Shared or remapped
+        # dictionary keys also gain a packing bound of the dictionary size.
+        self._key_luts: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        dict_bounds: Dict[int, tuple] = {}
+        for ki, (a, bn) in enumerate(self.on):
+            da = build.schema.dictionary(a)
+            db = probe.schema.dictionary(bn)
+            if da is None and db is None:
+                continue
+            if da is None or db is None:
+                raise ValueError(
+                    f"join key {a}={bn}: string/non-string mismatch")
+            if da is db or (len(da) == len(db) and bool((da == db).all())):
+                dict_bounds[ki] = (0, max(len(da) - 1, 0))
+                continue
+            union = np.unique(np.concatenate([da.astype(str), db.astype(str)]))
+
+            def _lut(d):
+                m = np.searchsorted(union, d.astype(str)).astype(np.int64)
+                return m if len(m) else np.zeros(1, np.int64)
+
+            self._key_luts[ki] = (_lut(da), _lut(db))
+            dict_bounds[ki] = (0, max(len(union) - 1, 0))
+
+        # multi-key joins: pack bounded keys into shared limbs (both sides
+        # use the merged bounds so equality is preserved)
+        self._key_pack = None
+        if len(on) > 1:
+            merged = []
+            for ki, (a, b) in enumerate(on):
+                if ki in dict_bounds:
+                    merged.append(dict_bounds[ki])
+                    continue
+                ba = build.schema.int_bound(a)
+                pb = probe.schema.int_bound(b)
+                merged.append(None if ba is None or pb is None
+                              else (min(ba[0], pb[0]), max(ba[1], pb[1])))
+            grp, unp = plan_key_packing(merged, null_slots=False)
+            if len(grp) + len(unp) < len(on):
+                self._key_pack = (grp, unp)
+        if join_type in ("semi", "anti"):
+            self.schema = probe.schema
+        else:
+            fields = build.schema.fields + probe.schema.fields
+            dicts = dict(build.schema.dictionaries)
+            dicts.update(probe.schema.dictionaries)
+            bounds = dict(build.schema.int_bounds)
+            bounds.update(probe.schema.int_bounds)
+            names = [f.name for f in fields]
+            if len(set(names)) != len(names):
+                raise ValueError(f"duplicate column names in join output: {names}")
+            self.schema = Schema(fields, dicts, bounds)
+
+    def _keys(self, batch: Batch, idx, side: int) -> List[Column]:
+        keys = [batch.columns[i] for i in idx]
+        for ki, luts in self._key_luts.items():
+            c = keys[ki]
+            lut = torch.from_numpy(luts[side]).to(c.data.device)
+            code = c.data.to(torch.int64).clamp(0, lut.shape[0] - 1)
+            keys[ki] = Column(lut.index_select(0, code), c.validity)
+        if self._key_pack is not None:
+            keys = pack_key_columns(keys, *self._key_pack, False)
+        return keys
+
+    def evaluate(self, run):
+        build_b = self.children[0].evaluate(run)
+        probe_b = self.children[1].evaluate(run)
+        blive = _live_where(build_b, self._build_pre)
+        plive = _live_where(probe_b, self._probe_pre)
+        bkeys = self._keys(build_b, self._build_idx, 0)
+        pkeys = self._keys(probe_b, self._probe_idx, 1)
+        match = probe_unique([c.data for c in bkeys],
+                             [c.validity for c in bkeys], blive,
+                             [c.data for c in pkeys],
+                             [c.validity for c in pkeys], plive)
+        matched = match >= 0
+        if self.join_type in ("semi", "anti"):
+            keep = (matched if self.join_type == "semi" else ~matched) & plive
+            return compact_batch(probe_b, keep)
+
+        # build KEY columns need no gather: the equality join makes their
+        # matched values identical to the probe key's (same-dictionary and
+        # non-dictionary keys only)
+        synth = {}
+        for ki, (bi, pi) in enumerate(zip(self._build_idx, self._probe_idx)):
+            if ki not in self._key_luts:
+                bdt = build_b.columns[bi].data.dtype
+                synth[bi] = Column(probe_b.columns[pi].data.to(bdt), matched)
+        gidx = [i for i in range(len(build_b.columns)) if i not in synth]
+        gathered = iter(gather_columns([build_b.columns[i] for i in gidx],
+                                       match.clamp(min=0), valid_and=matched))
+        build_cols = tuple(synth[i] if i in synth else next(gathered)
+                           for i in range(len(build_b.columns)))
+        joined = Batch(build_cols + probe_b.columns, probe_b.num_rows)
+        return compact_batch(joined, matched & plive)
+
+    def _label(self):
+        return f"HashJoinExec[{self.join_type},unique](on={list(self.on)})"
 
 
 class SortExec(ExecNode):
@@ -319,8 +588,8 @@ class SortExec(ExecNode):
         self._key_bounds = [(bind_expr(e, child.schema), asc, nf)
                             for e, asc, nf in keys]
 
-    def evaluate(self, inputs):
-        b = self.children[0].evaluate(inputs)
+    def evaluate(self, run):
+        b = self.children[0].evaluate(run)
         # materialize key columns alongside, sort, drop keys
         ncols = len(b.columns)
         key_cols = tuple(kb.fn(b) for kb, _, _ in self._key_bounds)
@@ -334,7 +603,42 @@ class SortExec(ExecNode):
         return f"SortExec({[(str(e), asc) for e, asc, _ in self.keys]})"
 
 
-def run_plan(root: ExecNode, inputs: Dict[str, Batch]) -> Batch:
+class LimitExec(ExecNode):
+    """Rows [offset, offset + n) of the child's dense prefix: a static
+    slice, so everything above a LIMIT carries an n-row batch."""
+
+    def __init__(self, child: ExecNode, n: int, offset: int = 0):
+        self.children = (child,)
+        self.n = n
+        self.offset = offset
+        self.schema = child.schema
+        self.capacity = max(1, min(child.capacity - offset, n))
+
+    def evaluate(self, run):
+        b = self.children[0].evaluate(run)
+        cap = self.capacity
+        # clamp so the slice always yields `cap` rows even when offset
+        # exceeds the child's capacity (the result is all-dead then)
+        lo = min(self.offset, self.children[0].capacity - cap)
+        new_rows = (b.num_rows - self.offset).clamp(0, self.n).to(torch.int32)
+        live = torch.arange(cap, dtype=torch.int32, device=b.device) < new_rows
+        return Batch(tuple(Column(c.data[lo:lo + cap],
+                                  c.validity[lo:lo + cap] & live)
+                           for c in b.columns), new_rows)
+
+    def _label(self):
+        off = f", offset={self.offset}" if self.offset else ""
+        return f"LimitExec({self.n}{off})"
+
+
+def run_plan(root: ExecNode, inputs: Dict[str, Batch]):
     """Evaluate a plan over {input_id: Batch} (the port's compile_stage:
-    eager torch needs no compilation step)."""
-    return root.evaluate(inputs)
+    eager torch needs no compilation step). Returns (Batch, overflow):
+    overflow is a 0-d bool tensor on the device, the OR of every node's
+    flag, or None when no node of the plan can overflow."""
+    run = Run(inputs)
+    out = root.evaluate(run)
+    overflow = None
+    for flag in run.flags:
+        overflow = flag if overflow is None else overflow | flag
+    return out, overflow

@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch
 
-from ..batch import Batch, Column
+from ..batch import Batch, Column, row_mask
+from .gather import gather_columns
 
 
 def compaction_perm(keep: torch.Tensor):
@@ -16,7 +17,22 @@ def compaction_perm(keep: torch.Tensor):
 def gather_batch(batch: Batch, perm: torch.Tensor,
                  num_rows: torch.Tensor) -> Batch:
     """Reorder every column (data and validity) by `perm`."""
-    cols = tuple(Column(c.data.index_select(0, perm),
-                        c.validity.index_select(0, perm))
-                 for c in batch.columns)
-    return Batch(cols, num_rows.to(torch.int32))
+    return Batch(tuple(gather_columns(batch.columns, perm)),
+                 num_rows.to(torch.int32))
+
+
+def filter_batch(batch: Batch, mask_col: Column) -> Batch:
+    """Apply a boolean predicate column: keep rows where it is true and
+    valid (SQL WHERE drops NULL predicates), compacted to the front."""
+    from .vsort import compact_batch
+    keep = mask_col.data.to(torch.bool) & mask_col.validity & row_mask(batch)
+    return compact_batch(batch, keep)
+
+
+def limit_batch(batch: Batch, n: int) -> Batch:
+    """The first `n` live rows; the capacity stays."""
+    new_rows = torch.clamp(batch.num_rows, max=n).to(torch.int32)
+    live = torch.arange(batch.capacity, dtype=torch.int32,
+                        device=batch.device) < new_rows
+    return Batch(tuple(Column(c.data, c.validity & live)
+                       for c in batch.columns), new_rows)

@@ -11,6 +11,10 @@ A CUDA tensor goes to the hand-written kernel in `csrc/masked_slot_sums.cu`,
 built with nvcc at first use into `build/kernels/` and loaded with ctypes.
 A CPU tensor goes to `masked_slot_sums_reference`, the plain PyTorch
 version, which the tests and `chip_smoke.py` also hold the kernel against.
+
+The kernel keeps a block's T x A accumulators in shared memory, so a call
+whose T x A exceeds that budget is split into launches over row chunks of
+`contribs` (chunks of A), whose results are concatenated along A.
 """
 
 from __future__ import annotations
@@ -63,12 +67,17 @@ def _check(row_slot: torch.Tensor, contribs: torch.Tensor, T: int) -> None:
                          f"{contribs.device}")
     if not (row_slot.is_contiguous() and contribs.is_contiguous()):
         raise ValueError("row_slot and contribs must be contiguous")
-    if T < 1:
-        raise ValueError(f"T must be >= 1, got {T}")
-    if T * contribs.shape[0] * 8 > SMEM_BYTES:
-        raise ValueError(f"T * A = {T * contribs.shape[0]} accumulators "
-                         f"exceed the kernel's {SMEM_BYTES} B of shared "
-                         "memory")
+    if not 1 <= T <= SMEM_BYTES // 8:
+        raise ValueError(f"T must be in [1, {SMEM_BYTES // 8}] (one "
+                         f"contribution row of T int64 accumulators must fit "
+                         f"the kernel's {SMEM_BYTES} B of shared memory), "
+                         f"got {T}")
+
+
+def a_chunk(T: int) -> int:
+    """Most contribution rows one launch takes at T slots: its T x chunk
+    int64 accumulators must fit the kernel's shared memory."""
+    return SMEM_BYTES // (8 * T)
 
 
 def _nvcc() -> str:
@@ -115,8 +124,8 @@ def masked_slot_sums(row_slot: torch.Tensor, contribs: torch.Tensor,
     """int32[n] slots, int64[A, n] contributions -> int64[T, A] sums.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream (or raise). `masked_slot_sums.launches` counts the
-    kernel launches."""
+    the current stream (or raise), once per chunk of `a_chunk(T)` rows of
+    `contribs`. `masked_slot_sums.launches` counts the kernel launches."""
     _check(row_slot, contribs, T)
     dev = row_slot.device
     if dev.type == "cpu":
@@ -124,9 +133,21 @@ def masked_slot_sums(row_slot: torch.Tensor, contribs: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"masked_slot_sums: unsupported device {dev}")
     A, n = contribs.shape
-    out = torch.zeros((T, A), dtype=torch.int64, device=dev)
+    chunk = a_chunk(T)
     if n == 0 or A == 0:
-        return out
+        return torch.zeros((T, A), dtype=torch.int64, device=dev)
+    if A > chunk:
+        return torch.cat([_launch(row_slot, contribs[a:a + chunk], T)
+                          for a in range(0, A, chunk)], dim=1)
+    return _launch(row_slot, contribs, T)
+
+
+def _launch(row_slot: torch.Tensor, contribs: torch.Tensor,
+            T: int) -> torch.Tensor:
+    """One kernel launch; T x A must fit the shared-memory budget."""
+    dev = row_slot.device
+    A, n = contribs.shape
+    out = torch.zeros((T, A), dtype=torch.int64, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count

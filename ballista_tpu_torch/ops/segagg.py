@@ -1,4 +1,4 @@
-"""Direct-slot group aggregation (port of ballista_tpu/ops/segagg.py).
+"""Group aggregation layouts (port of ballista_tpu/ops/segagg.py).
 
 When every group key has a small static code bound (dictionary size, 2 for
 bool), the group slot is a direct composite of the key codes: no hash
@@ -6,7 +6,12 @@ table, no sort. `MaskedLayout` then reduces each aggregate into T slots.
 Integer sums and counts go through `masked_slot_sums` (the hand-written
 kernel on the card); min, max and float sums stay plain torch.
 
-The sorted layout for large or unbounded group counts is not ported yet.
+Any other GROUP BY sorts the batch by its keys first: equal keys form
+adjacent runs, and `SortedLayout` reduces each run (sums and counts as
+differences of running sums at run ends, extrema by a scatter-reduce over
+the run id, which the GPU does cheaply where the TPU needed binary
+lifting). The reference's `fused_sorted_aggregate` and percentile are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -133,3 +138,103 @@ def decode_direct_slot(slot_ids: torch.Tensor, key_cols: Sequence[Column],
         out.append(Column(code.to(col.data.dtype), valid))
         stride *= width
     return out
+
+
+class SortedLayout(NamedTuple):
+    """Runs of equal keys over a batch already sorted by them, dead rows
+    at the back. Group g is the g-th run; T is the static output size."""
+    run_id: torch.Tensor       # (n,) int64 group per sorted row; dead -> n
+    run_start: torch.Tensor    # (T,) int64 first sorted row of each run
+    run_end: torch.Tensor      # (T,) int64 last sorted row of each run
+    n_groups: torch.Tensor     # () int64, may exceed T (overflow)
+    live_sorted: torch.Tensor  # (n,) bool
+    T: int
+
+    def _valid(self):
+        return torch.arange(self.T, device=self.run_end.device) < self.n_groups
+
+    def _per_run(self, values):
+        """Per-run sums of `values` (zero on dead rows): differences of the
+        running sum at run ends. Runs are adjacent, so the previous run's
+        end is this run's start - 1. int64 wraps mod 2^64, which is exact
+        for the signed total."""
+        csum = torch.cumsum(values, 0, dtype=values.dtype)
+        end = csum.index_select(0, self.run_end)
+        prev = torch.cat([end.new_zeros(1), end[:-1]])
+        valid = self._valid()
+        return torch.where(valid, end - prev, torch.zeros_like(end)), valid
+
+    def _count_ok(self, ok):
+        return self._per_run(ok.to(torch.int64))
+
+    def sum(self, values, validity):
+        ok = validity & self.live_sorted
+        s, valid = self._per_run(torch.where(ok, values,
+                                             torch.zeros_like(values)))
+        cnt, _ = self._count_ok(ok)
+        return s, valid & (cnt > 0)
+
+    def count(self, values, validity):
+        return self._count_ok(validity & self.live_sorted)
+
+    def count_star(self):
+        return self._count_ok(self.live_sorted)
+
+    def _extreme(self, values, validity, is_min):
+        ok = validity & self.live_sorted
+        if values.dtype.is_floating_point:
+            sent = float("inf") if is_min else float("-inf")
+        else:
+            info = torch.iinfo(values.dtype)
+            sent = info.max if is_min else info.min
+        out = torch.full((self.T + 1,), sent, dtype=values.dtype,
+                         device=values.device)
+        out.scatter_reduce_(0, self.run_id.clamp(max=self.T),
+                            torch.where(ok, values, sent),
+                            "amin" if is_min else "amax")
+        cnt, valid = self._count_ok(ok)
+        valid = valid & (cnt > 0)
+        return torch.where(valid, out[:self.T], torch.zeros_like(out[:1])), valid
+
+    def min(self, values, validity):
+        return self._extreme(values, validity, True)
+
+    def max(self, values, validity):
+        return self._extreme(values, validity, False)
+
+    def carry(self, values, validity):
+        """Any value of the group (all equal by construction — the
+        functional-dependency group-key demotion): the run end's."""
+        ok = (validity & self.live_sorted).index_select(0, self.run_end)
+        valid = self._valid() & ok
+        out = values.index_select(0, self.run_end)
+        return torch.where(valid, out, torch.zeros_like(out)), valid
+
+
+def layout_from_sorted_keys(s_keys: Sequence[torch.Tensor],
+                            live_sorted: torch.Tensor, T: int) -> SortedLayout:
+    """SortedLayout over already-sorted key limbs (dead rows sentineled to
+    the back); aggregate inputs must arrive sorted the same way."""
+    n = s_keys[0].shape[0]
+    return _run_layout(list(s_keys), live_sorted, n, min(T, n))
+
+
+def _run_layout(s_keys, live_sorted, n: int, T: int) -> SortedLayout:
+    from .vsort import first_positions
+    dev = live_sorted.device
+    pos = torch.arange(n, device=dev)
+    prev_same = torch.ones(n, dtype=torch.bool, device=dev)
+    for k in s_keys:
+        rolled = torch.cat([k[:1], k[:-1]])
+        prev_same = prev_same & (k == rolled)
+    first = live_sorted & (~prev_same | (pos == 0))
+    firsts_csum = torch.cumsum(first.to(torch.int64), 0)
+    run_id = torch.where(live_sorted, firsts_csum - 1, n)
+    n_groups = firsts_csum[-1]
+    run_start = first_positions(first, T).clamp(0, n - 1)
+    next_start = torch.cat([run_start[1:], run_start.new_full((1,), n)])
+    total_live = live_sorted.sum()
+    gid = torch.arange(T, device=dev)
+    run_end = torch.where(gid + 1 < n_groups, next_start - 1,
+                          total_live - 1).clamp(0, n - 1)
+    return SortedLayout(run_id, run_start, run_end, n_groups, live_sorted, T)

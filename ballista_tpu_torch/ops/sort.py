@@ -17,6 +17,7 @@ import torch
 
 from ..batch import Batch, row_mask
 from .compact import gather_batch
+from .vsort import lex_perm
 
 
 class SortKeySpec(NamedTuple):
@@ -44,14 +45,9 @@ def _rankable(data: torch.Tensor, valid: torch.Tensor,
 
 def sort_perm(batch: Batch, keys: Sequence[SortKeySpec]) -> torch.Tensor:
     """Permutation sorting live rows by keys; dead rows go last."""
-    perm = torch.arange(batch.capacity, device=batch.device)
-    for spec in reversed(list(keys)):
-        col = batch.columns[spec.col_index]
-        k = _rankable(col.data.index_select(0, perm),
-                      col.validity.index_select(0, perm), spec)
-        perm = perm.index_select(0, torch.sort(k, stable=True).indices)
-    dead = (~row_mask(batch)).index_select(0, perm).to(torch.uint8)
-    return perm.index_select(0, torch.sort(dead, stable=True).indices)
+    ranks = [_rankable(batch.columns[s.col_index].data,
+                       batch.columns[s.col_index].validity, s) for s in keys]
+    return lex_perm([(~row_mask(batch)).to(torch.uint8)] + ranks)
 
 
 def sort_batch(batch: Batch, keys: Sequence[SortKeySpec]) -> Batch:

@@ -1,24 +1,38 @@
 """Lower a LogicalPlan to an ExecNode tree (port of
 ballista_tpu/planner/physical.py).
 
-Ported: Scan, Projection, Aggregate (with its WHERE fused into the
-aggregate's live mask), Sort and OneRow. Every other logical node raises
+Ported: Scan, Projection, Filter, Aggregate and Distinct (with a WHERE
+fused into the aggregate's live mask), non-cross Join (with the filters
+directly under each side fused into the join's live masks), Sort, Limit
+and OneRow. Cross joins, and every other logical node, raise
 NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional
 
-from ..exec.plan import (ExecNode, HashAggregateExec, InputLeaf, OneRowExec,
-                         ProjectExec, SortExec)
-from ..exprs import BinOp
+from ..exec.plan import (ExecNode, FilterExec, HashAggregateExec, HashJoinExec,
+                         InputLeaf, LimitExec, OneRowExec, ProjectExec,
+                         SortExec, _next_pow2)
+from ..exprs import BinOp, Col
 from . import logical as L
+
+
+@dataclasses.dataclass
+class PhysicalOptions:
+    # cap on sorted-layout group slots (power of two); more groups than
+    # the table holds trip the overflow flag, and the client retries with
+    # 4x the cap. (The reference's join_out_factor sizes the expanding
+    # join's output, and group_table_hint the distributed runtime's
+    # tables: neither is ported yet.)
+    max_group_table: int = 1 << 21
 
 
 def _strip_filters(p: L.LogicalPlan):
     """Peel Filter nodes off a plan; returns (inner, conjoined predicate).
-    Used to fuse filtering into the aggregation live-mask."""
+    Used to fuse filtering into aggregation and join live masks."""
     preds = []
     while isinstance(p, L.Filter):
         preds.append(p.predicate)
@@ -31,12 +45,22 @@ def _strip_filters(p: L.LogicalPlan):
     return p, out
 
 
+def _is_cross(p: L.LogicalPlan) -> bool:
+    return isinstance(p, L.Join) and p.how == "cross"
+
+
 def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
+                         options: Optional[PhysicalOptions] = None,
                          device="cpu") -> ExecNode:
     """capacities: table_name -> row capacity of its (single) partition;
     `device` is where FROM-less rows are made (scans bring their own)."""
     from .optimizer import prune_columns, reduce_group_keys
+    opts = options or PhysicalOptions()
     plan = prune_columns(reduce_group_keys(plan))
+
+    def table_size(child: ExecNode) -> int:
+        return min(_next_pow2(max(2 * child.capacity, 16)),
+                   opts.max_group_table)
 
     def lower(p: L.LogicalPlan) -> ExecNode:
         if isinstance(p, L.OneRow):
@@ -50,17 +74,46 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
                 iid = p.table_name + "::" + ",".join(p.projection)
                 return InputLeaf(iid, p.table_schema.select(p.projection), cap)
             return InputLeaf(p.table_name, p.table_schema, cap)
+        if isinstance(p, L.Filter):
+            if _is_cross(p.input):
+                raise NotImplementedError(
+                    "NestedLoopJoinExec / CrossJoinExec (a filtered cross "
+                    "join) is not ported yet")
+            return FilterExec(lower(p.input), p.predicate)
         if isinstance(p, L.Projection):
             return ProjectExec(lower(p.input), list(p.exprs),
                                names=list(p.names) if p.names else None)
         if isinstance(p, L.Aggregate):
             inp, pred = _strip_filters(p.input)
+            if pred is not None and _is_cross(inp):
+                raise NotImplementedError(
+                    "NestedLoopJoinExec / CrossJoinExec (a filtered cross "
+                    "join) is not ported yet")
+            child = lower(inp)
             return HashAggregateExec(
-                lower(inp), list(p.group_exprs), list(p.aggs), mode="single",
+                child, list(p.group_exprs), list(p.aggs), mode="single",
+                table_size=table_size(child),
                 group_names=list(p.group_names) if p.group_names else None,
                 pre_filter=pred)
+        if isinstance(p, L.Distinct):
+            child = lower(p.input)
+            return HashAggregateExec(
+                child, [Col(f.name) for f in child.schema.fields], [],
+                mode="single", table_size=table_size(child))
         if isinstance(p, L.Sort):
             return SortExec(lower(p.input), list(p.keys))
+        if isinstance(p, L.Limit):
+            return LimitExec(lower(p.input), p.n, getattr(p, "offset", 0))
+        if isinstance(p, L.Join):
+            if p.how == "cross":
+                raise NotImplementedError("CrossJoinExec is not ported yet")
+            # (outer joins raise in HashJoinExec, which names them)
+            binner, bpred = _strip_filters(p.left)
+            pinner, ppred = _strip_filters(p.right)
+            return HashJoinExec(lower(binner), lower(pinner), list(p.on),
+                                p.how, unique_build=p.unique_build,
+                                build_pre_filter=bpred,
+                                probe_pre_filter=ppred)
         raise NotImplementedError(
             f"{type(p).__name__} is not ported yet")
 

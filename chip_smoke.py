@@ -1,7 +1,7 @@
 """Smoke test of ballista_tpu_torch on one NVIDIA GPU: builds the port's
-CUDA kernel, holds it against its plain PyTorch version, then runs TPC-H Q1
-at SF1 end to end through SessionContext(device="cuda") and checks the
-answer exactly.
+CUDA kernel, holds it against its plain PyTorch version, then runs TPC-H Q1,
+Q3 and Q5 at SF1 end to end through SessionContext(device="cuda") and
+checks each answer exactly.
 
     python3 chip_smoke.py
 
@@ -15,11 +15,19 @@ Phases:
    answers/sf1/answers/q1.out; the kernel's launch count on that run;
    timings;
 5. kernel vs plain version again, on the tensors Q1 passed the kernel,
-   with both times (these are the times the JSON line reports).
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}. Any failure raises (exit code 1).
+   with both times (these are the times the JSON line reports);
+6. the join slice: all six tables at SF1 (seed 19940101), Q3 and Q5
+   through the joins, the sorted-layout aggregate (Q3) and the kernel
+   (Q5's n_name aggregate); exact checks against answers/sf1/answers/q3.out
+   and q5.out, and Q5 against a numpy computation on the host columns;
+   the kernel's launches and call shape on Q5, the kernel against its plain
+   version on Q5's own inputs with both times; first-run and warm times.
+The line before the last is a JSON object describing each kernel (its
+launches summed over the Q1, Q3 and Q5 runs); the last line is
+{"ok": true, "device": {...}}. Any failure raises (exit code 1).
 """
 
+import datetime
 import decimal
 import json
 import os
@@ -28,12 +36,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
-from ballista_tpu_torch.batch import round_capacity
+from ballista_tpu_torch.batch import round_capacity, to_numpy
 from ballista_tpu_torch.benchmarks import TPCH_QUERIES
 from ballista_tpu_torch.client import SessionContext
-from ballista_tpu_torch.datagen import generate_tpch
+from ballista_tpu_torch.datagen import TPCH_TABLES, generate_tpch
 from ballista_tpu_torch.exec import plan as plan_mod
 from ballista_tpu_torch.exprs import parse_date
 from ballista_tpu_torch.ops import masked_sums
@@ -47,8 +56,12 @@ LINEITEM_ROWS = 5_998_239          # lineitem at SF1 from this generator
 # (2 statuses + NULL): the columns are nullable)
 Q1_T, Q1_A = 12, 11
 Q1_N = round_capacity(LINEITEM_ROWS)
-ANSWERS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "answers", "sf1", "answers", "q1.out")
+ANSWER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "answers", "sf1", "answers")
+# Q5's kernel call: sum and count of the revenue expression and count(*)
+# over 26 direct slots (25 nations + NULL), n = lineitem's capacity, which
+# an inner unique join keeps from its probe side
+Q5_T, Q5_A = 26, 3
 BIG = 2 ** 62
 
 
@@ -162,31 +175,43 @@ def numpy_q1(cols):
     return out
 
 
-def check_answers(got, schema):
-    """Exact match with q1.out at its printed scale (decimals quantized as
-    ballista_tpu.datagen.tbl.diff_expected renders them)."""
-    with open(ANSWERS) as f:
+def _render(value, valid, dtype, places):
+    """One cell as the answer files print it (ballista_tpu.datagen.tbl
+    renders through pandas: dates as timestamps, decimals quantized to the
+    answer's scale)."""
+    if not valid:
+        return ""
+    if dtype.kind is TypeKind.DECIMAL:
+        return str(decimal.Decimal(int(value)).scaleb(-dtype.scale)
+                   .quantize(decimal.Decimal(1).scaleb(-places)))
+    if dtype.kind is TypeKind.DATE32:
+        day = datetime.date(1970, 1, 1) + datetime.timedelta(days=int(value))
+        return f"{day.isoformat()} 00:00:00"
+    return str(value)
+
+
+def check_answers(got, schema, q):
+    """Exact match with answers/sf1/answers/q{q}.out at its printed scale:
+    position-wise, or, where ORDER BY leaves ties, after sorting both
+    sides' rows (ballista_tpu.datagen.tbl.diff_expected's rule)."""
+    with open(os.path.join(ANSWER_DIR, f"q{q}.out")) as f:
         lines = [line.rstrip("\n") for line in f if line.strip()]
     header = lines[0].split("|")
     rows = [line.split("|") for line in lines[1:]]
     names = [f.name for f in schema.fields]
     if header != names:
-        raise AssertionError(f"columns {names} != answer header {header}")
-    if len(rows) != len(got[names[0]][0]):
-        raise AssertionError(f"{len(got[names[0]][0])} rows, answer has "
-                             f"{len(rows)}")
-    for i, row in enumerate(rows):
-        for f, want in zip(schema.fields, row):
-            value = got[f.name][0][i]
-            if f.dtype.kind is TypeKind.DECIMAL:
-                places = len(want.split(".")[1]) if "." in want else 0
-                text = str(decimal.Decimal(int(value)).scaleb(-f.dtype.scale)
-                           .quantize(decimal.Decimal(1).scaleb(-places)))
-            else:
-                text = str(value)
-            if text != want:
-                raise AssertionError(f"q1.out row {i} {f.name}: got {text}, "
-                                     f"answer {want}")
+        raise AssertionError(f"q{q}: columns {names} != answer header {header}")
+    n = len(got[names[0]][0])
+    if len(rows) != n:
+        raise AssertionError(f"q{q}: {n} rows, answer has {len(rows)}")
+    places = [len(c.split(".")[1]) if "." in c else 0 for c in rows[0]] \
+        if rows else []
+    mine = [[_render(got[f.name][0][i], got[f.name][1][i], f.dtype, p)
+             for f, p in zip(schema.fields, places)] for i in range(n)]
+    if mine != rows and sorted(mine) != sorted(rows):
+        bad = next(i for i in range(n) if mine[i] != rows[i])
+        raise AssertionError(f"q{q}.out row {bad}: got {mine[bad]}, "
+                             f"answer {rows[bad]}")
 
 
 def phase_q1():
@@ -244,7 +269,7 @@ def phase_q1():
         if row != want[key]:
             raise AssertionError(f"group {key}: {row} != numpy {want[key]}")
     log("phase 4: result equals the numpy computation exactly")
-    check_answers(got, schema)
+    check_answers(got, schema, 1)
     log("phase 4: result equals answers/sf1/answers/q1.out exactly")
 
     warm = []
@@ -271,6 +296,128 @@ def phase_q1_inputs(slot, contribs, T):
     return err, ms, plain
 
 
+def numpy_q5(tables):
+    """Q5 over the host columns in numpy: {n_name: revenue at scale 4}."""
+    def col(table, name):
+        return tables[table][1][name]
+
+    def decode(table, name):
+        c = col(table, name)
+        return c.dictionary[c.values]
+
+    asia = col("region", "r_regionkey").values[
+        decode("region", "r_name") == "ASIA"]
+    n_key = col("nation", "n_nationkey").values
+    n_asia = np.isin(col("nation", "n_regionkey").values, asia)
+    nation_name = dict(zip(n_key, decode("nation", "n_name")))
+    # dense key -> attribute lookups (keys are 1..N, order keys sparse)
+    s_nation = np.full(col("supplier", "s_suppkey").values.max() + 1, -1)
+    s_nation[col("supplier", "s_suppkey").values] = \
+        col("supplier", "s_nationkey").values
+    c_nation = np.full(col("customer", "c_custkey").values.max() + 1, -1)
+    c_nation[col("customer", "c_custkey").values] = \
+        col("customer", "c_nationkey").values
+    odate = col("orders", "o_orderdate").values
+    o_ok = (odate >= parse_date("1994-01-01")) & (odate < parse_date("1995-01-01"))
+    okey = col("orders", "o_orderkey").values
+    o_cnation = np.full(okey.max() + 1, -1)
+    o_cnation[okey[o_ok]] = c_nation[col("orders", "o_custkey").values[o_ok]]
+    l_cn = o_cnation[col("lineitem", "l_orderkey").values]
+    l_sn = s_nation[col("lineitem", "l_suppkey").values]
+    m = (l_cn >= 0) & (l_cn == l_sn) & n_asia[np.clip(l_sn, 0, None)]
+    rev = (col("lineitem", "l_extendedprice").values[m]
+           * (100 - col("lineitem", "l_discount").values[m]))
+    out = {}
+    for nk in np.unique(l_sn[m]):
+        out[nation_name[nk]] = int(rev[l_sn[m] == nk].sum())
+    return out
+
+
+def run_query(ctx, q, phase):
+    """First run (with every masked_slot_sums call recorded), answer
+    check, warm median of 10. Returns (launches, calls, rows)."""
+    calls = []
+    real = plan_mod.masked_slot_sums
+
+    def spy(row_slot, contribs, T):
+        calls.append((row_slot, contribs, T))
+        return real(row_slot, contribs, T)
+
+    df = ctx.sql(TPCH_QUERIES[q])
+    masked_sums.masked_slot_sums.launches = 0
+    plan_mod.masked_slot_sums = spy
+    try:
+        t0 = time.perf_counter()
+        batch, schema = df.collect()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    finally:
+        plan_mod.masked_slot_sums = real
+    launches = masked_sums.masked_slot_sums.launches
+    shapes = [(tuple(c.shape), T) for _, c, T in calls]
+    log(f"phase {phase}: Q{q} first run {first_s:.4f} s; masked_slot_sums "
+        f"launches {launches}, calls at (A, n), T = {shapes}")
+    got = to_numpy(batch, schema)
+    check_answers(got, schema, q)
+    log(f"phase {phase}: Q{q} result equals answers/sf1/answers/q{q}.out "
+        "exactly")
+    warm = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        df.collect()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    med = statistics.median(warm)
+    log(f"phase {phase}: Q{q} warm runs (s) {[round(w, 6) for w in warm]}")
+    log(f"phase {phase}: Q{q} warm median {med * 1e3:.3f} ms, "
+        f"{LINEITEM_ROWS / med:.0f} lineitem rows/s")
+    return launches, calls, got
+
+
+def phase_joins():
+    t0 = time.perf_counter()
+    tables = generate_tpch(SF, SEED)
+    n_rows = {name: len(cols[f[0].name].values)
+              for name, (f, cols) in tables.items()}
+    if n_rows["lineitem"] != LINEITEM_ROWS:
+        raise AssertionError(f"lineitem has {n_rows['lineitem']} rows at SF1")
+    ctx = SessionContext(device="cuda")
+    for name, (fields, cols) in tables.items():
+        ctx.register_host(name, fields, cols, primary_key=TPCH_TABLES[name][1])
+    for q in (3, 5):
+        df = ctx.sql(TPCH_QUERIES[q])
+        ctx.bind_inputs([leaf.input_id
+                         for leaf in ctx.physical_plan(df.plan).leaves()])
+    torch.cuda.synchronize()
+    log(f"phase 6: datagen + upload {time.perf_counter() - t0:.3f} s "
+        f"({n_rows})")
+
+    q3_launches, _, _ = run_query(ctx, 3, 6)
+    q5_launches, calls, got = run_query(ctx, 5, 6)
+    if q5_launches < 1:
+        raise AssertionError("Q5 ran without launching masked_slot_sums")
+    shapes = [(tuple(c.shape), T) for _, c, T in calls]
+    if shapes != [((Q5_A, Q1_N), Q5_T)]:
+        raise AssertionError(f"Q5's kernel calls {shapes} differ from "
+                             f"({Q5_A}, {Q1_N}), {Q5_T}")
+    want = numpy_q5(tables)
+    mine = {k: int(v) for k, v in zip(got["n_name"][0], got["revenue"][0])}
+    if mine != want or list(got["revenue"][0]) != sorted(want.values(),
+                                                         reverse=True):
+        raise AssertionError(f"Q5 {mine} != numpy {want}")
+    log("phase 6: Q5 result equals the numpy computation exactly")
+
+    slot, contribs, T = calls[0]
+    err = compare(slot, contribs, T)
+    ms, plain = time_both(slot, contribs, T)
+    live = int((slot < T).sum())
+    log(f"phase 6: Q5's own kernel inputs (n={slot.shape[0]}, {live} live "
+        f"rows, T={T}, A={contribs.shape[0]}): equal; kernel {ms:.4f} ms "
+        f"({(4 + 8 * contribs.shape[0]) * slot.shape[0] / ms / 1e6:.1f} GB/s "
+        f"of reads), plain {plain:.4f} ms")
+    return q3_launches + q5_launches, err
+
+
 def main():
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -289,12 +436,14 @@ def main():
     max_err = phase_kernel()
     launches, q1_call = phase_q1()
     err, ms, plain_ms = phase_q1_inputs(*q1_call)
+    join_launches, join_err = phase_joins()
 
     print(json.dumps({"kernels": [{
         "name": "masked_slot_sums", "route": "cuda",
         "source": "ballista_tpu_torch/csrc/masked_slot_sums.cu",
         "replaces": "ballista_tpu/ops/pallas_agg.py:106",
-        "launches": launches, "max_abs_err": max(max_err, err),
+        "launches": launches + join_launches,
+        "max_abs_err": max(max_err, err, join_err),
         "ms": ms, "plain_ms": plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,230 @@
+"""The join slice end to end: SQL through ballista_tpu_torch's SessionContext
+on the CPU against ballista_tpu's on JAX-CPU, over the same six TPC-H
+tables at SF 0.01 (seed 19940101). TPC-H Q3 and Q5, semi and anti joins,
+a string join key whose sides have different dictionaries, sorted-layout
+GROUP BYs, FilterExec, LimitExec, the overflow retry and the direct-slot
+aggregate whose kernel call must be split. Every comparison is exact:
+int64 values, validity and decoded strings."""
+
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+from ballista_tpu.batch import ingest_column_host, schema_from_arrow, to_numpy
+from ballista_tpu.client import SessionContext as JaxContext
+from ballista_tpu.datagen.tpch import TPCH_TABLES as REF_TABLES, generate_table
+from ballista_tpu_torch.batch import to_numpy as port_to_numpy
+from ballista_tpu_torch.benchmarks import TPCH_QUERIES
+from ballista_tpu_torch.client import SessionContext
+from ballista_tpu_torch.datagen import (TPCH_TABLES, from_ingested,
+                                        generate_tpch, register_tpch)
+from ballista_tpu_torch.planner.physical import PhysicalOptions
+from ballista_tpu_torch.schema import DataType, Field, TypeKind
+
+torch.set_num_threads(2)
+
+SF = 0.01
+
+# string keys from two different dictionaries, NULLs on both sides
+KEYS_A = pa.table({"a_k": ["apple", "banana", "cherry", None, "fig", "kiwi"],
+                   "a_v": pa.array([1, 2, 3, 4, 5, 6], type=pa.int64())})
+KEYS_B = pa.table({"b_k": ["kiwi", "banana", None, "banana", "grape", "apple",
+                           "zucchini", "fig"],
+                   "b_w": pa.array([10, 20, 30, 40, 50, 60, 70, 80],
+                                   type=pa.int64())})
+
+# 60 direct slots ((3 + NULL) x (2 + NULL) x (4 + NULL)) and 52 distinct
+# sums: one kernel call of A = 1 + 52 + 52 = 105 rows, T x A x 8 > 48 KiB
+WIDE_SUMS = ("select l_returnflag, l_linestatus, l_shipinstruct, "
+             + ", ".join(f"sum(l_quantity + {k}) as s{k}" for k in range(1, 53))
+             + " from lineitem group by l_returnflag, l_linestatus, "
+             "l_shipinstruct order by l_returnflag, l_linestatus, l_shipinstruct")
+
+QUERIES = {
+    "q3": TPCH_QUERIES[3],
+    "q5": TPCH_QUERIES[5],
+    # IN (subquery): a Distinct under a semi join
+    "semi_in": """
+        select o_orderpriority, count(*) as n from orders
+        where o_orderkey in (select l_orderkey from lineitem
+                             where l_quantity > 45)
+        group by o_orderpriority order by o_orderpriority""",
+    # equi-correlated NOT EXISTS: an anti join
+    "anti_not_exists": """
+        select c_custkey, c_name from customer
+        where not exists (select * from orders where o_custkey = c_custkey)
+        order by c_custkey""",
+    "string_key": """
+        select a_k, a_v, b_w from keys_a, keys_b where a_k = b_k
+        order by b_w""",
+    # a build-side pre-filter on a string column, two-key join off Q5
+    "filtered_build": """
+        select s_name, n_name from supplier, nation
+        where s_nationkey = n_nationkey and n_name < 'C' order by s_name""",
+    "two_keys": """
+        select n_name, count(*) as n, sum(l_extendedprice) as v
+        from customer, orders, lineitem, supplier, nation
+        where c_custkey = o_custkey and l_orderkey = o_orderkey
+          and l_suppkey = s_suppkey and c_nationkey = s_nationkey
+          and s_nationkey = n_nationkey
+        group by n_name order by n_name""",
+    # sorted layout over 480 direct slots: min, max, avg, count, sum
+    "direct_sorted": """
+        select l_shipmode, l_shipinstruct, l_returnflag, l_linestatus,
+               count(*) as n, sum(l_quantity) as q, min(l_shipdate) as a,
+               max(l_discount) as b, avg(l_tax) as c
+        from lineitem
+        group by l_shipmode, l_shipinstruct, l_returnflag, l_linestatus
+        order by l_shipmode, l_shipinstruct, l_returnflag, l_linestatus""",
+    # sorted layout over packed bounded keys
+    "packed_sorted": """
+        select l_orderkey, l_linenumber, sum(l_quantity) as q from lineitem
+        where l_orderkey < 200 group by l_orderkey, l_linenumber
+        order by l_orderkey, l_linenumber""",
+    "unbounded_sorted": """
+        select o_custkey, count(*) as n, min(o_orderdate) as d,
+               max(o_totalprice) as p, avg(o_totalprice) as a
+        from orders group by o_custkey order by o_custkey""",
+    # FilterExec: a WHERE with no aggregate above it
+    "filter": """
+        select l_orderkey, l_quantity from lineitem where l_quantity > 49
+        order by l_orderkey, l_quantity""",
+    "distinct": """
+        select distinct o_orderpriority, o_orderstatus from orders
+        order by o_orderpriority, o_orderstatus""",
+    "limit_ordered": """
+        select o_orderkey, o_totalprice from orders
+        order by o_totalprice desc, o_orderkey limit 7""",
+    "wide_sums": WIDE_SUMS,
+}
+
+
+def _port_columns(arrow):
+    """Port host columns made by the JAX package's own ingest."""
+    fields, cols = [], {}
+    for f in schema_from_arrow(arrow.schema).fields:
+        values, validity, dictionary, _, bounds = ingest_column_host(
+            arrow[f.name], f, arrow.num_rows)
+        cols[f.name] = from_ingested(values, validity, dictionary, bounds)
+        fields.append(Field(f.name, DataType(TypeKind(f.dtype.kind.value),
+                                             f.dtype.precision, f.dtype.scale),
+                            f.nullable))
+    return fields, cols
+
+
+@pytest.fixture(scope="module")
+def contexts():
+    jctx = JaxContext(capacity_mode="exact")
+    for name in TPCH_TABLES:
+        jctx.register_arrow(name, generate_table(name, SF),
+                            primary_key=REF_TABLES[name][1])
+    jctx.register_arrow("keys_a", KEYS_A, primary_key=("a_k",))
+    jctx.register_arrow("keys_b", KEYS_B)
+    tctx = SessionContext(device="cpu")
+    register_tpch(tctx, SF)
+    tctx.register_host("keys_a", *_port_columns(KEYS_A), primary_key=("a_k",))
+    tctx.register_host("keys_b", *_port_columns(KEYS_B))
+    return jctx, tctx
+
+
+def _assert_same(got, tschema, want, jschema):
+    assert [f.name for f in tschema.fields] == [f.name for f in jschema.fields]
+    assert [repr(f.dtype) for f in tschema.fields] == \
+        [repr(f.dtype) for f in jschema.fields]
+    for name in want:
+        wv, wvalid = want[name]
+        gv, gvalid = got[name]
+        np.testing.assert_array_equal(gvalid, wvalid, err_msg=name)
+        np.testing.assert_array_equal(gv[gvalid], wv[wvalid], err_msg=name)
+
+
+@pytest.mark.parametrize("query", sorted(QUERIES))
+def test_query_matches_jax(contexts, query):
+    jctx, tctx = contexts
+    jbatch, jschema = jctx.sql(QUERIES[query]).collect()
+    tbatch, tschema = tctx.sql(QUERIES[query]).collect()
+    assert int(tbatch.num_rows) == int(jbatch.num_rows) > 0
+    _assert_same(port_to_numpy(tbatch, tschema), tschema,
+                 to_numpy(jbatch, jschema), jschema)
+
+
+def test_plans(contexts):
+    _, tctx = contexts
+
+    def labels(sql):
+        plan = tctx.physical_plan(tctx.sql(sql).plan).display()
+        return [line.strip() for line in plan.splitlines()]
+
+    q3 = labels(TPCH_QUERIES[3])
+    assert q3[0] == "LimitExec(10)" and q3[1].startswith("SortExec")
+    agg = next(x for x in q3 if x.startswith("HashAggregateExec"))
+    # reduce_group_keys keeps only l_orderkey; the rest ride as carry
+    assert "keys=['l_orderkey']" in agg
+    assert sum(x.startswith("HashJoinExec[inner,unique]") for x in q3) == 2
+    q5 = labels(TPCH_QUERIES[5])
+    agg = next(x for x in q5 if x.startswith("HashAggregateExec"))
+    assert "keys=['n_name']" in agg and "T=26" in agg
+    assert sum(x.startswith("HashJoinExec[inner,unique]") for x in q5) == 5
+    assert any(x.startswith("HashJoinExec[semi,unique]")
+               for x in labels(QUERIES["semi_in"]))
+    assert any(x.startswith("HashJoinExec[anti,unique]")
+               for x in labels(QUERIES["anti_not_exists"]))
+
+
+def test_limit_without_order(contexts):
+    """Which rows a bare LIMIT keeps is not fixed: the count is."""
+    jctx, tctx = contexts
+    sql = "select l_orderkey, l_quantity from lineitem where l_quantity > 10 limit 7"
+    jbatch, _ = jctx.sql(sql).collect()
+    got = tctx.sql(sql).to_numpy()
+    assert int(jbatch.num_rows) == len(got["l_quantity"][0]) == 7
+    assert (got["l_quantity"][0] > 1000).all()   # scale 2
+
+
+def test_group_overflow_retries(contexts):
+    """A group table forced too small overflows; the port retries with 4x
+    the table and returns the JAX answer, never a clipped batch."""
+    jctx, _ = contexts
+    sql = QUERIES["unbounded_sorted"]
+    jbatch, jschema = jctx.sql(sql).collect()
+    tctx = SessionContext(device="cpu",
+                          options=PhysicalOptions(max_group_table=16))
+    register_tpch(tctx, SF, tables=["orders"])
+    tbatch, tschema = tctx.sql(sql).collect()
+    assert int(tbatch.num_rows) == int(jbatch.num_rows) > 256
+    _assert_same(port_to_numpy(tbatch, tschema), tschema,
+                 to_numpy(jbatch, jschema), jschema)
+    assert len(tctx.warnings) == 3   # 16, 64 and 256 slots overflowed
+    with pytest.raises(RuntimeError, match="overflowed"):
+        tctx.collect(tctx.sql(sql).plan, max_retries=2)
+
+
+def test_unique_keys_inferred_without_primary_keys(contexts):
+    """Tables registered without a primary key: single columns whose
+    values are all distinct still make a unique build side, as the JAX
+    package infers them, so Q3 plans and answers the same."""
+    jctx, _ = contexts
+    tctx = SessionContext(device="cpu")
+    for name, (fields, cols) in generate_tpch(
+            SF, tables=["customer", "orders", "lineitem"]).items():
+        tctx.register_host(name, fields, cols)
+    assert tctx.unique_keys("customer")[0] == ("c_custkey",)
+    assert ("l_orderkey",) not in tctx.unique_keys("lineitem")
+    jbatch, jschema = jctx.sql(TPCH_QUERIES[3]).collect()
+    tbatch, tschema = tctx.sql(TPCH_QUERIES[3]).collect()
+    _assert_same(port_to_numpy(tbatch, tschema), tschema,
+                 to_numpy(jbatch, jschema), jschema)
+
+
+@pytest.mark.parametrize("sql,name", [
+    ("select count(*) from orders a, customer b", "CrossJoinExec"),
+    ("select c_custkey, o_orderkey from customer left join orders "
+     "on c_custkey = o_custkey", "left_outer"),
+    ("select c_custkey, o_orderkey from customer full outer join orders "
+     "on c_custkey = o_custkey", "full_outer"),
+])
+def test_unported_joins_raise(contexts, sql, name):
+    _, tctx = contexts
+    with pytest.raises(NotImplementedError, match=name):
+        tctx.sql(sql).collect()

@@ -13,8 +13,8 @@ import torch
 
 from ballista_tpu_torch.benchmarks import TPCH_QUERIES
 from ballista_tpu_torch.client import SessionContext
-from ballista_tpu_torch.datagen import generate_tpch
-from ballista_tpu_torch.ops.masked_sums import (masked_slot_sums,
+from ballista_tpu_torch.datagen import generate_tpch, register_tpch
+from ballista_tpu_torch.ops.masked_sums import (a_chunk, masked_slot_sums,
                                                 masked_slot_sums_reference)
 
 torch.set_num_threads(2)
@@ -45,6 +45,21 @@ def test_kernel_matches_reference(cuda_device, n, T, A):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,T,A", [(100_003, 64, 100), (50_000, 60, 105)])
+def test_wide_kernel_call_is_split(cuda_device, n, T, A):
+    """T x A beyond shared memory: chunks of A, one launch each."""
+    g = torch.Generator().manual_seed(n + A)
+    slot = torch.randint(-1, T + 2, (n,), generator=g, dtype=torch.int32)
+    contribs = torch.randint(-BIG, BIG, (A, n), generator=g,
+                             dtype=torch.int64)
+    launches = masked_slot_sums.launches
+    got = masked_slot_sums(slot.to(cuda_device), contribs.to(cuda_device), T)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), masked_slot_sums_reference(slot, contribs, T))
+    assert masked_slot_sums.launches == launches + -(-A // a_chunk(T))
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_mixed_devices(cuda_device):
     with pytest.raises(ValueError):
         masked_slot_sums(torch.zeros(4, dtype=torch.int32, device=cuda_device),
@@ -72,6 +87,25 @@ def test_query_on_card_matches_cpu(cuda_device, query):
         ctx.register_host("lineitem", fields, cols)
         before = masked_slot_sums.launches
         out[str(dev)] = ctx.sql(sql).to_numpy()
+        launched = masked_slot_sums.launches - before
+        assert launched == (0 if dev == "cpu" else card_launches)
+    for name, (values, valid) in out["cpu"].items():
+        got_values, got_valid = out[str(cuda_device)][name]
+        np.testing.assert_array_equal(got_valid, valid, err_msg=name)
+        np.testing.assert_array_equal(got_values, values, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,card_launches", [(3, 0), (5, 1)])
+def test_join_query_on_card_matches_cpu(cuda_device, q, card_launches):
+    """TPC-H Q3 (sorted-layout aggregate) and Q5 (the kernel, T = 26) on
+    the card against the CPU, over all six tables at SF 0.01."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        ctx = SessionContext(device=dev)
+        register_tpch(ctx, 0.01)
+        before = masked_slot_sums.launches
+        out[str(dev)] = ctx.sql(TPCH_QUERIES[q]).to_numpy()
         launched = masked_slot_sums.launches - before
         assert launched == (0 if dev == "cpu" else card_launches)
     for name, (values, valid) in out["cpu"].items():

@@ -10,7 +10,9 @@ import torch
 import jax.numpy as jnp
 
 from ballista_tpu.ops.pallas_agg import fused_masked_sums
-from ballista_tpu_torch.ops.masked_sums import masked_slot_sums
+from ballista_tpu_torch.ops.masked_sums import (SMEM_BYTES, a_chunk,
+                                                masked_slot_sums,
+                                                masked_slot_sums_reference)
 
 torch.set_num_threads(2)
 
@@ -73,6 +75,23 @@ def test_counts_ride_as_zero_one_rows():
     assert out.tolist() == [[5, 1], [8, 2], [-4, 1]]
 
 
+@pytest.mark.parametrize("T,A", [(64, 100), (60, 105), (6144, 2)])
+def test_wide_calls_equal_reference(T, A):
+    """T x A int64 accumulators beyond the kernel's shared memory: the
+    wrapper splits A into launches (on the card) instead of refusing."""
+    assert T * A * 8 > SMEM_BYTES and a_chunk(T) < A
+    rng = np.random.default_rng(T + A)
+    slot = rng.integers(-1, T + 2, 5000).astype(np.int32)
+    contribs = rng.integers(-BIG, BIG, (A, 5000), dtype=np.int64)
+    got = masked_slot_sums(torch.from_numpy(slot), torch.from_numpy(contribs),
+                           T)
+    assert tuple(got.shape) == (T, A)
+    want = masked_slot_sums_reference(torch.from_numpy(slot),
+                                      torch.from_numpy(contribs), T)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), _numpy_sums(slot, contribs, T))
+
+
 @pytest.mark.parametrize("bad", ["slot_dtype", "contrib_dtype", "rows",
                                  "T", "smem", "strided"])
 def test_wrapper_rejects_bad_inputs(bad):
@@ -88,8 +107,10 @@ def test_wrapper_rejects_bad_inputs(bad):
     elif bad == "T":
         T = 0
     elif bad == "smem":
-        contribs = torch.zeros((100, 8), dtype=torch.int64)
-        T = 64
+        # one contribution row of T accumulators no longer fits shared
+        # memory (wider A is split into launches, not refused)
+        contribs = torch.zeros((1, 8), dtype=torch.int64)
+        T = SMEM_BYTES // 8 + 1
     else:
         contribs = torch.zeros((8, 2), dtype=torch.int64).T
     with pytest.raises((TypeError, ValueError)):

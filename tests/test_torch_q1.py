@@ -109,7 +109,8 @@ def test_plan_shape(contexts):
 def test_unported_sql_raises(contexts):
     _, tctx = contexts
     with pytest.raises(NotImplementedError):
-        tctx.sql("select l_orderkey from lineitem where l_quantity > 1").collect()
+        tctx.sql("select l_orderkey from lineitem "
+                 "where l_comment like '%special%'").collect()
 
 
 def test_cuda_context_raises_without_cuda():
