@@ -5,7 +5,10 @@
 For each query, over tables generated at `--sf` (seed 19940101) and
 uploaded before timing:
 - `collect()` and `run_plan` wall times (host clock around work that ends
-  in a synchronize; median of `--reps`);
+  in a synchronize; median of `--reps`). `run_plan` runs the plan built
+  with the context's options; where that plan overflows (`overflowed`),
+  `collect()` runs it and then a rebuilt one with 4x the capacities, and
+  the per-run numbers below are those of the first;
 - device-busy time per `run_plan` (sum of kernel times from
   torch.profiler) and its share of the `run_plan` wall time;
 - each operator's exclusive wall and device-busy time, and its costliest
@@ -105,6 +108,8 @@ def profile_query(ctx, sql, reps):
     df.collect()
     out = {"collect_ms": _wall_ms(df.collect, reps),
            "run_plan_ms": _wall_ms(lambda: run_plan(plan, inputs), reps)}
+    overflow = run_plan(plan, inputs)[1]
+    out["overflowed"] = overflow is not None and bool(overflow)
     ops = {}
     busy, kernels = _device_ms(lambda: run_plan(plan, inputs), reps, ops)
     out["device_busy_ms"] = busy
@@ -148,7 +153,9 @@ def main(argv=None):
         print(f"Q{q}: collect {r['collect_ms']:.3f} ms, run_plan "
               f"{r['run_plan_ms']:.3f} ms, device busy "
               f"{r['device_busy_ms']:.3f} ms "
-              f"({100 * r['device_busy_share']:.1f} %)", flush=True)
+              f"({100 * r['device_busy_share']:.1f} %)"
+              f"{', run_plan overflowed' if r['overflowed'] else ''}",
+              flush=True)
         for op in r["operators"]:
             print(f"  {op['device_ms']:9.3f} dev ms {op['wall_ms']:9.3f} "
                   f"wall ms  {op['op']}", flush=True)

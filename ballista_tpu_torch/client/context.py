@@ -84,6 +84,9 @@ class SessionContext:
                                "available; pass device='cpu' to run on the CPU")
         self.options = options or PhysicalOptions()
         self.tables: Dict[str, TableProvider] = {}
+        # CREATE VIEW: name -> (SelectStmt, column aliases), expanded by
+        # the SQL planner wherever the name is scanned
+        self.views: Dict[str, tuple] = {}
         self.warnings = []
 
     def register_host(self, name: str, fields: Sequence[Field],
@@ -112,12 +115,22 @@ class SessionContext:
         return tp._inferred_unique
 
     def sql(self, query: str) -> DataFrame:
-        """Plan a SQL script of SELECT statements; returns the last one."""
-        from ..sql.parser import SelectStmt, UnionStmt, parse_statements
+        """Plan a SQL script of SELECT, CREATE VIEW and DROP VIEW
+        statements (the TPC-H Q15 shape); returns the last SELECT. Each
+        SELECT is planned when it is read, so a view dropped after it has
+        already been expanded into its plan."""
+        from ..sql.parser import (CreateView, DropView, SelectStmt, UnionStmt,
+                                  parse_statements)
         from ..sql.planner import SqlPlanner
 
         last = None
         for stmt in parse_statements(query):
+            if isinstance(stmt, CreateView):
+                self.views[stmt.name] = (stmt.query, stmt.columns)
+                continue
+            if isinstance(stmt, DropView):
+                self.views.pop(stmt.name, None)
+                continue
             if not isinstance(stmt, (SelectStmt, UnionStmt)):
                 raise NotImplementedError(
                     f"{type(stmt).__name__} statements are not ported yet")
@@ -146,9 +159,9 @@ class SessionContext:
     def collect(self, plan: L.LogicalPlan, max_retries: int = 5):
         """Execute a logical plan: returns (Batch on the device, Schema).
 
-        A plan whose group table outgrows its static capacity raises the
-        run's overflow flag; it is read once per run
-        and the plan is rebuilt with 4x the capacities. After
+        A plan whose group table or expanding-join output outgrows its
+        static capacity raises the run's overflow flag; it is read once per
+        run and the plan is rebuilt with 4x the capacities. After
         `max_retries` runs that overflowed this raises: a clipped batch
         would be a wrong answer."""
         opts = self.options
@@ -161,10 +174,14 @@ class SessionContext:
                 return out, exec_plan.schema
             self.warnings.append(
                 f"output overflowed capacity on attempt {attempt + 1} "
-                f"(max_group_table {opts.max_group_table})")
+                f"(max_group_table {opts.max_group_table}, join_out_factor "
+                f"{opts.join_out_factor})")
             opts = dataclasses.replace(
-                opts, max_group_table=opts.max_group_table * 4)
+                opts, max_group_table=opts.max_group_table * 4,
+                join_out_factor=opts.join_out_factor * 4)
         raise RuntimeError(
-            f"group output overflowed capacity after {max_retries} "
-            f"runs (last max_group_table {opts.max_group_table // 4}); "
-            "raise max_retries or PhysicalOptions.max_group_table")
+            f"join/group output overflowed capacity after {max_retries} "
+            f"runs (last max_group_table {opts.max_group_table // 4}, "
+            f"join_out_factor {opts.join_out_factor / 4}); raise "
+            "max_retries, PhysicalOptions.max_group_table or "
+            "PhysicalOptions.join_out_factor")

@@ -106,7 +106,17 @@ Table = Tuple[Tuple[Field, ...], Dict[str, HostColumn]]
 
 def from_ingested(values, validity, dictionary, bounds) -> HostColumn:
     """The JAX package's host-ingest tuple (numpy arrays, from
-    `ballista_tpu.batch.ingest_column_host`) as a port host column."""
+    `ballista_tpu.batch.ingest_column_host`) as a port host column.
+
+    The port's string code holds code order to be lexicographic order, so
+    a dictionary that is not sorted and distinct (the reference's RAW
+    mode for high-cardinality strings, where code == row index) raises
+    ValueError instead of giving wrong answers."""
+    if dictionary is not None:
+        d = np.asarray(dictionary, dtype=object).astype(str)
+        if len(d) > 1 and not bool((d[1:] > d[:-1]).all()):
+            raise ValueError("unsorted (raw) string dictionary: the port "
+                             "needs sorted, distinct dictionary values")
     return HostColumn(np.asarray(values), np.asarray(validity, dtype=bool),
                       None if dictionary is None
                       else np.asarray(dictionary, dtype=object),

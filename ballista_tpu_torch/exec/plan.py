@@ -6,8 +6,8 @@ flags nodes raise) to its output Batch on the inputs' device; `run_plan`
 evaluates a whole tree (the JAX package compiled it into one XLA program
 with `compile_stage` instead). Ported so far: InputLeaf, OneRowExec,
 FilterExec, ProjectExec, HashAggregateExec in `single` mode (direct-slot
-and sorted layouts), HashJoinExec (unique build; inner, semi and anti),
-SortExec and LimitExec.
+and sorted layouts), HashJoinExec (inner, left outer, semi and anti, on a
+unique or a duplicate-key build), SortExec and LimitExec.
 """
 
 from __future__ import annotations
@@ -18,9 +18,10 @@ import numpy as np
 import torch
 
 from ..batch import LANE, Batch, Column, round_capacity, row_mask
-from ..exprs import Alias, Col, Expr, bind_expr, expr_name
+from ..exprs import Alias, Col, Expr, bind_expr, expr_name, gather_lut
 from ..ops import segagg
 from ..ops.compact import compaction_perm, filter_batch, gather_batch
+from ..ops.expand_join import expand_join
 from ..ops.gather import gather_columns
 from ..ops.hash import _norm_keys, pack_key_columns, plan_key_packing
 from ..ops.masked_sums import masked_slot_sums
@@ -441,28 +442,30 @@ class HashAggregateExec(ExecNode):
 
 class HashJoinExec(ExecNode):
     """Build on the left child, probe with the right (DataFusion
-    convention), unique build keys only. join_type 'inner' keeps matched
-    probe rows with the build row's columns in front; 'semi' and 'anti'
-    keep the probe rows with and without a match (probe columns only).
-    The output keeps the probe's capacity, matched rows compacted to the
-    front in probe order.
+    convention). join_type 'inner' keeps matched pairs with the build
+    row's columns in front; 'left_outer' keeps every live probe row, the
+    build columns NULL where it has no match; 'semi' and 'anti' keep the
+    probe rows with and without a match (probe columns only).
 
-    Not ported yet, and raising NotImplementedError: left and full outer
-    joins and the expanding (duplicate build key) join."""
+    A unique build (each key at most once among live build rows) keeps
+    the probe's capacity: inner, semi and anti compact the kept rows to
+    the front in probe order; left_outer keeps the probe batch's rows in
+    place, so its probe side must come unfiltered (the planner keeps a
+    FilterExec there). A duplicate-key build takes the expanding path
+    (ops.expand_join, inner or left_outer): pairs in probe-row order, then
+    build-row order, in a batch of `out_capacity` rows; a larger total
+    raises the run's overflow flag, and the client retries with a larger
+    capacity. A full outer join raises NotImplementedError."""
 
     def __init__(self, build: ExecNode, probe: ExecNode,
                  on: Sequence[Tuple[str, str]], join_type: str = "inner",
                  unique_build: bool = True,
+                 out_capacity: Optional[int] = None,
                  build_pre_filter: Optional[Expr] = None,
                  probe_pre_filter: Optional[Expr] = None):
-        if join_type not in ("inner", "semi", "anti"):
+        if join_type not in ("inner", "semi", "anti", "left_outer"):
             raise NotImplementedError(
                 f"HashJoinExec {join_type} join is not ported yet")
-        # semi/anti only test existence: a duplicate build key is harmless
-        if not (unique_build or join_type in ("semi", "anti")):
-            raise NotImplementedError(
-                "HashJoinExec expanding (duplicate build key) join is not "
-                "ported yet")
         self.children = (build, probe)
         self.on = tuple(on)
         self.join_type = join_type
@@ -471,7 +474,14 @@ class HashJoinExec(ExecNode):
                            if build_pre_filter is not None else None)
         self._probe_pre = (bind_expr(probe_pre_filter, probe.schema)
                            if probe_pre_filter is not None else None)
-        self.capacity = probe.capacity
+        # semi/anti only test existence: a duplicate build key is harmless
+        self.unique_build = unique_build or join_type in ("semi", "anti")
+        if self.unique_build:
+            self.capacity = probe.capacity
+        else:
+            self.out_capacity = out_capacity or round_capacity(
+                build.capacity + probe.capacity)
+            self.capacity = self.out_capacity
         self._build_idx = [build.schema.index_of(a) for a, _ in on]
         self._probe_idx = [probe.schema.index_of(b) for _, b in on]
         # dictionary-coded join keys: codes from DIFFERENT dictionaries are
@@ -533,9 +543,7 @@ class HashJoinExec(ExecNode):
         keys = [batch.columns[i] for i in idx]
         for ki, luts in self._key_luts.items():
             c = keys[ki]
-            lut = torch.from_numpy(luts[side]).to(c.data.device)
-            code = c.data.to(torch.int64).clamp(0, lut.shape[0] - 1)
-            keys[ki] = Column(lut.index_select(0, code), c.validity)
+            keys[ki] = Column(gather_lut(luts[side], c), c.validity)
         if self._key_pack is not None:
             keys = pack_key_columns(keys, *self._key_pack, False)
         return keys
@@ -547,6 +555,9 @@ class HashJoinExec(ExecNode):
         plive = _live_where(probe_b, self._probe_pre)
         bkeys = self._keys(build_b, self._build_idx, 0)
         pkeys = self._keys(probe_b, self._probe_idx, 1)
+        if not self.unique_build:
+            return self._evaluate_expanding(run, build_b, probe_b, bkeys,
+                                            pkeys, blive, plive)
         match = probe_unique([c.data for c in bkeys],
                              [c.validity for c in bkeys], blive,
                              [c.data for c in pkeys],
@@ -570,10 +581,32 @@ class HashJoinExec(ExecNode):
         build_cols = tuple(synth[i] if i in synth else next(gathered)
                            for i in range(len(build_b.columns)))
         joined = Batch(build_cols + probe_b.columns, probe_b.num_rows)
+        if self.join_type == "left_outer":
+            # every probe row survives in place; build columns are
+            # already NULL where it found no match
+            return joined
         return compact_batch(joined, matched & plive)
 
+    def _evaluate_expanding(self, run, build_b, probe_b, bkeys, pkeys,
+                            blive, plive):
+        """Duplicate-key build: output slot j holds (probe row, k-th
+        matching build row) from ops.expand_join."""
+        em = expand_join([c.data for c in bkeys], [c.validity for c in bkeys],
+                         blive, [c.data for c in pkeys],
+                         [c.validity for c in pkeys], plive,
+                         self.out_capacity,
+                         left_outer=self.join_type == "left_outer")
+        run.flag_overflow(em.overflow)
+        matched = em.build_row >= 0
+        cols = (gather_columns(build_b.columns, em.build_row.clamp(min=0),
+                               valid_and=matched)
+                + gather_columns(probe_b.columns, em.probe_row.clamp(min=0),
+                                 valid_and=em.valid))
+        return Batch(tuple(cols), em.total)
+
     def _label(self):
-        return f"HashJoinExec[{self.join_type},unique](on={list(self.on)})"
+        mode = "unique" if self.unique_build else "expanding"
+        return f"HashJoinExec[{self.join_type},{mode}](on={list(self.on)})"
 
 
 class SortExec(ExecNode):

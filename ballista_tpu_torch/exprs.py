@@ -7,13 +7,21 @@ An expression is bound against a Schema at plan time, producing a closure
 - Three-valued (Kleene) NULL logic carried as validity masks.
 - DECIMAL arithmetic on scaled int64 (exact, like Arrow decimal128).
 - String comparisons with literals are translated into dictionary-code
-  space at bind time (the dictionaries are sorted).
+  space at bind time. Every dictionary the port makes or ingests is sorted
+  (`datagen.tpch.from_ingested` refuses any other), so code order is
+  lexicographic order: the reference's raw-dictionary paths (equality
+  LUTs, `sorted_recode`) have nothing to serve here.
+- LIKE, IN over strings, substring and string CASE are host work over the
+  dictionary, once at bind time; the device only gathers a lookup table
+  by code.
 """
 
 from __future__ import annotations
 
+import calendar
 import dataclasses
 import datetime
+import re
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -263,6 +271,17 @@ EPOCH = datetime.date(1970, 1, 1)
 def parse_date(s: str) -> int:
     d = datetime.date.fromisoformat(s)
     return (d - EPOCH).days
+
+
+def add_months(days: int, months: int) -> int:
+    """Days since the epoch, `months` calendar months later; the day of
+    the month is clipped to the target month's length (Jan 31 + 1 month
+    is Feb 28/29)."""
+    d = EPOCH + datetime.timedelta(days=days)
+    y = d.year + (d.month - 1 + months) // 12
+    m = (d.month - 1 + months) % 12 + 1
+    day = min(d.day, calendar.monthrange(y, m)[1])
+    return (datetime.date(y, m, day) - EPOCH).days
 
 
 def infer_lit_dtype(value: Any) -> DataType:
@@ -590,8 +609,10 @@ def _bind_cast(c: Bound, dst: DataType) -> Bound:
 def bind_expr(e: Expr, schema: Schema) -> Bound:
     """Bind a logical expression against a schema, producing an evaluator.
 
-    The port binds the subset TPC-H Q1 runs: columns, int/date/decimal
-    literals, aliases, casts, arithmetic, comparisons and Kleene AND/OR.
+    The port binds what the six-table TPC-H queries run: columns,
+    literals, aliases, casts, arithmetic, comparisons, Kleene AND/OR,
+    NOT, negation, IS [NOT] NULL, BETWEEN, IN, LIKE, CASE, literal
+    date +/- interval and the scalar functions of `_bind_scalar_fn`.
     Every other node raises NotImplementedError naming it."""
     if isinstance(e, Alias):
         return bind_expr(e.child, schema)
@@ -616,8 +637,22 @@ def bind_expr(e: Expr, schema: Schema) -> Bound:
         return _bind_cast(bind_expr(e.child, schema), e.dtype)
 
     if isinstance(e, BinOp):
+        if isinstance(e.right, IntervalLit) and e.op in ("+", "-"):
+            # constant-fold literal date +/- interval on the host
+            if not isinstance(e.left, Lit):
+                raise NotImplementedError(
+                    "interval arithmetic on non-literal dates")
+            sign = 1 if e.op == "+" else -1
+            day0 = e.left.value
+            if isinstance(day0, str):
+                day0 = parse_date(day0)
+            folded = add_months(day0, sign * e.right.months) \
+                + sign * e.right.days
+            return Bound(DATE32, False, _const_column(folded, DATE32))
         if isinstance(e.right, IntervalLit) or isinstance(e.left, IntervalLit):
-            raise NotImplementedError("IntervalLit arithmetic is not ported yet")
+            raise NotImplementedError(
+                f"interval arithmetic {expr_name(e)!r}: only literal date "
+                "+/- interval is supported")
         l = bind_expr(e.left, schema)
         r = bind_expr(e.right, schema)
         # string vs literal: translate the literal into code space
@@ -650,7 +685,283 @@ def bind_expr(e: Expr, schema: Schema) -> Bound:
             return _bind_bool(e.op, l, r)
         raise ValueError(f"unknown op {e.op}")
 
+    if isinstance(e, Not):
+        c = bind_expr(e.child, schema)
+
+        def fn(batch):
+            col = c.fn(batch)
+            # NOT NULL is NULL: the child's validity is kept
+            return Column(~col.data.to(torch.bool) & col.validity,
+                          col.validity)
+        return Bound(BOOL, c.nullable, fn)
+
+    if isinstance(e, Neg):
+        c = bind_expr(e.child, schema)
+
+        def fn(batch):
+            col = c.fn(batch)
+            return Column(-col.data, col.validity)
+        return Bound(c.dtype, c.nullable, fn)
+
+    if isinstance(e, IsNull):
+        c = bind_expr(e.child, schema)
+        neg = e.negated
+
+        def fn(batch):
+            col = c.fn(batch)
+            # IS [NOT] NULL is never NULL itself
+            return Column(col.validity if neg else ~col.validity,
+                          torch.ones_like(col.validity))
+        return Bound(BOOL, False, fn)
+
+    if isinstance(e, Between):
+        both = BinOp("and", BinOp(">=", e.child, e.low),
+                     BinOp("<=", e.child, e.high))
+        return bind_expr(Not(both) if e.negated else both, schema)
+
+    if isinstance(e, InList):
+        return _bind_in_list(e, schema)
+
+    if isinstance(e, Like):
+        c = bind_expr(e.child, schema)
+        if c.dtype.kind is not TypeKind.STRING:
+            raise TypeError("LIKE on non-string")
+        lut = like_lut(c.dictionary, e.pattern)
+        return _bool_lut(c, ~lut if e.negated else lut)
+
+    if isinstance(e, Case):
+        return _bind_case(e, schema)
+
+    if isinstance(e, ScalarFn):
+        return _bind_scalar_fn(e, schema)
+
     raise NotImplementedError(f"{type(e).__name__} is not ported yet")
+
+
+def gather_lut(lut: np.ndarray, col: Column) -> torch.Tensor:
+    """lut[code] for every row, on the column's device (codes clamped so
+    padding rows never index out of range; an empty LUT reads as one 0)."""
+    if not len(lut):
+        lut = np.zeros(1, dtype=lut.dtype)
+    lut_dev = torch.from_numpy(lut).to(col.data.device)
+    idx = col.data.to(torch.int64).clamp(0, lut_dev.shape[0] - 1)
+    return lut_dev.index_select(0, idx)
+
+
+def _bool_lut(c: Bound, lut: np.ndarray) -> Bound:
+    """A string predicate as a host boolean LUT over the dictionary,
+    gathered by code on the device; NULL in, NULL out."""
+    lut = np.asarray(lut, dtype=bool)
+
+    def fn(batch):
+        col = c.fn(batch)
+        return Column(gather_lut(lut, col) & col.validity, col.validity)
+    return Bound(BOOL, c.nullable, fn)
+
+
+def like_lut(dictionary: Optional[np.ndarray], pattern: str) -> np.ndarray:
+    """SQL LIKE over every dictionary entry, as a bool array: `%` matches
+    any run of characters, `_` any one character, and the whole entry must
+    match (pyarrow.compute.match_like's semantics, without pyarrow)."""
+    if dictionary is None or not len(dictionary):
+        return np.zeros(0, dtype=bool)
+    rx = re.compile("".join(".*" if ch == "%" else "." if ch == "_"
+                            else re.escape(ch) for ch in pattern), re.S)
+    return np.fromiter((rx.fullmatch(s) is not None
+                        for s in dictionary.astype(str)),
+                       dtype=bool, count=len(dictionary))
+
+
+def _bind_in_list(e: InList, schema: Schema) -> Bound:
+    c = bind_expr(e.child, schema)
+    if not all(isinstance(v, Lit) for v in e.values):
+        raise NotImplementedError("IN list of non-literal values")
+    if c.dtype.kind is TypeKind.STRING:
+        dic = c.dictionary
+        lut = np.zeros(len(dic) if dic is not None else 0, dtype=bool)
+        for v in e.values:
+            pos, exact = _string_lit_to_code(str(v.value), dic)
+            if exact:
+                lut[pos] = True
+        return _bool_lut(c, ~lut if e.negated else lut)
+    vals = []
+    for v in e.values:
+        x = v.value
+        if isinstance(x, str):
+            x = parse_date(x)
+        elif isinstance(x, datetime.date):
+            x = (x - EPOCH).days
+        vals.append(x)
+    arr = torch.from_numpy(np.array(vals))
+    neg = e.negated
+
+    def fn(batch):
+        col = c.fn(batch)
+        d = torch.isin(col.data, arr.to(col.data.device))
+        d = ~d if neg else d
+        return Column(d & col.validity, col.validity)
+    return Bound(BOOL, c.nullable, fn)
+
+
+def _common_dtype(dtypes):
+    out = dtypes[0]
+    for d in dtypes[1:]:
+        if d == out:
+            continue
+        if d.kind is TypeKind.DECIMAL and out.kind is TypeKind.DECIMAL:
+            out = decimal(18, max(d.scale, out.scale))
+        elif d.kind is TypeKind.DECIMAL and out.is_integer:
+            out = d
+        elif out.kind is TypeKind.DECIMAL and d.is_integer:
+            pass
+        elif d.kind is TypeKind.FLOAT64 or out.kind is TypeKind.FLOAT64:
+            out = FLOAT64
+        elif d.kind is TypeKind.FLOAT32 or out.kind is TypeKind.FLOAT32:
+            out = FLOAT32
+        elif d.kind is TypeKind.INT64 or out.kind is TypeKind.INT64:
+            out = INT64
+    return out
+
+
+def _cast_col(col: Column, src: DataType, dst: DataType) -> Column:
+    if src == dst:
+        return col
+    if src.kind is TypeKind.DECIMAL and dst.kind is TypeKind.DECIMAL:
+        return Column(_decimal_rescale(col.data, src.scale, dst.scale),
+                      col.validity)
+    if src.is_integer and dst.kind is TypeKind.DECIMAL:
+        return Column(_i64(col.data) * (10 ** dst.scale), col.validity)
+    return Column(col.data.to(dst.torch_dtype), col.validity)
+
+
+def _bind_case(e: Case, schema: Schema) -> Bound:
+    """Searched CASE: the first true WHEN's value, else ELSE (NULL when
+    absent). A NULL condition counts as false."""
+    whens = [(bind_expr(c, schema), bind_expr(v, schema)) for c, v in e.whens]
+    otherwise = (bind_expr(e.otherwise, schema)
+                 if e.otherwise is not None else None)
+    branches = [v for _, v in whens] + ([otherwise] if otherwise else [])
+    out = _common_dtype([b.dtype for b in branches])
+
+    if out.kind is TypeKind.STRING:
+        # string branches carry codes of DIFFERENT dictionaries: remap each
+        # into the sorted union dictionary before selecting
+        dics = [b.dictionary for b in branches]
+        if any(d is None for d in dics):
+            raise TypeError("CASE string branches must be "
+                            "dictionary-encoded or literals")
+        union = np.unique(np.concatenate(
+            [d.astype(str) for d in dics if len(d)])).astype(object)
+        luts = [np.searchsorted(union.astype(str), d.astype(str)
+                                ).astype(np.int32) for d in dics]
+
+        def value(i, batch):
+            col = branches[i].fn(batch)
+            return Column(gather_lut(luts[i], col), col.validity)
+        dictionary, code_bound = union, max(len(union), 1)
+    else:
+        def value(i, batch):
+            b = branches[i]
+            return _cast_col(b.fn(batch), b.dtype, out)
+        dictionary = code_bound = None
+
+    def fn(batch):
+        if otherwise is not None:
+            oc = value(len(whens), batch)
+            data, valid = oc.data, oc.validity
+        else:
+            fc = value(0, batch)
+            data = torch.zeros_like(fc.data)
+            valid = torch.zeros_like(fc.validity)
+        for i in range(len(whens) - 1, -1, -1):
+            cc = whens[i][0].fn(batch)
+            vc = value(i, batch)
+            take = cc.data.to(torch.bool) & cc.validity
+            data = torch.where(take, vc.data, data)
+            valid = torch.where(take, vc.validity, valid)
+        return Column(data, valid)
+    return Bound(out, True, fn, dictionary=dictionary, code_bound=code_bound)
+
+
+def _civil_from_days(days: torch.Tensor):
+    """Days since 1970-01-01 -> (year, month, day) int32 tensors (Howard
+    Hinnant's civil_from_days, vectorised; floor divisions throughout)."""
+    z = days.to(torch.int32) + 719468
+    era = torch.where(z >= 0, z, z - 146096) // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    return torch.where(m <= 2, y + 1, y), m, d
+
+
+def _bind_scalar_fn(e: ScalarFn, schema: Schema) -> Bound:
+    """extract_year/month/day, substring, coalesce and abs; every other
+    function raises NotImplementedError naming it."""
+    name = e.name.lower()
+    if name in ("extract_year", "extract_month", "extract_day"):
+        c = bind_expr(e.args[0], schema)
+        part = ("year", "month", "day").index(name.split("_")[1])
+
+        def fn(batch):
+            col = c.fn(batch)
+            return Column(_civil_from_days(col.data)[part].to(torch.int32),
+                          col.validity)
+        # derived value bounds feed key packing and the aggregate's
+        # group-count bound (TPC-H order years span 1992-1998)
+        ib = None
+        if part == 1:
+            ib = (1, 12)
+        elif part == 2:
+            ib = (1, 31)
+        elif c.int_bound is not None:
+            lo, hi = c.int_bound
+            ib = ((EPOCH + datetime.timedelta(days=int(lo))).year,
+                  (EPOCH + datetime.timedelta(days=int(hi))).year)
+        return Bound(INT32, c.nullable, fn, int_bound=ib)
+    if name == "abs":
+        c = bind_expr(e.args[0], schema)
+
+        def fn(batch):
+            col = c.fn(batch)
+            return Column(col.data.abs(), col.validity)
+        return Bound(c.dtype, c.nullable, fn)
+    if name == "substring":
+        c = bind_expr(e.args[0], schema)
+        if c.dtype.kind is not TypeKind.STRING:
+            raise TypeError("substring on non-string")
+        if c.dictionary is None:
+            raise TypeError("substring requires a dictionary-encoded column")
+        start = e.args[1].value - 1   # SQL positions are 1-based
+        length = e.args[2].value
+        stop = None if length < 0 else start + length
+        subs = np.array([s[start:stop] for s in c.dictionary.astype(str)],
+                        dtype=str)
+        # a host LUT from the input's codes to codes of the new sorted
+        # dictionary of substrings
+        new_dict, lut = np.unique(subs, return_inverse=True)
+        lut = lut.astype(np.int32)
+
+        def fn(batch):
+            col = c.fn(batch)
+            return Column(gather_lut(lut, col), col.validity)
+        return Bound(STRING, c.nullable, fn, dictionary=new_dict.astype(object))
+    if name == "coalesce":
+        parts = [bind_expr(a, schema) for a in e.args]
+        out = _common_dtype([p.dtype for p in parts])
+
+        def fn(batch):
+            cols = [_cast_col(p.fn(batch), p.dtype, out) for p in parts]
+            data, valid = cols[-1].data, cols[-1].validity
+            for col in reversed(cols[:-1]):
+                data = torch.where(col.validity, col.data, data)
+                valid = valid | col.validity
+            return Column(data, valid)
+        return Bound(out, all(p.nullable for p in parts), fn)
+    raise NotImplementedError(f"scalar function {e.name} is not ported yet")
 
 
 def propagate_bounds(exprs, names, in_schema: Schema) -> dict:

@@ -47,13 +47,16 @@ def _search(b: torch.Tensor, b_ok: torch.Tensor, p: torch.Tensor):
     return vals, order, at, hit
 
 
-def probe_unique(build_keys: Sequence[torch.Tensor],
-                 build_valids: Sequence[torch.Tensor],
-                 build_live: torch.Tensor,
-                 probe_keys: Sequence[torch.Tensor],
-                 probe_valids: Sequence[torch.Tensor],
-                 probe_live: torch.Tensor) -> torch.Tensor:
-    """int64 match per probe row: the matching build row, or -1."""
+def single_key(build_keys: Sequence[torch.Tensor],
+               build_valids: Sequence[torch.Tensor],
+               build_live: torch.Tensor,
+               probe_keys: Sequence[torch.Tensor],
+               probe_valids: Sequence[torch.Tensor],
+               probe_live: torch.Tensor):
+    """Reduce equality keys to one int64 key per side: (build key, build
+    ok, probe key, probe ok), where ok rows are live with no NULL key part
+    and two ok rows have equal keys iff every key part is equal. A probe
+    row whose key part occurs in no ok build row is no longer ok."""
     b_ok = _all(build_valids, build_live)
     p_ok = _all(probe_valids, probe_live)
     b_norm = _norm_keys(build_keys, build_valids)
@@ -70,5 +73,17 @@ def probe_unique(build_keys: Sequence[torch.Tensor],
             codes.append((torch.searchsorted(vals, key_b), at))
         b = codes[0][0] * nb + codes[1][0]
         p = codes[0][1] * nb + codes[1][1]
+    return b, b_ok, p, p_ok
+
+
+def probe_unique(build_keys: Sequence[torch.Tensor],
+                 build_valids: Sequence[torch.Tensor],
+                 build_live: torch.Tensor,
+                 probe_keys: Sequence[torch.Tensor],
+                 probe_valids: Sequence[torch.Tensor],
+                 probe_live: torch.Tensor) -> torch.Tensor:
+    """int64 match per probe row: the matching build row, or -1."""
+    b, b_ok, p, p_ok = single_key(build_keys, build_valids, build_live,
+                                  probe_keys, probe_valids, probe_live)
     _, order, at, hit = _search(b, b_ok, p)
     return torch.where(p_ok & hit, order.index_select(0, at), -1)

@@ -58,3 +58,12 @@ def compact_batch(batch: Batch, keep: torch.Tensor) -> Batch:
                         device=keep.device) < count
     return Batch(tuple(Column(c.data, c.validity & live) for c in out.columns),
                  count)
+
+
+def rank_in_sorted(csum: torch.Tensor, M: int) -> torch.Tensor:
+    """i[j] = #{k: csum[k] <= j} for j = 0..M-1, csum non-decreasing (int64).
+
+    The reference merges csum with 0..M-1 in two sorts, because XLA's
+    searchsorted is slow on the TPU; on the GPU it is one binary search."""
+    j = torch.arange(M, dtype=csum.dtype, device=csum.device)
+    return torch.searchsorted(csum, j, right=True)

@@ -3,9 +3,9 @@ ballista_tpu/planner/physical.py).
 
 Ported: Scan, Projection, Filter, Aggregate and Distinct (with a WHERE
 fused into the aggregate's live mask), non-cross Join (with the filters
-directly under each side fused into the join's live masks), Sort, Limit
-and OneRow. Cross joins, and every other logical node, raise
-NotImplementedError.
+directly under each side fused into the join's live masks, except where
+an outer join needs them as FilterExecs), Sort, Limit and OneRow. Cross
+joins, and every other logical node, raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+from ..batch import round_capacity
 from ..exec.plan import (ExecNode, FilterExec, HashAggregateExec, HashJoinExec,
                          InputLeaf, LimitExec, OneRowExec, ProjectExec,
                          SortExec, _next_pow2)
@@ -24,10 +25,12 @@ from . import logical as L
 class PhysicalOptions:
     # cap on sorted-layout group slots (power of two); more groups than
     # the table holds trip the overflow flag, and the client retries with
-    # 4x the cap. (The reference's join_out_factor sizes the expanding
-    # join's output, and group_table_hint the distributed runtime's
-    # tables: neither is ported yet.)
+    # 4x the cap. (The reference's group_table_hint sizes the distributed
+    # runtime's tables: not ported.)
     max_group_table: int = 1 << 21
+    # expanding-join output capacity = factor * (build_cap + probe_cap);
+    # an overflow retries with 4x the factor
+    join_out_factor: float = 1.0
 
 
 def _strip_filters(p: L.LogicalPlan):
@@ -107,11 +110,27 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
         if isinstance(p, L.Join):
             if p.how == "cross":
                 raise NotImplementedError("CrossJoinExec is not ported yet")
-            # (outer joins raise in HashJoinExec, which names them)
-            binner, bpred = _strip_filters(p.left)
-            pinner, ppred = _strip_filters(p.right)
-            return HashJoinExec(lower(binner), lower(pinner), list(p.on),
-                                p.how, unique_build=p.unique_build,
+            # an outer join must not fuse a filter into a live mask where
+            # the dropped rows would come back NULL-extended: a full outer
+            # join keeps its build side's filters as FilterExecs, and the
+            # unique-build outer path, which keeps probe rows in place,
+            # its probe side's
+            if p.how == "full_outer":
+                binner, bpred = p.left, None
+            else:
+                binner, bpred = _strip_filters(p.left)
+            if p.how in ("left_outer", "full_outer") and p.unique_build:
+                pinner, ppred = p.right, None
+            else:
+                pinner, ppred = _strip_filters(p.right)
+            build, probe = lower(binner), lower(pinner)
+            out_cap = None
+            if not p.unique_build and p.how not in ("semi", "anti"):
+                out_cap = round_capacity(int(
+                    opts.join_out_factor * (build.capacity + probe.capacity)))
+            return HashJoinExec(build, probe, list(p.on), p.how,
+                                unique_build=p.unique_build,
+                                out_capacity=out_cap,
                                 build_pre_filter=bpred,
                                 probe_pre_filter=ppred)
         raise NotImplementedError(

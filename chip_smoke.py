@@ -1,7 +1,8 @@
 """Smoke test of ballista_tpu_torch on one NVIDIA GPU: builds the port's
-CUDA kernel, holds it against its plain PyTorch version, then runs TPC-H Q1,
-Q3 and Q5 at SF1 end to end through SessionContext(device="cuda") and
-checks each answer exactly.
+CUDA kernel, holds it against its plain PyTorch version, then runs the 13
+TPC-H queries that read only the six generated tables (Q1, Q3, Q4, Q5,
+Q6, Q7, Q10, Q12, Q13, Q15, Q18, Q21, Q22) at SF1 end to end through
+SessionContext(device="cuda") and checks each answer exactly.
 
     python3 chip_smoke.py
 
@@ -21,9 +22,18 @@ Phases:
    (Q5's n_name aggregate); exact checks against answers/sf1/answers/q3.out
    and q5.out, and Q5 against a numpy computation on the host columns;
    the kernel's launches and call shape on Q5, the kernel against its plain
-   version on Q5's own inputs with both times; first-run and warm times.
+   version on Q5's own inputs with both times; first-run and warm times;
+7. the rest of the six-table queries on phase 6's context and uploaded
+   tables: Q4, Q6, Q7, Q10, Q12, Q13, Q15, Q18, Q21 and Q22, each timed as
+   `ctx.sql(text).collect()` (so Q15's view and the scalar subqueries of
+   Q15 and Q22 count), first run and warm median of 10; per query the
+   kernel's launches and call shapes, each expanding join's output rows
+   against its capacity, any overflow retry, and the exact match with
+   answers/sf1/answers/q{q}.out. Q6 and Q12 must launch the kernel, and it
+   is held against its plain version on their own inputs (T = 1 and 8),
+   with both times.
 The line before the last is a JSON object describing each kernel (its
-launches summed over the Q1, Q3 and Q5 runs); the last line is
+launches summed over every query run); the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code 1).
 """
 
@@ -333,9 +343,11 @@ def numpy_q5(tables):
     return out
 
 
-def run_query(ctx, q, phase):
+def run_query(ctx, q, phase, with_sql=False):
     """First run (with every masked_slot_sums call recorded), answer
-    check, warm median of 10. Returns (launches, calls, rows)."""
+    check, warm median of 10. `with_sql` times `ctx.sql(text).collect()`
+    (planning and scalar subqueries included), else `collect()` of one
+    planned DataFrame. Returns (launches, calls, rows)."""
     calls = []
     real = plan_mod.masked_slot_sums
 
@@ -343,12 +355,15 @@ def run_query(ctx, q, phase):
         calls.append((row_slot, contribs, T))
         return real(row_slot, contribs, T)
 
-    df = ctx.sql(TPCH_QUERIES[q])
+    def run():
+        return (ctx.sql(TPCH_QUERIES[q]) if with_sql else df).collect()
+
+    df = None if with_sql else ctx.sql(TPCH_QUERIES[q])
     masked_sums.masked_slot_sums.launches = 0
     plan_mod.masked_slot_sums = spy
     try:
         t0 = time.perf_counter()
-        batch, schema = df.collect()
+        batch, schema = run()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
     finally:
@@ -364,7 +379,7 @@ def run_query(ctx, q, phase):
     warm = []
     for _ in range(10):
         t0 = time.perf_counter()
-        df.collect()
+        run()
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
     med = statistics.median(warm)
@@ -415,7 +430,57 @@ def phase_joins():
         f"rows, T={T}, A={contribs.shape[0]}): equal; kernel {ms:.4f} ms "
         f"({(4 + 8 * contribs.shape[0]) * slot.shape[0] / ms / 1e6:.1f} GB/s "
         f"of reads), plain {plain:.4f} ms")
-    return q3_launches + q5_launches, err
+    return q3_launches + q5_launches, err, ctx
+
+
+SIX_TABLE_REST = (4, 6, 7, 10, 12, 13, 15, 18, 21, 22)
+
+
+def phase_rest(ctx):
+    """The remaining six-table queries on phase 6's context. Returns
+    (kernel launches over their first runs, max |kernel - plain|)."""
+    joins = []
+    real = plan_mod.expand_join
+
+    def spy(*args, **kwargs):
+        em = real(*args, **kwargs)
+        joins.append(em)
+        return em
+
+    total_launches, max_err, kernel_calls = 0, 0, {}
+    for q in SIX_TABLE_REST:
+        joins.clear()
+        n_warn = len(ctx.warnings)
+        plan_mod.expand_join = spy
+        try:
+            launches, calls, _ = run_query(ctx, q, 7, with_sql=True)
+        finally:
+            plan_mod.expand_join = real
+        total_launches += launches
+        kernel_calls[q] = (launches, calls)
+        # every run repeats the same expanding joins: log each once
+        for rows, cap, over in sorted({(int(em.total), em.valid.shape[0],
+                                        bool(em.overflow)) for em in joins}):
+            log(f"phase 7: Q{q} expanding join: {rows} output rows of "
+                f"capacity {cap}, overflow {over}")
+        retries = ctx.warnings[n_warn:]
+        log(f"phase 7: Q{q} overflow retries over its 11 runs: "
+            f"{len(retries)}{(': ' + retries[0]) if retries else ''}")
+    for q, T in ((6, 1), (12, 8)):
+        launches, calls = kernel_calls[q]
+        if launches < 1:
+            raise AssertionError(f"Q{q} ran without launching masked_slot_sums")
+        # the main plan's call: the one at T (Q15/Q22-style subqueries
+        # would come first)
+        slot, contribs, t = next(c for c in calls if c[2] == T)
+        err = compare(slot, contribs, t)
+        max_err = max(max_err, err)
+        ms, plain = time_both(slot, contribs, t)
+        live = int((slot < t).sum())
+        log(f"phase 7: Q{q}'s own kernel inputs (n={slot.shape[0]}, {live} "
+            f"live rows, T={t}, A={contribs.shape[0]}): equal; kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms")
+    return total_launches, max_err
 
 
 def main():
@@ -436,14 +501,15 @@ def main():
     max_err = phase_kernel()
     launches, q1_call = phase_q1()
     err, ms, plain_ms = phase_q1_inputs(*q1_call)
-    join_launches, join_err = phase_joins()
+    join_launches, join_err, ctx = phase_joins()
+    rest_launches, rest_err = phase_rest(ctx)
 
     print(json.dumps({"kernels": [{
         "name": "masked_slot_sums", "route": "cuda",
         "source": "ballista_tpu_torch/csrc/masked_slot_sums.cu",
         "replaces": "ballista_tpu/ops/pallas_agg.py:106",
-        "launches": launches + join_launches,
-        "max_abs_err": max(max_err, err, join_err),
+        "launches": launches + join_launches + rest_launches,
+        "max_abs_err": max(max_err, err, join_err, rest_err),
         "ms": ms, "plain_ms": plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,3 +67,12 @@ def test_from_ingested_types():
                         ["a", "b"], (np.int64(0), np.int64(2)))
     assert col.validity.dtype == bool and col.dictionary.dtype == object
     assert col.bounds == (0, 2) and type(col.bounds[0]) is int
+
+
+@pytest.mark.parametrize("dictionary", [["b", "a"], ["a", "a", "b"]])
+def test_from_ingested_refuses_unsorted_dictionaries(dictionary):
+    """A raw (unsorted or repeating) dictionary would break the port's
+    code-order string compares: it is refused, not ingested."""
+    with pytest.raises(ValueError, match="unsorted"):
+        from_ingested(np.arange(len(dictionary), dtype=np.int32),
+                      np.ones(len(dictionary), bool), dictionary, None)

@@ -97,8 +97,10 @@ def test_bound_expression_matches(text):
 
 def test_unported_node_raises():
     _, tschema = _schemas()
-    with pytest.raises(NotImplementedError, match="Like"):
-        TE.bind_expr(TE.Like(TE.Col("l_returnflag"), "A%"), tschema)
+    with pytest.raises(NotImplementedError, match="date_trunc"):
+        TE.bind_expr(TE.ScalarFn("date_trunc", (TE.Lit("year"),
+                                                TE.Col("l_shipdate"))),
+                     tschema)
 
 
 def test_div_round_half_negative_operands():

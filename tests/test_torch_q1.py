@@ -108,9 +108,9 @@ def test_plan_shape(contexts):
 
 def test_unported_sql_raises(contexts):
     _, tctx = contexts
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="upper"):
         tctx.sql("select l_orderkey from lineitem "
-                 "where l_comment like '%special%'").collect()
+                 "where upper(l_comment) = 'X'").collect()
 
 
 def test_cuda_context_raises_without_cuda():
