@@ -95,6 +95,13 @@ class SessionContext:
         self.tables[name] = TableProvider(name, fields, columns, self.device,
                                           primary_key)
 
+    def register_udf(self, name: str, fn, out_dtype,
+                     propagate_nulls: bool = True) -> None:
+        """Register a scalar UDF for SQL and expressions: fn(*data
+        tensors) -> data tensor (`exprs.register_udf`)."""
+        from ..exprs import register_udf
+        register_udf(name, fn, out_dtype, propagate_nulls)
+
     def unique_keys(self, name: str):
         """Unique column sets for join build-side selection and
         functional-dependency reasoning: the declared primary key, else

@@ -1,6 +1,5 @@
-"""TPC-H region, nation, supplier, customer, orders and lineitem, generated
-straight into host columns (port of those generators of
-ballista_tpu/datagen/tpch.py; part and partsupp are not ported yet).
+"""The eight TPC-H tables, generated straight into host columns (port of
+the generators of ballista_tpu/datagen/tpch.py).
 
 Same seed, same rng streams and the same draws in the same order as the
 JAX package's `generate_table`, so the rows are identical; but instead of a
@@ -48,6 +47,26 @@ SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 INSTRUCTIONS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
+TYPE_S1 = ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
+TYPE_S2 = ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
+TYPE_S3 = ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]
+CONTAIN_S1 = ["SM", "LG", "MED", "JUMBO", "WRAP"]
+CONTAIN_S2 = ["CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"]
+COLORS = ["almond", "antique", "aquamarine", "azure", "beige", "bisque",
+          "black", "blanched", "blue", "blush", "brown", "burlywood",
+          "burnished", "chartreuse", "chiffon", "chocolate", "coral",
+          "cornflower", "cornsilk", "cream", "cyan", "dark", "deep",
+          "dim", "dodger", "drab", "firebrick", "floral", "forest",
+          "frosted", "gainsboro", "ghost", "goldenrod", "green", "grey",
+          "honeydew", "hot", "hotpink", "indian", "ivory", "khaki",
+          "lace", "lavender", "lawn", "lemon", "light", "lime", "linen",
+          "magenta", "maroon", "medium", "metallic", "midnight", "mint",
+          "misty", "moccasin", "navajo", "navy", "olive", "orange",
+          "orchid", "pale", "papaya", "peach", "peru", "pink", "plum",
+          "powder", "puff", "purple", "red", "rose", "rosy", "royal",
+          "saddle", "salmon", "sandy", "seashell", "sienna", "sky",
+          "slate", "smoke", "snow", "spring", "steel", "tan", "thistle",
+          "tomato", "turquoise", "violet", "wheat", "white", "yellow"]
 NOUNS = ["packages", "requests", "accounts", "deposits", "foxes", "ideas",
          "theodolites", "pinto beans", "instructions", "dependencies",
          "excuses", "platelets", "asymptotes", "courts", "dolphins",
@@ -81,6 +100,16 @@ TPCH_TABLES = {
         Field("c_address", STRING), Field("c_nationkey", INT64),
         Field("c_phone", STRING), Field("c_acctbal", MONEY),
         Field("c_mktsegment", STRING), Field("c_comment", STRING))),
+    "part": (lambda sf: int(200_000 * sf), ("p_partkey",), (
+        Field("p_partkey", INT64), Field("p_name", STRING),
+        Field("p_mfgr", STRING), Field("p_brand", STRING),
+        Field("p_type", STRING), Field("p_size", INT32),
+        Field("p_container", STRING), Field("p_retailprice", MONEY),
+        Field("p_comment", STRING))),
+    "partsupp": (lambda sf: int(800_000 * sf), ("ps_partkey", "ps_suppkey"), (
+        Field("ps_partkey", INT64), Field("ps_suppkey", INT64),
+        Field("ps_availqty", INT32), Field("ps_supplycost", MONEY),
+        Field("ps_comment", STRING))),
     "orders": (lambda sf: int(1_500_000 * sf), ("o_orderkey",), (
         Field("o_orderkey", INT64), Field("o_custkey", INT64),
         Field("o_orderstatus", STRING), Field("o_totalprice", MONEY),
@@ -97,7 +126,7 @@ TPCH_TABLES = {
         Field("l_receiptdate", DATE32), Field("l_shipinstruct", STRING),
         Field("l_shipmode", STRING), Field("l_comment", STRING))),
 }
-N_PART = lambda sf: int(200_000 * sf)  # noqa: E731
+N_PART = TPCH_TABLES["part"][0]
 N_SUPP = TPCH_TABLES["supplier"][0]
 N_CUST = TPCH_TABLES["customer"][0]
 
@@ -248,6 +277,63 @@ def _customer(sf: float, seed: int) -> Table:
     return TPCH_TABLES["customer"][2], cols
 
 
+def _part(sf: float, seed: int) -> Table:
+    rng = _rng("part", seed)
+    n = N_PART(sf)
+    keys = np.arange(1, n + 1)
+    # the reference's draw order: five colour words per name, the three
+    # type words, the two container words, the comment pool, then (its
+    # dict literal's key order) mfgr, brand's two digits, size, comment
+    colors = np.array(COLORS, dtype=object)
+    words = [colors[rng.integers(0, len(COLORS), n)] for _ in range(5)]
+    t1, t2, t3 = (rng.integers(0, 6, n), rng.integers(0, 5, n),
+                  rng.integers(0, 5, n))
+    k1, k2 = rng.integers(0, 5, n), rng.integers(0, 8, n)
+    pool = _comment_pool(rng, 1000)
+    mfgr = rng.integers(1, 6, n)
+    brand_m, brand_x = rng.integers(1, 6, n), rng.integers(1, 6, n)
+    size = rng.integers(1, 51, n)
+    comment = rng.integers(0, 1000, n)
+    # retail price per dbgen's formula, through float64 as the reference
+    price = (90000 + (keys % 20001) / 10 + 100 * (keys % 1000)).astype(np.int64)
+    types = [f"{a} {b} {c}" for a in TYPE_S1 for b in TYPE_S2 for c in TYPE_S3]
+    containers = [f"{a} {b}" for a in CONTAIN_S1 for b in CONTAIN_S2]
+    cols = {
+        "p_partkey": _numeric(keys, INT64),
+        "p_name": _distinct_strings([" ".join(w) for w in zip(*words)]),
+        "p_mfgr": _strings([f"Manufacturer#{m}" for m in range(1, 6)],
+                           mfgr - 1),
+        "p_brand": _strings([f"Brand#{m}{x}" for m in range(1, 6)
+                             for x in range(1, 6)],
+                            (brand_m - 1) * 5 + brand_x - 1),
+        "p_type": _strings(types, t1 * 25 + t2 * 5 + t3),
+        "p_size": _numeric(size, INT32),
+        "p_container": _strings(containers, k1 * 8 + k2),
+        "p_retailprice": _numeric(price, MONEY),
+        "p_comment": _strings(pool, comment),
+    }
+    return TPCH_TABLES["part"][2], cols
+
+
+def _partsupp(sf: float, seed: int) -> Table:
+    rng = _rng("partsupp", seed)
+    n_part, n_supp = N_PART(sf), N_SUPP(sf)
+    # four suppliers per part, the ones lineitem draws from
+    pk = np.repeat(np.arange(1, n_part + 1), 4)
+    sk = ((pk + np.tile(np.arange(4), n_part) * (n_supp // 4 + 1))
+          % n_supp) + 1
+    n = len(pk)
+    pool = _comment_pool(rng, 1000)
+    cols = {
+        "ps_partkey": _numeric(pk, INT64),
+        "ps_suppkey": _numeric(sk, INT64),
+        "ps_availqty": _numeric(rng.integers(1, 10000, n), INT32),
+        "ps_supplycost": _numeric(rng.integers(100, 100100, n), MONEY),
+        "ps_comment": _strings(pool, rng.integers(0, 1000, n)),
+    }
+    return TPCH_TABLES["partsupp"][2], cols
+
+
 def _orders(sf: float, seed: int) -> Table:
     rng = _rng("orders", seed)
     n = TPCH_TABLES["orders"][0](sf)
@@ -341,17 +427,18 @@ def _lineitem(sf: float, seed: int, orders: Table) -> Table:
 
 
 _GENERATORS = {"region": _region, "nation": _nation, "supplier": _supplier,
-               "customer": _customer, "orders": _orders}
+               "customer": _customer, "part": _part, "partsupp": _partsupp,
+               "orders": _orders}
 
 
 def generate_tpch(sf: float, seed: int = 19940101,
                   tables: Optional[Sequence[str]] = None) -> Dict[str, Table]:
     """{name: (fields, {column: HostColumn})} for the named tables (default:
-    all six ported ones)."""
+    all eight)."""
     names = list(tables or TPCH_TABLES)
     for name in names:
         if name not in TPCH_TABLES:
-            raise NotImplementedError(f"TPC-H table {name!r} is not ported yet")
+            raise KeyError(f"no TPC-H table {name!r}")
     out = {name: _GENERATORS[name](sf, seed)
            for name in names if name in _GENERATORS}
     if "lineitem" in names:

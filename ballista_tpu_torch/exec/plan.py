@@ -6,8 +6,9 @@ flags nodes raise) to its output Batch on the inputs' device; `run_plan`
 evaluates a whole tree (the JAX package compiled it into one XLA program
 with `compile_stage` instead). Ported so far: InputLeaf, OneRowExec,
 FilterExec, ProjectExec, HashAggregateExec in `single` mode (direct-slot
-and sorted layouts), HashJoinExec (inner, left outer, semi and anti, on a
-unique or a duplicate-key build), SortExec and LimitExec.
+and sorted layouts), HashJoinExec (inner, left and full outer, semi and
+anti, on a unique or a duplicate-key build), CrossJoinExec,
+NestedLoopJoinExec, DictRemapExec, CoalesceExec, SortExec and LimitExec.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..ops.expand_join import expand_join
 from ..ops.gather import gather_columns
 from ..ops.hash import _norm_keys, pack_key_columns, plan_key_packing
 from ..ops.masked_sums import masked_slot_sums
-from ..ops.merge_join import probe_unique
+from ..ops.merge_join import merge_full_unique, probe_unique
 from ..ops.sort import SortKeySpec, sort_batch
 from ..ops.vsort import compact_batch, sort_batch_columns
 from ..schema import INT64, Field, Schema
@@ -242,8 +243,8 @@ class HashAggregateExec(ExecNode):
         else:
             # group-count bound from key metadata: distinct group tuples
             # <= prod over keys of min(dictionary size, int-bound range
-            # width) — hard ingest-time bounds that shrink the table and
-            # the output the operators above carry
+            # width, expression ndv bound) — hard bounds that shrink the
+            # table and the output the operators above carry
             G = 1
             cap_now = min(table_size, child.capacity)
             for gb, nu in zip(self._group_bounds, self._key_nullables):
@@ -252,6 +253,8 @@ class HashAggregateExec(ExecNode):
                     lo, hi = gb.int_bound
                     width = int(hi) - int(lo) + 1
                     k = width if k is None else min(k, width)
+                if gb.ndv_bound is not None:
+                    k = gb.ndv_bound if k is None else min(k, gb.ndv_bound)
                 if k is None or k <= 0:
                     G = None
                     break
@@ -455,7 +458,9 @@ class HashJoinExec(ExecNode):
     (ops.expand_join, inner or left_outer): pairs in probe-row order, then
     build-row order, in a batch of `out_capacity` rows; a larger total
     raises the run's overflow flag, and the client retries with a larger
-    capacity. A full outer join raises NotImplementedError."""
+    capacity. 'full_outer' is left_outer followed by the live build rows
+    that matched no probe row, with NULL probe columns; every output field
+    is nullable and the capacity grows by the build's."""
 
     def __init__(self, build: ExecNode, probe: ExecNode,
                  on: Sequence[Tuple[str, str]], join_type: str = "inner",
@@ -463,9 +468,9 @@ class HashJoinExec(ExecNode):
                  out_capacity: Optional[int] = None,
                  build_pre_filter: Optional[Expr] = None,
                  probe_pre_filter: Optional[Expr] = None):
-        if join_type not in ("inner", "semi", "anti", "left_outer"):
-            raise NotImplementedError(
-                f"HashJoinExec {join_type} join is not ported yet")
+        if join_type not in ("inner", "semi", "anti", "left_outer",
+                             "full_outer"):
+            raise ValueError(f"HashJoinExec: unknown join type {join_type!r}")
         self.children = (build, probe)
         self.on = tuple(on)
         self.join_type = join_type
@@ -482,6 +487,9 @@ class HashJoinExec(ExecNode):
             self.out_capacity = out_capacity or round_capacity(
                 build.capacity + probe.capacity)
             self.capacity = self.out_capacity
+        if join_type == "full_outer":
+            # room for the appended unmatched build rows
+            self.capacity = round_capacity(self.capacity + build.capacity)
         self._build_idx = [build.schema.index_of(a) for a, _ in on]
         self._probe_idx = [probe.schema.index_of(b) for _, b in on]
         # dictionary-coded join keys: codes from DIFFERENT dictionaries are
@@ -529,15 +537,8 @@ class HashJoinExec(ExecNode):
         if join_type in ("semi", "anti"):
             self.schema = probe.schema
         else:
-            fields = build.schema.fields + probe.schema.fields
-            dicts = dict(build.schema.dictionaries)
-            dicts.update(probe.schema.dictionaries)
-            bounds = dict(build.schema.int_bounds)
-            bounds.update(probe.schema.int_bounds)
-            names = [f.name for f in fields]
-            if len(set(names)) != len(names):
-                raise ValueError(f"duplicate column names in join output: {names}")
-            self.schema = Schema(fields, dicts, bounds)
+            self.schema = _joined_schema(build.schema, probe.schema,
+                                         nullable=join_type == "full_outer")
 
     def _keys(self, batch: Batch, idx, side: int) -> List[Column]:
         keys = [batch.columns[i] for i in idx]
@@ -558,10 +559,12 @@ class HashJoinExec(ExecNode):
         if not self.unique_build:
             return self._evaluate_expanding(run, build_b, probe_b, bkeys,
                                             pkeys, blive, plive)
-        match = probe_unique([c.data for c in bkeys],
-                             [c.validity for c in bkeys], blive,
-                             [c.data for c in pkeys],
-                             [c.validity for c in pkeys], plive)
+        args = ([c.data for c in bkeys], [c.validity for c in bkeys], blive,
+                [c.data for c in pkeys], [c.validity for c in pkeys], plive)
+        if self.join_type == "full_outer":
+            match, build_matched = merge_full_unique(*args)
+        else:
+            match = probe_unique(*args)
         matched = match >= 0
         if self.join_type in ("semi", "anti"):
             keep = (matched if self.join_type == "semi" else ~matched) & plive
@@ -585,7 +588,24 @@ class HashJoinExec(ExecNode):
             # every probe row survives in place; build columns are
             # already NULL where it found no match
             return joined
+        if self.join_type == "full_outer":
+            return self._append_unmatched_build(joined, build_b,
+                                                blive & ~build_matched)
         return compact_batch(joined, matched & plive)
+
+    def _append_unmatched_build(self, joined: Batch, build_b: Batch,
+                                keep: torch.Tensor) -> Batch:
+        """FULL OUTER tail: the unmatched live build rows, compacted, with
+        NULL probe columns, after the probe-positional (or expanded)
+        rows."""
+        extra_build = compact_batch(build_b, keep)
+        cap_b = build_b.capacity
+        null_probe = tuple(
+            Column(c.data.new_zeros(cap_b),
+                   torch.zeros(cap_b, dtype=torch.bool, device=c.data.device))
+            for c in joined.columns[len(build_b.columns):])
+        extra = Batch(extra_build.columns + null_probe, extra_build.num_rows)
+        return concat_batches([joined, extra], self.capacity)
 
     def _evaluate_expanding(self, run, build_b, probe_b, bkeys, pkeys,
                             blive, plive):
@@ -595,18 +615,261 @@ class HashJoinExec(ExecNode):
                          blive, [c.data for c in pkeys],
                          [c.validity for c in pkeys], plive,
                          self.out_capacity,
-                         left_outer=self.join_type == "left_outer")
+                         left_outer=self.join_type in ("left_outer",
+                                                       "full_outer"))
         run.flag_overflow(em.overflow)
         matched = em.build_row >= 0
         cols = (gather_columns(build_b.columns, em.build_row.clamp(min=0),
                                valid_and=matched)
                 + gather_columns(probe_b.columns, em.probe_row.clamp(min=0),
                                  valid_and=em.valid))
-        return Batch(tuple(cols), em.total)
+        out = Batch(tuple(cols), em.total)
+        if self.join_type == "full_outer":
+            out = self._append_unmatched_build(out, build_b,
+                                               blive & ~em.build_matched)
+        return out
 
     def _label(self):
         mode = "unique" if self.unique_build else "expanding"
         return f"HashJoinExec[{self.join_type},{mode}](on={list(self.on)})"
+
+
+def _joined_schema(build: Schema, probe: Schema,
+                   nullable: bool = False) -> Schema:
+    """Build columns, then probe columns (every field nullable when
+    `nullable`); names must not repeat."""
+    fields = build.fields + probe.fields
+    if nullable:
+        fields = tuple(Field(f.name, f.dtype, True) for f in fields)
+    names = [f.name for f in fields]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate column names in join output: {names}")
+    dicts = dict(build.dictionaries)
+    dicts.update(probe.dictionaries)
+    bounds = dict(build.int_bounds)
+    bounds.update(probe.int_bounds)
+    return Schema(fields, dicts, bounds)
+
+
+def _static_one_row(node: ExecNode) -> bool:
+    """Nodes that always produce exactly one live row, at position 0: a
+    no-key aggregate (one row even over an empty input) and OneRowExec,
+    seen through the positional wrappers above them."""
+    while isinstance(node, (ProjectExec, DictRemapExec)):
+        node = node.children[0]
+    if isinstance(node, HashAggregateExec):
+        return not node.group_exprs
+    return isinstance(node, OneRowExec)
+
+
+def _fit(b: Batch, capacity: int) -> Batch:
+    """`b` cut or zero-padded to `capacity` rows, rows from num_rows on
+    dead. (The reference tiles with jnp.resize; only dead rows land past
+    num_rows, so padding gives the same batch.)"""
+    n = b.capacity
+    live = torch.arange(capacity, dtype=torch.int32,
+                        device=b.device) < b.num_rows
+    cols = []
+    for c in b.columns:
+        data, valid = c.data[:capacity], c.validity[:capacity]
+        if n < capacity:
+            data = torch.cat([data, data.new_zeros(capacity - n)])
+            valid = torch.cat([valid, valid.new_zeros(capacity - n)])
+        cols.append(Column(data, valid & live))
+    return Batch(tuple(cols), b.num_rows)
+
+
+class CrossJoinExec(ExecNode):
+    """Cartesian product: output row j is (build row j // probe capacity,
+    probe row j % probe capacity), compacted. A side that statically holds
+    one row (a no-key aggregate: the three-valued NOT IN count of Q16)
+    broadcasts instead, and the output keeps the other side's capacity.
+    Any other product is bounded by MAX_CELLS; the planner sends a
+    filtered product above it to NestedLoopJoinExec."""
+
+    MAX_CELLS = 1 << 24
+
+    def __init__(self, build: ExecNode, probe: ExecNode):
+        self.children = (build, probe)
+        self._bcast = None
+        if _static_one_row(build):
+            self._bcast = "build"
+            self.capacity = probe.capacity
+        elif _static_one_row(probe):
+            self._bcast = "probe"
+            self.capacity = build.capacity
+        else:
+            cells = build.capacity * probe.capacity
+            if cells > self.MAX_CELLS:
+                raise NotImplementedError(
+                    f"cross join of {build.capacity}x{probe.capacity} rows "
+                    f"exceeds the {self.MAX_CELLS} cell bound")
+            self.capacity = round_capacity(cells)
+        self.schema = _joined_schema(build.schema, probe.schema)
+
+    def evaluate(self, run):
+        build_b = self.children[0].evaluate(run)
+        probe_b = self.children[1].evaluate(run)
+        total = (build_b.num_rows * probe_b.num_rows).to(torch.int32)
+        if self._bcast is not None:
+            one, many = ((build_b, probe_b) if self._bcast == "build"
+                         else (probe_b, build_b))
+            # the one-row side has its row unless its input was empty
+            # (OneRowExec); many's rows stay dense in place
+            live = row_mask(many) & (one.num_rows > 0)
+            cap = many.capacity
+            ones = tuple(Column(c.data[:1].expand(cap),
+                                c.validity[:1].expand(cap) & live)
+                         for c in one.columns)
+            manys = tuple(Column(c.data, c.validity & live)
+                          for c in many.columns)
+            cols = ones + manys if self._bcast == "build" else manys + ones
+            return Batch(cols, total)
+        nb_cap, np_cap = build_b.capacity, probe_b.capacity
+        j = torch.arange(nb_cap * np_cap, dtype=torch.int64,
+                         device=build_b.device)
+        bi, pi = j // np_cap, j % np_cap
+        valid = (bi < build_b.num_rows) & (pi < probe_b.num_rows)
+        cols = (gather_columns(build_b.columns, bi, valid_and=valid)
+                + gather_columns(probe_b.columns, pi, valid_and=valid))
+        out = compact_batch(Batch(tuple(cols), total), valid)
+        return _fit(out, self.capacity)
+
+    def _label(self):
+        return "CrossJoinExec" + (f"[broadcast {self._bcast}]"
+                                  if self._bcast else "")
+
+
+class NestedLoopJoinExec(ExecNode):
+    """Chunked theta join: a predicate over a cross product too large to
+    materialize. The build side is taken in chunks of `chunk_b` rows, so
+    one chunk's pairs stay within CrossJoinExec.MAX_CELLS; each chunk
+    evaluates the predicate over its pairs and writes the kept ones, in
+    order (chunk by chunk, build-row major), to the next free output rows.
+    The output offset stays a device tensor, so the chunk loop never waits
+    for the device. The capacity follows join_out_factor; a larger total
+    raises the run's overflow flag and the client retries with 4x."""
+
+    def __init__(self, build: ExecNode, probe: ExecNode, predicate: Expr,
+                 opts):
+        self.children = (build, probe)
+        self.predicate = predicate
+        self.schema = _joined_schema(build.schema, probe.schema)
+        self._bound = bind_expr(predicate, self.schema)
+        cells = build.capacity * probe.capacity
+        self.capacity = round_capacity(int(min(cells, max(
+            opts.join_out_factor * (build.capacity + probe.capacity), 128))))
+        self.chunk_b = max(1, CrossJoinExec.MAX_CELLS // probe.capacity)
+        self.n_chunks = -(-build.capacity // self.chunk_b)
+
+    def evaluate(self, run):
+        build_b = self.children[0].evaluate(run)
+        probe_b = self.children[1].evaluate(run)
+        dev = build_b.device
+        bcap, pcap = build_b.capacity, probe_b.capacity
+        cb, out_cap = self.chunk_b, self.capacity
+        b_live, p_live = row_mask(build_b), row_mask(probe_b)
+        j = torch.arange(cb * pcap, dtype=torch.int64, device=dev)
+        row_in_chunk, q = j // pcap, j % pcap
+        q_live = p_live.index_select(0, q)
+        probe_cols = gather_columns(probe_b.columns, q)
+        # every pair of a chunk is written: a kept pair that fits to its
+        # output row, any other pair j to the spare row out_cap + j, so no
+        # two writes meet; the spare rows are dropped at the end
+        all_cols = build_b.columns + probe_b.columns
+        out_data = [c.data.new_zeros(out_cap + j.shape[0]) for c in all_cols]
+        out_valid = [torch.zeros(out_cap + j.shape[0], dtype=torch.bool,
+                                 device=dev) for _ in all_cols]
+        offset = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(self.n_chunks):
+            r = i * cb + row_in_chunk
+            rc = r.clamp(max=bcap - 1)
+            live = (r < bcap) & b_live.index_select(0, rc) & q_live
+            pair_cols = tuple(
+                gather_columns(build_b.columns, rc, valid_and=live)
+                + [Column(c.data, c.validity & live) for c in probe_cols])
+            pair = Batch(pair_cols, live.sum().to(torch.int32))
+            pred = self._bound.fn(pair)
+            keep = pred.data.to(torch.bool) & pred.validity & live
+            pos = offset + torch.cumsum(keep, 0) - 1
+            dest = torch.where(keep & (pos < out_cap), pos, out_cap + j)
+            for od, ov, c in zip(out_data, out_valid, pair_cols):
+                od.index_copy_(0, dest, c.data)
+                ov.index_copy_(0, dest, c.validity)
+            offset = offset + keep.sum()
+        run.flag_overflow(offset > out_cap)
+        num_rows = offset.clamp(max=out_cap).to(torch.int32)
+        live = torch.arange(out_cap, dtype=torch.int32, device=dev) < num_rows
+        return Batch(tuple(Column(d[:out_cap], v[:out_cap] & live)
+                           for d, v in zip(out_data, out_valid)), num_rows)
+
+    def _label(self):
+        return (f"NestedLoopJoinExec({self.predicate}, "
+                f"chunks={self.n_chunks})")
+
+
+class DictRemapExec(ExecNode):
+    """Re-encode dictionary-coded string columns into new (union)
+    dictionaries through host-built lookup tables: UNION branches whose
+    string columns carry different dictionaries."""
+
+    def __init__(self, child: ExecNode, luts: Dict[str, np.ndarray],
+                 new_dicts: Dict[str, np.ndarray]):
+        self.children = (child,)
+        self.capacity = child.capacity
+        self._luts = {child.schema.index_of(n): np.asarray(l, dtype=np.int32)
+                      for n, l in luts.items()}
+        dicts = dict(child.schema.dictionaries)
+        dicts.update(new_dicts)
+        self.schema = Schema(child.schema.fields, dicts,
+                             child.schema.int_bounds)
+
+    def evaluate(self, run):
+        b = self.children[0].evaluate(run)
+        cols = list(b.columns)
+        for idx, lut in self._luts.items():
+            c = cols[idx]
+            cols[idx] = Column(gather_lut(lut, c), c.validity)
+        return Batch(tuple(cols), b.num_rows)
+
+    def _label(self):
+        return f"DictRemapExec(cols={sorted(self._luts)})"
+
+
+class CoalesceExec(ExecNode):
+    """The live rows of several inputs in one batch, in input order
+    (UNION ALL)."""
+
+    def __init__(self, children: Sequence[ExecNode]):
+        self.children = tuple(children)
+        self.schema = children[0].schema
+        self.capacity = sum(c.capacity for c in children)
+
+    def evaluate(self, run):
+        return concat_batches([c.evaluate(run) for c in self.children],
+                              self.capacity)
+
+    def _label(self):
+        return f"CoalesceExec(n={len(self.children)})"
+
+
+def concat_batches(batches: Sequence[Batch], capacity: int) -> Batch:
+    """The live rows of `batches`, in order, in one batch of `capacity`
+    rows; more live rows than that are cut off (num_rows is clamped)."""
+    keep = torch.cat([row_mask(b) for b in batches])
+    total = batches[0].num_rows
+    for b in batches[1:]:
+        total = total + b.num_rows
+    cols = []
+    for ci in range(len(batches[0].columns)):
+        data = torch.cat([b.columns[ci].data for b in batches])
+        valid = torch.cat([b.columns[ci].validity for b in batches])
+        cols.append(Column(data, valid & keep))
+    big = compact_batch(Batch(tuple(cols), total.to(torch.int32)), keep)
+    if big.capacity == capacity:
+        return big
+    return _fit(Batch(big.columns, big.num_rows.clamp(max=capacity)),
+                capacity)
 
 
 class SortExec(ExecNode):

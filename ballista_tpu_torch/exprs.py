@@ -11,9 +11,12 @@ An expression is bound against a Schema at plan time, producing a closure
   (`datagen.tpch.from_ingested` refuses any other), so code order is
   lexicographic order: the reference's raw-dictionary paths (equality
   LUTs, `sorted_recode`) have nothing to serve here.
-- LIKE, IN over strings, substring and string CASE are host work over the
+- LIKE, IN over strings, string CASE and the string functions (substring,
+  upper, trim, replace, length, concat, ...) are host work over the
   dictionary, once at bind time; the device only gathers a lookup table
   by code.
+- User-defined scalar functions (`register_udf`) are Python functions of
+  torch tensors.
 """
 
 from __future__ import annotations
@@ -317,6 +320,10 @@ class Bound:
     code_bound: Optional[int] = None
     # ingest-time (lo, hi) value bounds for integer/date/decimal columns
     int_bound: Optional[tuple] = None
+    # static bound on the number of distinct values, where tighter than
+    # code_bound or the int_bound width (date_trunc('year') over 7 years
+    # of dates: 7); feeds the aggregate's group-count bound
+    ndv_bound: Optional[int] = None
 
 
 def _const_column(value, dtype: DataType, valid: bool = True):
@@ -581,9 +588,6 @@ def _bind_lit(e: Lit) -> Bound:
             v //= 10
             scale -= 1
         dtype = decimal(dtype.precision, scale)
-    elif dtype.kind not in (TypeKind.BOOL, TypeKind.INT32, TypeKind.INT64,
-                            TypeKind.DATE32):
-        raise NotImplementedError(f"literal of type {dtype!r}")
     return Bound(dtype, False, _const_column(v, dtype))
 
 
@@ -609,11 +613,11 @@ def _bind_cast(c: Bound, dst: DataType) -> Bound:
 def bind_expr(e: Expr, schema: Schema) -> Bound:
     """Bind a logical expression against a schema, producing an evaluator.
 
-    The port binds what the six-table TPC-H queries run: columns,
-    literals, aliases, casts, arithmetic, comparisons, Kleene AND/OR,
-    NOT, negation, IS [NOT] NULL, BETWEEN, IN, LIKE, CASE, literal
-    date +/- interval and the scalar functions of `_bind_scalar_fn`.
-    Every other node raises NotImplementedError naming it."""
+    Columns, literals, aliases, casts, arithmetic, comparisons, Kleene
+    AND/OR, NOT, negation, IS [NOT] NULL, BETWEEN, IN, LIKE, CASE,
+    literal date +/- interval and the scalar functions of
+    `_bind_scalar_fn`. Every other node raises NotImplementedError
+    naming it."""
     if isinstance(e, Alias):
         return bind_expr(e.child, schema)
 
@@ -883,6 +887,18 @@ def _bind_case(e: Case, schema: Schema) -> Bound:
     return Bound(out, True, fn, dictionary=dictionary, code_bound=code_bound)
 
 
+# user-defined scalar functions: name -> (fn, out_dtype, propagate_nulls)
+_UDF_REGISTRY: dict = {}
+
+
+def register_udf(name: str, fn, out_dtype: DataType,
+                 propagate_nulls: bool = True) -> None:
+    """Register a scalar function for SQL and expressions: fn(*data
+    tensors) -> data tensor, on the batch's device. With propagate_nulls
+    a row is NULL where any argument is, else never NULL."""
+    _UDF_REGISTRY[name.lower()] = (fn, out_dtype, propagate_nulls)
+
+
 def _civil_from_days(days: torch.Tensor):
     """Days since 1970-01-01 -> (year, month, day) int32 tensors (Howard
     Hinnant's civil_from_days, vectorised; floor divisions throughout)."""
@@ -898,10 +914,71 @@ def _civil_from_days(days: torch.Tensor):
     return torch.where(m <= 2, y + 1, y), m, d
 
 
+def _days_from_civil(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(year, month) int32 tensors -> days since 1970-01-01 of the month's
+    first day (Hinnant's days_from_civil, vectorised)."""
+    yy = y - (m <= 2).to(y.dtype)
+    era = torch.where(yy >= 0, yy, yy - 399) // 400
+    yoe = yy - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = (153 * mp + 2) // 5
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def _dict_lut_bound(c: Bound, values: list, code_bound: bool) -> Bound:
+    """A string function as a host map over c's dictionary: `values[i]` is
+    the result for code i. The results form a new sorted dictionary (whose
+    size is the code bound, where `code_bound`); the device gathers the
+    code map."""
+    vals = np.array(values, dtype=str) if values else np.zeros(0, dtype=str)
+    new_dict, lut = np.unique(vals, return_inverse=True)
+    lut = lut.astype(np.int32).reshape(-1)
+
+    def fn(batch):
+        col = c.fn(batch)
+        return Column(gather_lut(lut, col), col.validity)
+    return Bound(STRING, c.nullable, fn, dictionary=new_dict.astype(object),
+                 code_bound=max(len(new_dict), 1) if code_bound else None)
+
+
+_DICT_STR_FNS = {"upper": str.upper, "lower": str.lower, "trim": str.strip,
+                 "ltrim": str.lstrip, "rtrim": str.rstrip,
+                 "reverse": lambda s: s[::-1]}
+
+
+def _string_arg(e: ScalarFn, schema: Schema) -> Bound:
+    c = bind_expr(e.args[0], schema)
+    if c.dtype.kind is not TypeKind.STRING:
+        raise TypeError(f"{e.name} on non-string")
+    if c.dictionary is None:
+        raise TypeError(f"{e.name} requires a dictionary-encoded column")
+    return c
+
+
 def _bind_scalar_fn(e: ScalarFn, schema: Schema) -> Bound:
-    """extract_year/month/day, substring, coalesce and abs; every other
-    function raises NotImplementedError naming it."""
+    """Registered UDFs, extract_year/month/day, date_trunc, floor, ceil,
+    round, sqrt, abs, substring, upper, lower, trim, ltrim, rtrim,
+    reverse, replace, length (and char_length, character_length,
+    octet_length), concat and coalesce; any other name raises
+    NotImplementedError naming it."""
     name = e.name.lower()
+    if name in _UDF_REGISTRY:
+        fn_impl, out_dtype, prop = _UDF_REGISTRY[name]
+        parts = [bind_expr(a, schema) for a in e.args]
+
+        def fn(batch):
+            cols = [p.fn(batch) for p in parts]
+            data = fn_impl(*[c.data for c in cols]).to(out_dtype.torch_dtype)
+            if prop and cols:
+                valid = cols[0].validity
+                for c in cols[1:]:
+                    valid = valid & c.validity
+            else:
+                valid = torch.ones(batch.capacity, dtype=torch.bool,
+                                   device=batch.device)
+            return Column(data, valid)
+        return Bound(out_dtype, True, fn)
     if name in ("extract_year", "extract_month", "extract_day"):
         c = bind_expr(e.args[0], schema)
         part = ("year", "month", "day").index(name.split("_")[1])
@@ -922,6 +999,58 @@ def _bind_scalar_fn(e: ScalarFn, schema: Schema) -> Bound:
             ib = ((EPOCH + datetime.timedelta(days=int(lo))).year,
                   (EPOCH + datetime.timedelta(days=int(hi))).year)
         return Bound(INT32, c.nullable, fn, int_bound=ib)
+    if name == "date_trunc":
+        unit = e.args[0].value.lower() if isinstance(e.args[0], Lit) else None
+        if unit not in ("year", "month"):
+            raise NotImplementedError(f"date_trunc unit {unit!r}")
+        c = bind_expr(e.args[1], schema)
+
+        def fn(batch):
+            col = c.fn(batch)
+            y, m, _ = _civil_from_days(col.data)
+            if unit == "year":
+                m = torch.ones_like(m)
+            return Column(_days_from_civil(y, m).to(torch.int32),
+                          col.validity)
+        # truncation keeps values in [trunc(lo), hi]; the distinct count
+        # is the number of year or month starts in that range
+        ib = ndv = None
+        if c.int_bound is not None:
+            lo, hi = c.int_bound
+            dlo = EPOCH + datetime.timedelta(days=int(lo))
+            dhi = EPOCH + datetime.timedelta(days=int(hi))
+            tlo = (datetime.date(dlo.year, 1, 1) if unit == "year"
+                   else datetime.date(dlo.year, dlo.month, 1))
+            ib = ((tlo - EPOCH).days, int(hi))
+            ndv = (dhi.year - dlo.year + 1 if unit == "year"
+                   else (dhi.year - dlo.year) * 12 + dhi.month - dlo.month + 1)
+        return Bound(c.dtype, c.nullable, fn, int_bound=ib, ndv_bound=ndv)
+    if name in ("floor", "ceil", "ceiling", "round", "sqrt"):
+        c = bind_expr(e.args[0], schema)
+        # torch.round, like jnp.round, rounds halves to even
+        op = {"floor": torch.floor, "ceil": torch.ceil,
+              "ceiling": torch.ceil, "round": torch.round,
+              "sqrt": torch.sqrt}[name]
+        if c.dtype.kind is TypeKind.DECIMAL:
+            scale = 10.0 ** c.dtype.scale
+
+            def fn(batch):
+                col = c.fn(batch)
+                return Column(op(col.data.to(torch.float64) / scale),
+                              col.validity)
+            return Bound(FLOAT64, c.nullable, fn)
+        out = FLOAT64 if name == "sqrt" or not c.dtype.is_integer else c.dtype
+
+        def fn(batch):
+            col = c.fn(batch)
+            if name == "sqrt":
+                v = torch.sqrt(col.data.to(torch.float64))
+            elif c.dtype.is_integer:
+                v = col.data   # floor/ceil/round of an integer: itself
+            else:
+                v = op(col.data)
+            return Column(v.to(out.torch_dtype), col.validity)
+        return Bound(out, c.nullable, fn)
     if name == "abs":
         c = bind_expr(e.args[0], schema)
 
@@ -930,25 +1059,37 @@ def _bind_scalar_fn(e: ScalarFn, schema: Schema) -> Bound:
             return Column(col.data.abs(), col.validity)
         return Bound(c.dtype, c.nullable, fn)
     if name == "substring":
-        c = bind_expr(e.args[0], schema)
-        if c.dtype.kind is not TypeKind.STRING:
-            raise TypeError("substring on non-string")
-        if c.dictionary is None:
-            raise TypeError("substring requires a dictionary-encoded column")
+        c = _string_arg(e, schema)
         start = e.args[1].value - 1   # SQL positions are 1-based
         length = e.args[2].value
         stop = None if length < 0 else start + length
-        subs = np.array([s[start:stop] for s in c.dictionary.astype(str)],
-                        dtype=str)
-        # a host LUT from the input's codes to codes of the new sorted
-        # dictionary of substrings
-        new_dict, lut = np.unique(subs, return_inverse=True)
-        lut = lut.astype(np.int32)
+        return _dict_lut_bound(c, [s[start:stop]
+                                   for s in c.dictionary.astype(str)],
+                               code_bound=False)
+    if name in _DICT_STR_FNS or (
+            name == "replace" and len(e.args) == 3
+            and all(isinstance(a, Lit) for a in e.args[1:])):
+        c = _string_arg(e, schema)
+        if name == "replace":
+            old, new = e.args[1].value, e.args[2].value
+            xform = lambda s: s.replace(old, new)  # noqa: E731
+        else:
+            xform = _DICT_STR_FNS[name]
+        return _dict_lut_bound(c, [xform(s) for s in
+                                   c.dictionary.astype(str)], code_bound=True)
+    if name in ("length", "char_length", "character_length",
+                "octet_length"):
+        c = _string_arg(e, schema)
+        enc = ((len(s.encode()) if name == "octet_length" else len(s))
+               for s in c.dictionary.astype(str))
+        lens = np.fromiter(enc, dtype=np.int32, count=len(c.dictionary))
 
         def fn(batch):
             col = c.fn(batch)
-            return Column(gather_lut(lut, col), col.validity)
-        return Bound(STRING, c.nullable, fn, dictionary=new_dict.astype(object))
+            return Column(gather_lut(lens, col), col.validity)
+        return Bound(INT32, c.nullable, fn)
+    if name == "concat":
+        return _bind_concat(e, schema)
     if name == "coalesce":
         parts = [bind_expr(a, schema) for a in e.args]
         out = _common_dtype([p.dtype for p in parts])
@@ -961,7 +1102,48 @@ def _bind_scalar_fn(e: ScalarFn, schema: Schema) -> Bound:
                 valid = valid | col.validity
             return Column(data, valid)
         return Bound(out, all(p.nullable for p in parts), fn)
-    raise NotImplementedError(f"scalar function {e.name} is not ported yet")
+    raise NotImplementedError(f"scalar function {e.name}")
+
+
+def _bind_concat(e: ScalarFn, schema: Schema) -> Bound:
+    """concat over literals and one or two dictionary-coded string
+    columns: the result dictionary is rendered on the host over the
+    columns' dictionaries (their product, at most a million entries for
+    two); the device gathers by code (c1 * |d2| + c2). NULL if a column
+    is NULL."""
+    parts = []
+    for a in e.args:
+        if isinstance(a, Lit):
+            parts.append(str(a.value))
+            continue
+        c = bind_expr(a, schema)
+        if c.dtype.kind is not TypeKind.STRING or c.dictionary is None:
+            raise TypeError("concat requires dictionary-encoded string "
+                            "columns or literals")
+        parts.append(c)
+    cols = [p for p in parts if isinstance(p, Bound)]
+    if not cols or len(cols) > 2:
+        raise NotImplementedError("concat supports 1-2 string columns")
+    dicts = [c.dictionary.astype(str) for c in cols]
+    if len(cols) == 2 and len(dicts[0]) * len(dicts[1]) > 1_000_000:
+        raise NotImplementedError("concat dictionary product too large")
+
+    def render(values):
+        it = iter(values)
+        return "".join(p if isinstance(p, str) else next(it) for p in parts)
+
+    if len(cols) == 1:
+        vals = [render((v,)) for v in dicts[0]]
+        code = cols[0].fn
+    else:
+        vals = [render((v1, v2)) for v1 in dicts[0] for v2 in dicts[1]]
+        m = len(dicts[1])
+
+        def code(batch):
+            a1, a2 = cols[0].fn(batch), cols[1].fn(batch)
+            return Column(a1.data.to(torch.int64) * m + a2.data,
+                          a1.validity & a2.validity)
+    return _dict_lut_bound(Bound(STRING, True, code), vals, code_bound=True)
 
 
 def propagate_bounds(exprs, names, in_schema: Schema) -> dict:

@@ -1,6 +1,7 @@
 """Unique-build join probe: one function in place of
 ballista_tpu/ops/merge_join.py `tiny_probe_unique`,
-`merge_probe_unique_packed` and `merge_probe_unique`, with their results.
+`merge_probe_unique_packed` and `merge_probe_unique`, with their results,
+and `merge_full_unique`, which also flags the build rows that matched.
 
 For each probe row the probe returns the index of the build row with an
 equal key, or -1. NULL keys never match (on either side), and neither do
@@ -87,3 +88,26 @@ def probe_unique(build_keys: Sequence[torch.Tensor],
                                   probe_keys, probe_valids, probe_live)
     _, order, at, hit = _search(b, b_ok, p)
     return torch.where(p_ok & hit, order.index_select(0, at), -1)
+
+
+def merge_full_unique(build_keys: Sequence[torch.Tensor],
+                      build_valids: Sequence[torch.Tensor],
+                      build_live: torch.Tensor,
+                      probe_keys: Sequence[torch.Tensor],
+                      probe_valids: Sequence[torch.Tensor],
+                      probe_live: torch.Tensor):
+    """FULL OUTER variant of `probe_unique`: (int64 match per probe row or
+    -1, bool per build row: live, no NULL key part, matched by some probe
+    row). The reference reads the matched flags off its co-sort's runs;
+    here each probe match marks its build row."""
+    b, b_ok, p, p_ok = single_key(build_keys, build_valids, build_live,
+                                  probe_keys, probe_valids, probe_live)
+    _, order, at, hit = _search(b, b_ok, p)
+    match = torch.where(p_ok & hit, order.index_select(0, at), -1)
+    nb, np_ = b.shape[0], p.shape[0]
+    # probe row i that misses marks the spare slot nb + i (no two misses
+    # write one slot); the spare slots are dropped
+    spare = nb + torch.arange(np_, dtype=torch.int64, device=b.device)
+    marked = torch.zeros(nb + np_, dtype=torch.bool, device=b.device)
+    marked.index_fill_(0, torch.where(match >= 0, match, spare), True)
+    return match, marked[:nb] & b_ok

@@ -2,22 +2,27 @@
 ballista_tpu/planner/physical.py).
 
 Ported: Scan, Projection, Filter, Aggregate and Distinct (with a WHERE
-fused into the aggregate's live mask), non-cross Join (with the filters
-directly under each side fused into the join's live masks, except where
-an outer join needs them as FilterExecs), Sort, Limit and OneRow. Cross
-joins, and every other logical node, raise NotImplementedError.
+fused into the aggregate's live mask), Join (with the filters directly
+under each side fused into the join's live masks, except where an outer
+join needs them as FilterExecs; a filtered cross join becomes a
+NestedLoopJoinExec when its product is too large to materialize), Union,
+Sort, Limit and OneRow. Window raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
+
+import numpy as np
 
 from ..batch import round_capacity
-from ..exec.plan import (ExecNode, FilterExec, HashAggregateExec, HashJoinExec,
-                         InputLeaf, LimitExec, OneRowExec, ProjectExec,
-                         SortExec, _next_pow2)
+from ..exec.plan import (CoalesceExec, CrossJoinExec, DictRemapExec, ExecNode,
+                         FilterExec, HashAggregateExec, HashJoinExec,
+                         InputLeaf, LimitExec, NestedLoopJoinExec, OneRowExec,
+                         ProjectExec, SortExec, _next_pow2, _static_one_row)
 from ..exprs import BinOp, Col
+from ..schema import TypeKind
 from . import logical as L
 
 
@@ -31,6 +36,48 @@ class PhysicalOptions:
     # expanding-join output capacity = factor * (build_cap + probe_cap);
     # an overflow retries with 4x the factor
     join_out_factor: float = 1.0
+
+
+def align_union_inputs(kids: List[ExecNode]) -> List[ExecNode]:
+    """Rename every input's columns to the first input's names, and
+    re-encode string columns into union dictionaries where the inputs'
+    dictionaries differ, so that codes agree across inputs."""
+    names = [f.name for f in kids[0].schema.fields]
+    renamed = [kids[0]] + [
+        ProjectExec(k, [Col(f.name) for f in k.schema.fields], names=names)
+        for k in kids[1:]]
+    # a string column needs a shared dictionary when the inputs' differ,
+    # or when some input has none (a typed NULL column: all codes invalid,
+    # but the union's schema must still carry the dictionary)
+    union_dicts = {}
+    for i, f in enumerate(renamed[0].schema.fields):
+        if f.dtype.kind is not TypeKind.STRING:
+            continue
+        dicts = [r.schema.dictionary(names[i]) for r in renamed]
+        present = [d for d in dicts if d is not None]
+        if not present:
+            continue
+        same = all(len(d) == len(present[0])
+                   and (d.astype(str) == present[0].astype(str)).all()
+                   for d in present[1:])
+        if same and len(present) == len(dicts):
+            continue
+        union = np.unique(np.concatenate([d.astype(str) for d in present]))
+        union_dicts[names[i]] = union.astype(object)
+    if not union_dicts:
+        return renamed
+    out = []
+    for r in renamed:
+        luts = {}
+        for n, u in union_dicts.items():
+            d = r.schema.dictionary(n)
+            if d is None:   # all NULL in this input: nothing to remap
+                continue
+            if len(d) == len(u) and (d.astype(str) == u.astype(str)).all():
+                continue
+            luts[n] = np.searchsorted(u.astype(str), d.astype(str))
+        out.append(DictRemapExec(r, luts, union_dicts))
+    return out
 
 
 def _strip_filters(p: L.LogicalPlan):
@@ -79,9 +126,7 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
             return InputLeaf(p.table_name, p.table_schema, cap)
         if isinstance(p, L.Filter):
             if _is_cross(p.input):
-                raise NotImplementedError(
-                    "NestedLoopJoinExec / CrossJoinExec (a filtered cross "
-                    "join) is not ported yet")
+                return lower_filtered_cross(p.input, p.predicate)
             return FilterExec(lower(p.input), p.predicate)
         if isinstance(p, L.Projection):
             return ProjectExec(lower(p.input), list(p.exprs),
@@ -89,10 +134,12 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
         if isinstance(p, L.Aggregate):
             inp, pred = _strip_filters(p.input)
             if pred is not None and _is_cross(inp):
-                raise NotImplementedError(
-                    "NestedLoopJoinExec / CrossJoinExec (a filtered cross "
-                    "join) is not ported yet")
-            child = lower(inp)
+                # the stripped WHERE is the cross join's theta predicate:
+                # the same lowering as a Filter over it
+                child = lower_filtered_cross(inp, pred)
+                pred = None
+            else:
+                child = lower(inp)
             return HashAggregateExec(
                 child, list(p.group_exprs), list(p.aggs), mode="single",
                 table_size=table_size(child),
@@ -109,7 +156,7 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
             return LimitExec(lower(p.input), p.n, getattr(p, "offset", 0))
         if isinstance(p, L.Join):
             if p.how == "cross":
-                raise NotImplementedError("CrossJoinExec is not ported yet")
+                return CrossJoinExec(lower(p.left), lower(p.right))
             # an outer join must not fuse a filter into a live mask where
             # the dropped rows would come back NULL-extended: a full outer
             # join keeps its build side's filters as FilterExecs, and the
@@ -133,7 +180,20 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
                                 out_capacity=out_cap,
                                 build_pre_filter=bpred,
                                 probe_pre_filter=ppred)
+        if isinstance(p, L.Union):
+            return CoalesceExec(align_union_inputs([lower(c)
+                                                    for c in p.inputs]))
         raise NotImplementedError(
             f"{type(p).__name__} is not ported yet")
+
+    def lower_filtered_cross(join: L.Join, predicate) -> ExecNode:
+        """A predicate over a cross join: a chunked NestedLoopJoinExec
+        where the product passes CrossJoinExec.MAX_CELLS and neither side
+        is statically one row, else a FilterExec over the CrossJoinExec."""
+        b, pr = lower(join.left), lower(join.right)
+        if (b.capacity * pr.capacity > CrossJoinExec.MAX_CELLS
+                and not _static_one_row(b) and not _static_one_row(pr)):
+            return NestedLoopJoinExec(b, pr, predicate, opts)
+        return FilterExec(CrossJoinExec(b, pr), predicate)
 
     return lower(plan)

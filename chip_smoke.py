@@ -1,8 +1,8 @@
 """Smoke test of ballista_tpu_torch on one NVIDIA GPU: builds the port's
-CUDA kernel, holds it against its plain PyTorch version, then runs the 13
-TPC-H queries that read only the six generated tables (Q1, Q3, Q4, Q5,
-Q6, Q7, Q10, Q12, Q13, Q15, Q18, Q21, Q22) at SF1 end to end through
-SessionContext(device="cuda") and checks each answer exactly.
+CUDA kernel, holds it against its plain PyTorch version, then runs all 22
+TPC-H queries at SF1 end to end through SessionContext(device="cuda") and
+checks each answer exactly, and a full outer join on each path, UNION
+[ALL] and a chunked theta join against numpy.
 
     python3 chip_smoke.py
 
@@ -17,7 +17,7 @@ Phases:
    timings;
 5. kernel vs plain version again, on the tensors Q1 passed the kernel,
    with both times (these are the times the JSON line reports);
-6. the join slice: all six tables at SF1 (seed 19940101), Q3 and Q5
+6. the join slice: all eight tables at SF1 (seed 19940101), Q3 and Q5
    through the joins, the sorted-layout aggregate (Q3) and the kernel
    (Q5's n_name aggregate); exact checks against answers/sf1/answers/q3.out
    and q5.out, and Q5 against a numpy computation on the host columns;
@@ -31,7 +31,18 @@ Phases:
    against its capacity, any overflow retry, and the exact match with
    answers/sf1/answers/q{q}.out. Q6 and Q12 must launch the kernel, and it
    is held against its plain version on their own inputs (T = 1 and 8),
-   with both times.
+   with both times;
+8. the nine queries that read part or partsupp, on the same context: Q2,
+   Q8, Q9, Q11, Q14, Q16, Q17, Q19 and Q20, timed and checked as in
+   phase 7; Q14, Q17 and Q19 must launch the kernel (T = 1), which is
+   held against its plain version on each one's own inputs; the host
+   time of Q9's and Q20's planning and of their LIKE lookup tables over
+   p_name's 200,000-entry dictionary;
+9. one query each on the SF1 tables, checked against numpy on the same
+   host columns: a full outer join with unmatched rows on both sides on
+   the unique and on the expanding path, UNION ALL and UNION over
+   differing dictionaries, and a theta join (supplier x customer) past
+   CrossJoinExec.MAX_CELLS that runs as a chunked NestedLoopJoinExec.
 The line before the last is a JSON object describing each kernel (its
 launches summed over every query run); the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code 1).
@@ -54,7 +65,7 @@ from ballista_tpu_torch.benchmarks import TPCH_QUERIES
 from ballista_tpu_torch.client import SessionContext
 from ballista_tpu_torch.datagen import TPCH_TABLES, generate_tpch
 from ballista_tpu_torch.exec import plan as plan_mod
-from ballista_tpu_torch.exprs import parse_date
+from ballista_tpu_torch.exprs import like_lut, parse_date
 from ballista_tpu_torch.ops import masked_sums
 from ballista_tpu_torch.schema import TypeKind
 
@@ -185,7 +196,7 @@ def numpy_q1(cols):
     return out
 
 
-def _render(value, valid, dtype, places):
+def _render(value, valid, dtype, places, rounding=decimal.ROUND_HALF_EVEN):
     """One cell as the answer files print it (ballista_tpu.datagen.tbl
     renders through pandas: dates as timestamps, decimals quantized to the
     answer's scale)."""
@@ -193,7 +204,7 @@ def _render(value, valid, dtype, places):
         return ""
     if dtype.kind is TypeKind.DECIMAL:
         return str(decimal.Decimal(int(value)).scaleb(-dtype.scale)
-                   .quantize(decimal.Decimal(1).scaleb(-places)))
+                   .quantize(decimal.Decimal(1).scaleb(-places), rounding))
     if dtype.kind is TypeKind.DATE32:
         day = datetime.date(1970, 1, 1) + datetime.timedelta(days=int(value))
         return f"{day.isoformat()} 00:00:00"
@@ -203,7 +214,12 @@ def _render(value, valid, dtype, places):
 def check_answers(got, schema, q):
     """Exact match with answers/sf1/answers/q{q}.out at its printed scale:
     position-wise, or, where ORDER BY leaves ties, after sorting both
-    sides' rows (ballista_tpu.datagen.tbl.diff_expected's rule)."""
+    sides' rows (ballista_tpu.datagen.tbl.diff_expected's rule).
+
+    The answer files come from a float64 oracle, so an exact decimal that
+    lies on the midpoint between two printed values (Q9's 22091132.2950 at
+    two places) may be printed rounded either way: such a cell matches
+    either neighbour, and each one is logged."""
     with open(os.path.join(ANSWER_DIR, f"q{q}.out")) as f:
         lines = [line.rstrip("\n") for line in f if line.strip()]
     header = lines[0].split("|")
@@ -218,6 +234,18 @@ def check_answers(got, schema, q):
         if rows else []
     mine = [[_render(got[f.name][0][i], got[f.name][1][i], f.dtype, p)
              for f, p in zip(schema.fields, places)] for i in range(n)]
+    for i in range(n):
+        for j, (f, p) in enumerate(zip(schema.fields, places)):
+            if mine[i][j] == rows[i][j] or f.dtype.kind is not TypeKind.DECIMAL:
+                continue
+            v, ok = got[f.name][0][i], got[f.name][1][i]
+            down = _render(v, ok, f.dtype, p, decimal.ROUND_HALF_DOWN)
+            up = _render(v, ok, f.dtype, p, decimal.ROUND_HALF_UP)
+            if down != up and rows[i][j] in (down, up):
+                log(f"q{q}.out row {i} {f.name}: the exact value "
+                    f"{decimal.Decimal(int(v)).scaleb(-f.dtype.scale)} is a "
+                    f"midpoint; the answer prints {rows[i][j]}")
+                mine[i][j] = rows[i][j]
     if mine != rows and sorted(mine) != sorted(rows):
         bad = next(i for i in range(n) if mine[i] != rows[i])
         raise AssertionError(f"q{q}.out row {bad}: got {mine[bad]}, "
@@ -483,6 +511,229 @@ def phase_rest(ctx):
     return total_launches, max_err
 
 
+REST = (2, 8, 9, 11, 14, 16, 17, 19, 20)
+
+
+def phase_rest_part(ctx):
+    """The nine part/partsupp queries on phase 6's context. Returns
+    (kernel launches over their first runs, max |kernel - plain|)."""
+    total_launches, max_err, kernel_calls = 0, 0, {}
+    for q in REST:
+        n_warn = len(ctx.warnings)
+        launches, calls, _ = run_query(ctx, q, 8, with_sql=True)
+        total_launches += launches
+        kernel_calls[q] = (launches, calls)
+        retries = ctx.warnings[n_warn:]
+        log(f"phase 8: Q{q} overflow retries over its 11 runs: "
+            f"{len(retries)}{(': ' + retries[0]) if retries else ''}")
+    for q in (14, 17, 19):
+        launches, calls = kernel_calls[q]
+        if launches < 1 or not any(T == 1 for _, _, T in calls):
+            raise AssertionError(f"Q{q} ran without the kernel at T = 1")
+        slot, contribs, t = next(c for c in calls if c[2] == 1)
+        err = compare(slot, contribs, t)
+        max_err = max(max_err, err)
+        ms, plain = time_both(slot, contribs, t)
+        live = int((slot < t).sum())
+        log(f"phase 8: Q{q}'s own kernel inputs (n={slot.shape[0]}, {live} "
+            f"live rows, T={t}, A={contribs.shape[0]}): equal; kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms")
+    # host work of the LIKE queries: planning (which binds the LIKE) and
+    # the lookup table alone over p_name's dictionary
+    p_name = ctx.tables["part"].host["p_name"].dictionary
+    for q, pattern in ((9, "%green%"), (20, "forest%")):
+        t0 = time.perf_counter()
+        plan = ctx.sql(TPCH_QUERIES[q]).plan
+        sql_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ctx.physical_plan(plan)
+        phys_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hits = int(like_lut(p_name, pattern).sum())
+        lut_s = time.perf_counter() - t0
+        log(f"phase 8: Q{q} host: sql() {sql_s * 1e3:.3f} ms, physical plan "
+            f"{phys_s * 1e3:.3f} ms, like_lut({pattern!r}) over {len(p_name)} "
+            f"p_name entries {lut_s * 1e3:.3f} ms ({hits} hits)")
+    return total_launches, max_err
+
+
+def _host(ctx, table, name):
+    """The values of one registered host column; strings decoded. (The
+    generated columns have no NULLs.)"""
+    c = ctx.tables[table].host[name]
+    if c.dictionary is not None:
+        return c.dictionary[c.values].astype(str)
+    return c.values
+
+
+def _row_key(row):
+    """Sort key for rows that hold NULLs (None sorts last)."""
+    return tuple((x is None, 0 if x is None else x) for x in row)
+
+
+def _rows(got, names):
+    """Output rows as tuples of Python values, NULL as None, sorted."""
+    cols = [(v.tolist(), ok.tolist()) for v, ok in (got[n] for n in names)]
+    rows = [tuple(v[i] if ok[i] else None for v, ok in cols)
+            for i in range(len(cols[0][0]))]
+    return sorted(rows, key=_row_key)
+
+
+def _timed(ctx, sql, phase, label):
+    """First run and warm median of 3 of ctx.sql(sql).collect(); the
+    answer as host columns."""
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        batch, schema = ctx.sql(sql).collect()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"phase {phase}: {label}: {int(batch.num_rows)} rows; first run "
+        f"{times[0]:.4f} s, warm median {statistics.median(times[1:]) * 1e3:.3f} ms")
+    return to_numpy(batch, schema)
+
+
+def _check(label, got, want):
+    if got != want:
+        bad = next((g, w) for g, w in zip(got + [None] * len(want),
+                                          want + [None] * len(got)) if g != w)
+        raise AssertionError(f"{label}: {len(got)} rows vs numpy {len(want)}; "
+                             f"first difference {bad}")
+    log(f"phase 9: {label} equals the numpy computation exactly")
+
+
+def _full_outer_numpy(left, right):
+    """FULL OUTER JOIN of [(key, payload)] lists on key: sorted rows."""
+    by_key = {}
+    for k, v in right:
+        by_key.setdefault(k, []).append(v)
+    matched, out = set(), []
+    for k, v in left:
+        for w in by_key.get(k, []):
+            out.append((k, v, k, w))
+            matched.add(k)
+        if k not in by_key:
+            out.append((k, v, None, None))
+    for k, w in right:
+        if k not in matched:
+            out.append((None, None, k, w))
+    return sorted(out, key=_row_key)
+
+
+def phase_setops(ctx):
+    # full outer, unique path: both keys are primary keys; part keys
+    # in the gaps of the sparse order keys, and order keys past the last
+    # part, stay unmatched
+    sql = """select p_partkey, p_size, o_orderkey, o_totalprice
+             from part full outer join orders on p_partkey = o_orderkey"""
+    plan = ctx.physical_plan(ctx.sql(sql).plan).display()
+    if "HashJoinExec[full_outer,unique]" not in plan:
+        raise AssertionError(f"full outer (unique) plan:\n{plan}")
+    got = _timed(ctx, sql, 9, "full outer join, unique path")
+    part_k = _host(ctx, "part", "p_partkey")
+    part_size = _host(ctx, "part", "p_size")
+    ord_k = _host(ctx, "orders", "o_orderkey")
+    ord_price = _host(ctx, "orders", "o_totalprice")
+    (p, p_ok), (o, o_ok) = got["p_partkey"], got["o_orderkey"]
+    both = p_ok & o_ok
+    by_order = np.argsort(ord_k)
+    checks = {
+        "row count": len(p) == len(np.union1d(part_k, ord_k)),
+        "no all-NULL row": bool((p_ok | o_ok).all()),
+        "matched keys": np.array_equal(np.sort(p[both]),
+                                       np.intersect1d(part_k, ord_k))
+                        and np.array_equal(p[both], o[both]),
+        "unmatched parts": np.array_equal(np.sort(p[p_ok & ~o_ok]),
+                                          np.setdiff1d(part_k, ord_k)),
+        "unmatched orders": np.array_equal(np.sort(o[o_ok & ~p_ok]),
+                                           np.setdiff1d(ord_k, part_k)),
+        "p_size": np.array_equal(got["p_size"][0][p_ok],
+                                 part_size[p[p_ok] - 1]),
+        "o_totalprice": np.array_equal(
+            got["o_totalprice"][0][o_ok],
+            ord_price[by_order[np.searchsorted(ord_k[by_order], o[o_ok])]]),
+    }
+    if not all(checks.values()) or both.all() or (p_ok & ~o_ok).sum() == 0:
+        raise AssertionError(f"full outer join, unique path: {checks}")
+    log(f"phase 9: full outer join, unique path equals the numpy computation "
+        f"exactly ({int(both.sum())} matched, {int((p_ok & ~o_ok).sum())} "
+        f"parts and {int((o_ok & ~p_ok).sum())} orders unmatched)")
+
+    # full outer, expanding path: nation keys repeat on both sides
+    sk = _host(ctx, "supplier", "s_suppkey")
+    ck = _host(ctx, "customer", "c_custkey")
+    sql = """select s_nationkey, s_suppkey, c_nationkey, c_custkey from
+             (select s_suppkey, s_nationkey from supplier
+              where s_suppkey <= 400 and s_nationkey < 20) s
+             full outer join
+             (select c_custkey, c_nationkey from customer
+              where c_custkey <= 3000 and c_nationkey > 4) c
+             on s_nationkey = c_nationkey"""
+    plan = ctx.physical_plan(ctx.sql(sql).plan).display()
+    if "HashJoinExec[full_outer,expanding]" not in plan:
+        raise AssertionError(f"full outer (expanding) plan:\n{plan}")
+    got = _timed(ctx, sql, 9, "full outer join, expanding path")
+    sn = _host(ctx, "supplier", "s_nationkey")
+    cn = _host(ctx, "customer", "c_nationkey")
+    ms, mc = (sk <= 400) & (sn < 20), (ck <= 3000) & (cn > 4)
+    want = _full_outer_numpy(list(zip(sn[ms].tolist(), sk[ms].tolist())),
+                             list(zip(cn[mc].tolist(), ck[mc].tolist())))
+    if not (any(r[0] is None for r in want) and any(r[2] is None
+                                                    for r in want)):
+        raise AssertionError("full outer (expanding): a side has no "
+                             "unmatched row")
+    mine = _rows(got, ["s_nationkey", "s_suppkey", "c_nationkey",
+                       "c_custkey"])
+    _check("full outer join, expanding path", mine, want)
+
+    # UNION ALL and UNION over differing dictionaries
+    sql = """select c_mktsegment as w, c_custkey as k from customer
+             union all select p_container, p_partkey from part"""
+    plan = ctx.physical_plan(ctx.sql(sql).plan).display()
+    if "DictRemapExec" not in plan:
+        raise AssertionError(f"UNION ALL plan:\n{plan}")
+    got = _timed(ctx, sql, 9, "UNION ALL")
+    seg = _host(ctx, "customer", "c_mktsegment")
+    cont = _host(ctx, "part", "p_container")
+    pk = _host(ctx, "part", "p_partkey")
+    want = sorted(list(zip(seg.tolist(), ck.tolist()))
+                  + list(zip(cont.tolist(), pk.tolist())), key=_row_key)
+    _check("UNION ALL", _rows(got, ["w", "k"]), want)
+    sql = """select c_mktsegment as w from customer
+             union select p_mfgr from part
+             union select p_container from part where p_size < 3"""
+    got = _timed(ctx, sql, 9, "UNION")
+    mfgr = _host(ctx, "part", "p_mfgr")
+    size = _host(ctx, "part", "p_size")
+    want = sorted(((w,) for w in set(seg) | set(mfgr) | set(cont[size < 3])),
+                  key=_row_key)
+    _check("UNION", _rows(got, ["w"]), want)
+
+    # a theta join whose product passes CrossJoinExec.MAX_CELLS
+    sb = _host(ctx, "supplier", "s_acctbal")
+    cb = _host(ctx, "customer", "c_acctbal")
+    sql = """select s_suppkey, c_custkey from supplier, customer
+             where c_acctbal - s_acctbal > 10950"""
+    plan = ctx.physical_plan(ctx.sql(sql).plan).display()
+    nlj = [line.strip() for line in plan.splitlines()
+           if "NestedLoopJoinExec" in line]
+    if not nlj or int(nlj[0].split("chunks=")[1].rstrip(")")) < 2:
+        raise AssertionError(f"theta join plan:\n{plan}")
+    log(f"phase 9: theta join plan: {nlj[0]}")
+    got = _timed(ctx, sql, 9, "theta join supplier x customer")
+    order = np.argsort(cb, kind="stable")
+    cb_sorted = cb[order]
+    want = []
+    for s_key, s_bal in zip(sk.tolist(), sb.tolist()):
+        lo = np.searchsorted(cb_sorted, s_bal + 1_095_000, side="right")
+        want += [(s_key, int(c)) for c in ck[order[lo:]]]
+    want.sort(key=_row_key)
+    if len(want) < 100:
+        raise AssertionError(f"theta join: only {len(want)} rows expected")
+    _check("theta join supplier x customer", _rows(got, ["s_suppkey",
+                                                         "c_custkey"]), want)
+
+
 def main():
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -503,13 +754,15 @@ def main():
     err, ms, plain_ms = phase_q1_inputs(*q1_call)
     join_launches, join_err, ctx = phase_joins()
     rest_launches, rest_err = phase_rest(ctx)
+    part_launches, part_err = phase_rest_part(ctx)
+    phase_setops(ctx)
 
     print(json.dumps({"kernels": [{
         "name": "masked_slot_sums", "route": "cuda",
         "source": "ballista_tpu_torch/csrc/masked_slot_sums.cu",
         "replaces": "ballista_tpu/ops/pallas_agg.py:106",
-        "launches": launches + join_launches + rest_launches,
-        "max_abs_err": max(max_err, err, join_err, rest_err),
+        "launches": launches + join_launches + rest_launches + part_launches,
+        "max_abs_err": max(max_err, err, join_err, rest_err, part_err),
         "ms": ms, "plain_ms": plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """The port's TPC-H generator against the JAX package's: every column of
-orders and lineitem at SF 0.01 must equal what `ingest_column_host` makes
-of `generate_table(...)` — values, validity, dictionary and bounds."""
+the eight tables at SF 0.01 must equal what `ingest_column_host` makes of
+`generate_table(...)` — values, validity, dictionary and bounds."""
 
 import numpy as np
 import pytest
@@ -76,3 +76,16 @@ def test_from_ingested_refuses_unsorted_dictionaries(dictionary):
     with pytest.raises(ValueError, match="unsorted"):
         from_ingested(np.arange(len(dictionary), dtype=np.int32),
                       np.ones(len(dictionary), bool), dictionary, None)
+
+
+def test_lineitem_parts_and_suppliers_are_partsupp_keys(port_tables):
+    """Every (l_partkey, l_suppkey) of lineitem is a partsupp key, and
+    partsupp's key is unique (four suppliers per part)."""
+    ps = port_tables["partsupp"][1]
+    li = port_tables["lineitem"][1]
+    n_supp = len(port_tables["supplier"][1]["s_suppkey"].values) + 1
+    ps_keys = ps["ps_partkey"].values * n_supp + ps["ps_suppkey"].values
+    assert len(np.unique(ps_keys)) == len(ps_keys) == 4 * len(
+        port_tables["part"][1]["p_partkey"].values)
+    l_keys = li["l_partkey"].values * n_supp + li["l_suppkey"].values
+    assert np.isin(l_keys, ps_keys).all()

@@ -97,9 +97,9 @@ def test_bound_expression_matches(text):
 
 def test_unported_node_raises():
     _, tschema = _schemas()
-    with pytest.raises(NotImplementedError, match="date_trunc"):
-        TE.bind_expr(TE.ScalarFn("date_trunc", (TE.Lit("year"),
-                                                TE.Col("l_shipdate"))),
+    with pytest.raises(NotImplementedError, match="levenshtein"):
+        TE.bind_expr(TE.ScalarFn("levenshtein", (TE.Col("l_returnflag"),
+                                                 TE.Lit("AIR"))),
                      tschema)
 
 

@@ -108,9 +108,9 @@ def test_plan_shape(contexts):
 
 def test_unported_sql_raises(contexts):
     _, tctx = contexts
-    with pytest.raises(NotImplementedError, match="upper"):
-        tctx.sql("select l_orderkey from lineitem "
-                 "where upper(l_comment) = 'X'").collect()
+    with pytest.raises(NotImplementedError, match="window"):
+        tctx.sql("select l_orderkey, row_number() over (order by l_orderkey) "
+                 "as r from lineitem").collect()
 
 
 def test_cuda_context_raises_without_cuda():
