@@ -1,0 +1,115 @@
+"""Times the masked per-slot sum kernel on the card, as built from the
+source and from variants of it with some of its constants replaced:
+
+    python -m ballista_tpu_torch.benchmarks.kernel_probe \
+        --variant REGISTER_T=16 --variant UNROLL=2 --variant TILE=4096,UNROLL=8
+
+Every variant (and the source as it is, first) is built, held against the
+plain PyTorch version on a dense and a sparse call, and timed at
+n = 5,998,336 rows (lineitem's capacity at SF1): an 11-row matrix and
+Q1-shaped described rows (count(*), five int64 sums over five validity
+columns and their five counts) at each T of --slots on uniform slots, and
+3-row calls with 2 %, 0.002 % and (T = 26) 0.125 % of the rows live. Each
+line gives the time of calls made back to back, the time of their device
+work alone (the calls queued behind a spinning kernel), and the host time
+of one call. A variant is a comma-separated list of NAME=VALUE over the
+`constexpr int NAME = VALUE;` lines of csrc/masked_slot_sums.cu; the
+variant sources are written beside the built libraries and nothing in the
+package changes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import subprocess
+
+import torch
+
+from ..ops import masked_sums as m
+from .timing import cuda_ms, host_ms
+
+N = 5_998_336
+
+
+def _build(source_text, name):
+    """Write a source text beside the built libraries, build it and make
+    it the library the wrappers launch; returns ptxas's register lines."""
+    path = m.BUILD_DIR / f"probe_{name}.cu"
+    m.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path.write_text(source_text)
+    m.load(path)
+    return [line.split(":", 1)[1].strip()
+            for line in m.build.log.splitlines() if "Used" in line]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variant", action="append", default=[],
+                    help="NAME=VALUE[,NAME=VALUE...] over the source's "
+                         "constexpr ints")
+    ap.add_argument("--slots", type=int, nargs="+",
+                    default=[1, 2, 4, 6, 8, 12, 16, 26])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_probe needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    source = m.SOURCE.read_text()
+
+    g = torch.Generator().manual_seed(1)
+    contribs = torch.randint(-2 ** 40, 2 ** 40, (11, N), generator=g,
+                             dtype=torch.int64).cuda()
+    uniform = torch.randint(0, 2 ** 20, (N,), generator=g,
+                            dtype=torch.int32).cuda()
+    valid = [torch.ones(N, dtype=torch.bool).cuda() for _ in range(5)]
+    rows = [(None, None)] + [(None, v) for v in valid] \
+        + [(contribs[i], v) for i, v in enumerate(valid)]
+    pick = torch.rand(N, generator=g).cuda()
+    sparse = {"T=1, 2 % live": (torch.where(pick < 0.02, 0, 1), 1),
+              "T=1, 0.002 % live": (torch.where(pick < 0.00002, 0, 1), 1),
+              "T=26, 0.125 % live": (torch.where(pick < 0.00125, 3, 26), 26)}
+    three = contribs[:3]
+
+    for spec in [""] + args.variant:
+        text = source
+        for pair in filter(None, spec.split(",")):
+            name, value = pair.split("=")
+            text, hits = re.subn(rf"(constexpr int {name} = )\d+;",
+                                 rf"\g<1>{value};", text)
+            if hits != 1:
+                raise SystemExit(f"no constexpr int {name} in the source")
+        label = spec or "source"
+        regs = _build(text, re.sub(r"\W", "_", label))
+        print(f"{label}: ptxas {regs}", flush=True)
+
+        def report(what, fn):
+            print(f"  {label}: {what}: {cuda_ms(fn):.4f} ms back to back, "
+                  f"{cuda_ms(fn, queued=True):.4f} ms of device work, "
+                  f"{host_ms(fn):.4f} ms of host time per call", flush=True)
+
+        for T in args.slots:
+            slot = (uniform % T).to(torch.int32)
+            if not torch.equal(m.masked_slot_sums_rows(slot, rows, T),
+                               m.masked_slot_sums_rows_reference(slot, rows,
+                                                                 T)):
+                raise SystemExit(f"{label}: rows != plain at T={T}")
+            report(f"matrix A=11 T={T} dense",
+                   lambda: m.masked_slot_sums(slot, contribs, T))
+            report(f"rows Q1-shaped T={T} dense",
+                   lambda: m.masked_slot_sums_rows(slot, rows, T))
+        for what, (slot, T) in sparse.items():
+            slot = slot.to(torch.int32)
+            if not torch.equal(m.masked_slot_sums(slot, three, T),
+                               m.masked_slot_sums_reference(slot, three, T)):
+                raise SystemExit(f"{label}: matrix != plain at {what}")
+            report(f"matrix A=3 {what}",
+                   lambda: m.masked_slot_sums(slot, three, T))
+            report(f"rows A=3 {what}", lambda: m.masked_slot_sums_rows(
+                slot, [(None, None), (None, valid[0]), (three[2], valid[0])],
+                T))
+
+
+if __name__ == "__main__":
+    main()

@@ -115,7 +115,7 @@ def profile_query(ctx, sql, reps):
     out["device_busy_ms"] = busy
     out["torch_ops_device_ms"] = ops
     out["masked_slot_sums_ms"] = sum(ms for name, ms in kernels.items()
-                                     if "masked_slot_sums" in name)
+                                     if "slot_sums" in name)
     out["device_busy_share"] = busy / out["run_plan_ms"]
     out["top_kernels_ms"] = _top(kernels, 12)
     run = Run(inputs)

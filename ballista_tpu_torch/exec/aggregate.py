@@ -86,17 +86,21 @@ class BoundAgg:
     @property
     def exact_sums(self) -> bool:
         """True when every state is an int64 sum or count: the aggregate
-        rides the one fused masked_slot_sums launch."""
+        rides the one fused masked_slot_sums_rows launch."""
         k = self.spec.kind
         return k in ("count", "count_star") or (
             k in ("sum", "avg") and self.state_dtypes[0].kind in (
                 TypeKind.DECIMAL, TypeKind.INT64))
 
-    def _arg_data(self, batch: Batch):
+    def _arg_data(self, batch: Batch, keep_int32: bool = False):
+        """The argument's (data, validity), an exact sum's data widened to
+        its int64 state; with `keep_int32` an int32 column stays as it is
+        (the fused kernel widens it in registers)."""
         col = self.arg.fn(batch)
         data = col.data
         if self.spec.kind in ("sum", "avg") and self.state_dtypes[0].kind in (
-                TypeKind.DECIMAL, TypeKind.INT64):
+                TypeKind.DECIMAL, TypeKind.INT64) and not (
+                    keep_int32 and data.dtype == torch.int32):
             data = data.to(torch.int64)
         return data, col.validity
 
@@ -109,7 +113,7 @@ class BoundAgg:
         k = self.spec.kind
         if k == "count_star":
             return [("count", None, None)], list
-        data, validity = self._arg_data(batch)
+        data, validity = self._arg_data(batch, keep_int32=True)
         if k in ("count", "sum"):
             return [(k, data, validity)], list
         # avg

@@ -25,7 +25,7 @@ from ..ops.compact import compaction_perm, filter_batch, gather_batch
 from ..ops.expand_join import expand_join
 from ..ops.gather import gather_columns
 from ..ops.hash import _norm_keys, pack_key_columns, plan_key_packing
-from ..ops.masked_sums import masked_slot_sums
+from ..ops.masked_sums import masked_slot_sums_rows
 from ..ops.merge_join import merge_full_unique, probe_unique
 from ..ops.sort import SortKeySpec, sort_batch
 from ..ops.vsort import compact_batch, sort_batch_columns
@@ -191,7 +191,7 @@ class HashAggregateExec(ExecNode):
 
     Keys whose static code bounds multiply to at most MASKED_MAX direct
     slots (and no keys at all) take the masked layout: every int64 sum and
-    count of every aggregate goes through ONE `masked_slot_sums` launch;
+    count of every aggregate goes through ONE `masked_slot_sums_rows` launch;
     min, max and float sums use the plain MaskedLayout methods. Any other
     GROUP BY sorts the batch by its keys (direct slots up to DIRECT_MAX,
     else packed or normalised keys) and reduces runs with SortedLayout
@@ -370,8 +370,10 @@ class HashAggregateExec(ExecNode):
     def _aggregate(self, b: Batch, layout: segagg.MaskedLayout):
         """(per-slot count(*), per-aggregate state columns).
 
-        The int64 sums and counts of all aggregates become the rows of one
-        contribution matrix, reduced by one masked_slot_sums launch. Rows
+        The int64 sums and counts of all aggregates become the described
+        rows (data column, validity column) of one masked_slot_sums_rows
+        call, which reads the columns themselves: no contribution matrix
+        is written. Rows
         are keyed by (kind, argument), so sum(x) and avg(x) share a sum
         row and every count over x shares a count row. Dead rows carry
         slot T, so a row only needs its argument's validity applied."""
@@ -395,16 +397,8 @@ class HashAggregateExec(ExecNode):
                     keys.append((None, count))
             plans.append((ba, keys, assemble))
 
-        contribs = torch.empty((len(rows), layout.row_slot.shape[0]),
-                               dtype=torch.int64, device=b.device)
-        for row, (data, validity) in zip(contribs, rows.values()):
-            if validity is None:
-                row.fill_(1)
-            elif data is None:
-                row.copy_(validity)
-            else:
-                torch.mul(data, validity, out=row)
-        sums = masked_slot_sums(layout.row_slot, contribs, layout.T)
+        sums = masked_slot_sums_rows(layout.row_slot, list(rows.values()),
+                                     layout.T)
         per_slot = {key: sums[:, i] for i, key in enumerate(rows)}
 
         ones = torch.ones(layout.T, dtype=torch.bool, device=b.device)

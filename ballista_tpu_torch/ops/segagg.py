@@ -3,8 +3,9 @@
 When every group key has a small static code bound (dictionary size, 2 for
 bool), the group slot is a direct composite of the key codes: no hash
 table, no sort. `MaskedLayout` then reduces each aggregate into T slots.
-Integer sums and counts go through `masked_slot_sums` (the hand-written
-kernel on the card); min, max and float sums stay plain torch.
+Integer sums and counts go through `masked_slot_sums_rows` (the
+hand-written kernel on the card, which reads the value and validity columns
+themselves); min, max and float sums stay plain torch.
 
 Any other GROUP BY sorts the batch by its keys first: equal keys form
 adjacent runs, and `SortedLayout` reduces each run (sums and counts as
@@ -21,7 +22,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..batch import Column
-from .masked_sums import masked_slot_sums
+from .masked_sums import masked_slot_sums_rows
 
 # slot counts up to this use the masked layout
 MASKED_MAX = 64
@@ -51,14 +52,14 @@ class MaskedLayout(NamedTuple):
             out.index_add_(0, _slot_index(self.row_slot, self.T), v)
             cnt = self.count(values, validity)[0]
             return out[:self.T], cnt > 0
-        contribs = torch.stack([values.to(torch.int64) * active,
-                                active.to(torch.int64)])
-        s = masked_slot_sums(self.row_slot, contribs, self.T)
+        data = values if values.dtype in (torch.int32, torch.int64) \
+            else values.to(torch.int64)
+        s = masked_slot_sums_rows(self.row_slot, [(data, active),
+                                                  (None, active)], self.T)
         return s[:, 0].to(values.dtype), s[:, 1] > 0
 
     def _count_mask(self, mask):
-        out = masked_slot_sums(self.row_slot,
-                               mask.to(torch.int64).unsqueeze(0), self.T)
+        out = masked_slot_sums_rows(self.row_slot, [(None, mask)], self.T)
         return out[:, 0], torch.ones(self.T, dtype=torch.bool,
                                      device=mask.device)
 

@@ -8,15 +8,23 @@ checks each answer exactly, and a full outer join on each path, UNION
 
 Phases:
 1. torch version, card name and power limit (exits 1 without CUDA);
-2. nvcc build of csrc/masked_slot_sums.cu;
-3. kernel vs plain version (torch.equal) at Q1's shapes and edge cases,
-   with warm CUDA-event times of both;
+2. nvcc build of csrc/masked_slot_sums.cu, with the registers and spills
+   ptxas reports for every kernel instance;
+3. both entries of the kernel (masked_slot_sums over a contribution
+   matrix, masked_slot_sums_rows over described columns) vs their plain
+   versions (torch.equal): at every T where the code path changes, at
+   sizes below one vector and odd sizes, on views off the 16-byte grid,
+   with all rows in one slot, 1 % and 0 % of rows live, sums that wrap,
+   and calls split over launches; then CUDA-event times at Q1's shape on
+   uniform and on skewed slots and of a sparse T = 1 call, each with the
+   bytes it must read, its bound at 3.35 TB/s and the share reached;
 4. Q1 at SF1: datagen (seed 19940101), SQL, collect; exact checks against a
    numpy computation on the same host columns and against
    answers/sf1/answers/q1.out; the kernel's launch count on that run;
    timings;
-5. kernel vs plain version again, on the tensors Q1 passed the kernel,
-   with both times (these are the times the JSON line reports);
+5. both entries vs their plain versions again, on the tensors Q1 passed
+   the kernel, with times, bytes, bound and the time of index_add_ alone
+   (these are the numbers the JSON line reports);
 6. the join slice: all eight tables at SF1 (seed 19940101), Q3 and Q5
    through the joins, the sorted-layout aggregate (Q3) and the kernel
    (Q5's n_name aggregate); exact checks against answers/sf1/answers/q3.out
@@ -43,8 +51,9 @@ Phases:
    the unique and on the expanding path, UNION ALL and UNION over
    differing dictionaries, and a theta join (supplier x customer) past
    CrossJoinExec.MAX_CELLS that runs as a chunked NestedLoopJoinExec.
-The line before the last is a JSON object describing each kernel (its
-launches summed over every query run); the last line is
+The line before the last is a JSON object describing the kernel (its
+launches summed over every query's first run, per entry point under
+`entry_points`); the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code 1).
 """
 
@@ -62,6 +71,7 @@ import torch
 
 from ballista_tpu_torch.batch import round_capacity, to_numpy
 from ballista_tpu_torch.benchmarks import TPCH_QUERIES
+from ballista_tpu_torch.benchmarks.timing import cuda_ms, host_ms
 from ballista_tpu_torch.client import SessionContext
 from ballista_tpu_torch.datagen import TPCH_TABLES, generate_tpch
 from ballista_tpu_torch.exec import plan as plan_mod
@@ -90,46 +100,172 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters=20, warm=3):
-    """Mean warm milliseconds per call, from CUDA events."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+# 32-bit integer operations per second outside the tensor cores: half the
+# data sheet's 67 TFLOP/s of float32, which counts a multiply-add as two
+INT32_OPS_PER_S = 33.5e12
 
 
-def compare(slot, contribs, T):
-    """Kernel vs plain version on the same card tensors; raises unless
-    torch.equal. Returns the max absolute difference (0)."""
-    got = masked_sums.masked_slot_sums(slot, contribs, T)
-    want = masked_sums.masked_slot_sums_reference(slot, contribs, T)
+def reset_counts():
+    masked_sums.masked_slot_sums.launches = 0
+    masked_sums.masked_slot_sums_rows.launches = 0
+
+
+def read_counts():
+    """(launches through masked_slot_sums_rows, through masked_slot_sums)."""
+    return np.array([masked_sums.masked_slot_sums_rows.launches,
+                     masked_sums.masked_slot_sums.launches])
+
+
+def _equal(got, want, what):
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError(f"kernel != plain at (A, n)="
-                             f"{tuple(contribs.shape)} T={T}")
+        raise AssertionError(f"kernel != plain at {what}")
     return (got - want).abs().max().item() if got.numel() else 0
 
 
+def compare(slot, contribs, T):
+    """masked_slot_sums vs its plain version on the same card tensors;
+    raises unless torch.equal. Returns the max absolute difference (0)."""
+    return _equal(masked_sums.masked_slot_sums(slot, contribs, T),
+                  masked_sums.masked_slot_sums_reference(slot, contribs, T),
+                  f"(A, n)={tuple(contribs.shape)} T={T}")
+
+
+def compare_rows(slot, rows, T):
+    """masked_slot_sums_rows vs its plain version, as `compare`."""
+    return _equal(masked_sums.masked_slot_sums_rows(slot, rows, T),
+                  masked_sums.masked_slot_sums_rows_reference(slot, rows, T),
+                  f"rows A={len(rows)} n={slot.shape[0]} T={T}")
+
+
+def time_kernel(kernel, plain):
+    """(kernel ms call after call, kernel ms of device work alone, plain
+    ms), warm, from CUDA events. Logs nothing; `host_note` gives the
+    wrapper's host time."""
+    return cuda_ms(kernel), cuda_ms(kernel, queued=True), cuda_ms(plain)
+
+
+def host_note(slot, contribs, rows, T):
+    """The host time one call of each entry takes to return."""
+    rows_ms = host_ms(lambda: masked_sums.masked_slot_sums_rows(slot, rows, T))
+    matrix_ms = host_ms(lambda: masked_sums.masked_slot_sums(slot, contribs,
+                                                             T))
+    return (f"host time per call: masked_slot_sums_rows {rows_ms:.4f} ms, "
+            f"masked_slot_sums {matrix_ms:.4f} ms")
+
+
 def time_both(slot, contribs, T):
-    """(kernel ms, plain ms), warm, from CUDA events."""
-    return (cuda_ms(lambda: masked_sums.masked_slot_sums(slot, contribs, T)),
-            cuda_ms(lambda: masked_sums.masked_slot_sums_reference(
-                slot, contribs, T)))
+    return time_kernel(
+        lambda: masked_sums.masked_slot_sums(slot, contribs, T),
+        lambda: masked_sums.masked_slot_sums_reference(slot, contribs, T))
+
+
+def time_rows(slot, rows, T):
+    """The plain version writes the contribution matrix and reduces it."""
+    return time_kernel(
+        lambda: masked_sums.masked_slot_sums_rows(slot, rows, T),
+        lambda: masked_sums.masked_slot_sums_rows_reference(slot, rows, T))
+
+
+def library_ms(slot, contribs, T):
+    """The time of the one PyTorch call that computes the same sums from
+    a contribution matrix, `index_add_`, its index and output prepared
+    beforehand. The port never calls it outside the plain version."""
+    idx = torch.where((slot >= 0) & (slot < T), slot, T).to(torch.int64)
+    out = torch.zeros((T + 1, contribs.shape[0]), dtype=torch.int64,
+                      device=slot.device)
+    src = contribs.T
+    return cuda_ms(lambda: out.index_add_(0, idx, src))
+
+
+def bound(slot, columns, T, A):
+    """The least time the card could take for one call on these inputs:
+    {"bytes", "ops", "bound_ms", "bound_by"}. Bytes: every slot once, the
+    32-byte sectors of each column in `columns` that hold a live row (a
+    dead row's values are never needed), the T x A sums once. Operations:
+    one 64-bit add (two 32-bit operations) per live row and aggregate."""
+    n = slot.shape[0]
+    live = ((slot >= 0) & (slot < T)).nonzero().squeeze(1)
+    n_live = live.numel()
+    sectors = {}
+    for size in {c.element_size() for c in columns}:
+        if n_live == n:
+            sectors[size] = n * size
+        else:
+            hit = torch.zeros(n * size // 32 + 1, dtype=torch.bool,
+                              device=slot.device)
+            hit[(live * size) // 32] = True
+            sectors[size] = min(int(hit.sum()) * 32, n * size)
+    nbytes = 4 * n + sum(sectors[c.element_size()] for c in columns) \
+        + 8 * T * A
+    ops = 2 * n_live * A
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return {"bytes": nbytes, "ops": ops, "live": n_live,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def row_columns(rows):
+    """The distinct tensors a masked_slot_sums_rows call reads."""
+    seen = {}
+    for pair in rows:
+        for t in pair:
+            if t is not None:
+                seen[t.data_ptr()] = t
+    return list(seen.values())
+
+
+def rand_slots(n, T, gen, slot_lo=0):
+    return torch.randint(slot_lo, T + 2, (n,), generator=gen,
+                         dtype=torch.int32).cuda()
+
+
+def rand_rows(n, gen, lo=-2 ** 40, hi=2 ** 40, offset=0):
+    """Five described rows over fresh columns: count(*), a count, an int64
+    sum with and without validity, an int32 sum. `offset` drops that many
+    leading elements from every column, so the views start off the
+    16-byte grid."""
+    def col(dtype, lo, hi, to=None):
+        t = torch.randint(lo, hi, (n + offset,), generator=gen,
+                          dtype=dtype).cuda()
+        return (t if to is None else t.to(to))[offset:]
+
+    v1 = col(torch.int8, 0, 2, torch.bool)
+    v2 = col(torch.int8, 0, 2, torch.bool)
+    d64, d64b = col(torch.int64, lo, hi), col(torch.int64, lo, hi)
+    d32 = col(torch.int32, -2 ** 31, 2 ** 31 - 1)
+    return [(None, None), (None, v1), (d64, v1), (d64b, None), (d32, v2)]
 
 
 def kernel_case(n, T, A, lo, hi, slot_lo, gen):
-    slot = torch.randint(slot_lo, T + 2, (n,), generator=gen,
-                         dtype=torch.int32).cuda()
+    slot = rand_slots(n, T, gen, slot_lo)
     contribs = torch.randint(lo, hi, (A, n), generator=gen,
                              dtype=torch.int64).cuda()
-    return slot, contribs, compare(slot, contribs, T)
+    err = compare(slot, contribs, T)
+    rows = rand_rows(n, gen, lo, hi)
+    return slot, contribs, max(err, compare_rows(slot, rows, T))
+
+
+def timed_shape(label, slot, contribs, rows, T):
+    """Both entries on one call shape: equal to their plain versions, then
+    times, the bytes each must read, the bound and the share reached."""
+    err = max(compare(slot, contribs, T), compare_rows(slot, rows, T))
+    A, n = contribs.shape
+    for name, (ms, dev_ms, plain), b in (
+            ("masked_slot_sums", time_both(slot, contribs, T),
+             bound(slot, list(contribs), T, A)),
+            ("masked_slot_sums_rows", time_rows(slot, rows, T),
+             bound(slot, row_columns(rows), T, len(rows)))):
+        log(f"phase 3: {label}, n={n} T={T} A={A}, {b['live']} live rows, "
+            f"{name}: equal; kernel {ms:.4f} ms ({dev_ms:.4f} ms of device "
+            f"work), plain {plain:.4f} ms; must read {b['bytes']} B, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound "
+            f"{b['bound_ms'] / ms:.3f}")
+    log(f"phase 3: {label}: index_add_ alone "
+        f"{library_ms(slot, contribs, T):.4f} ms; "
+        f"{host_note(slot, contribs, rows, T)}")
+    return err
 
 
 def phase_kernel():
@@ -138,30 +274,168 @@ def phase_kernel():
     cases = [  # (n, T, A, value lo, value hi, lowest slot)
         (0, 6, 3, -2 ** 40, 2 ** 40, 0),
         (1, 6, 3, -2 ** 40, 2 ** 40, 0),
-        (1_000_003, 12, 11, -2 ** 40, 2 ** 40, 0),   # not a block multiple
+        (1_000_003, 12, 11, -2 ** 40, 2 ** 40, 0),   # not a tile multiple
         (100_000, 64, 3, -2 ** 40, 2 ** 40, 0),       # T = MASKED_MAX
         (300_001, 6, 4, -3, 3, -5),                   # slots < 0 and > T
         (500_000, 12, 11, BIG - 2 ** 20, BIG, 0),     # wraps mod 2^64
         (500_000, 12, 11, -BIG, -BIG + 2 ** 20, 0),   # wraps mod 2^64
+        (200_001, 12, 20, -2 ** 40, 2 ** 40, 0),      # A past one launch
+        (200_001, 40, 37, -2 ** 40, 2 ** 40, 0),
+        (100_001, 64, 16, -2 ** 40, 2 ** 40, 0),      # a copy per warp
+        (50_001, 6000, 2, -2 ** 40, 2 ** 40, 0),      # one shared copy
     ]
     for n, T, A, lo, hi, slot_lo in cases:
         _, _, err = kernel_case(n, T, A, lo, hi, slot_lo, gen)
         max_err = max(max_err, err)
         log(f"phase 3: edge case n={n} T={T} A={A}: equal")
-    for T in (Q1_T, 6):
-        slot, contribs, err = kernel_case(Q1_N, T, Q1_A, -2 ** 40, 2 ** 40,
-                                          0, gen)
-        max_err = max(max_err, err)
-        ms, plain = time_both(slot, contribs, T)
-        log(f"phase 3: Q1 shape n={Q1_N} T={T} A={Q1_A}, uniform random "
-            f"slots: equal; kernel {ms:.4f} ms ({read_gbs(ms):.1f} GB/s of "
-            f"reads), plain {plain:.4f} ms")
-        del slot, contribs
+    # more described rows than one launch streams columns
+    for T in (3, 12, 40):
+        slot = rand_slots(200_001, T, gen, -1)
+        rows = rand_rows(200_001, gen) * 3 + rand_rows(200_001, gen) * 2
+        max_err = max(max_err, compare_rows(slot, rows, T))
+        log(f"phase 3: {len(rows)} described rows, T={T}: equal")
+    # columns that are views: stride 0 (a literal argument, a broadcast
+    # join side) and every other element of a wider column
+    for T in (1, 12, 26):
+        n = 300_001
+        slot = rand_slots(n, T, gen, -1)
+        wide = torch.randint(-BIG, BIG, (2 * n,), generator=gen,
+                             dtype=torch.int64).cuda()
+        flags = (torch.rand(2 * n, generator=gen) >= 0.3).cuda()
+        seven = torch.tensor([7], dtype=torch.int64).cuda().expand(n)
+        three = torch.tensor([3], dtype=torch.int32).cuda().expand(n)
+        yes = torch.tensor([True]).cuda().expand(n)
+        max_err = max(max_err, compare_rows(slot, [
+            (None, yes), (seven, yes), (three, flags[:n]), (seven, None),
+            (wide[::2], flags[::2]), (None, flags[1::2]), (wide[1::2], yes)],
+            T))
+        log(f"phase 3: stride-0 and every-other columns, T={T}: equal")
+    # every T at the edge of a code path, at sizes below one vector, an
+    # odd size, an A-chunk view off the 16-byte grid, and columns and
+    # slots that start 1, 2 and 3 elements off it
+    for T in (1, 2, 3, 4, 5, 8, 9, 16, 17, 26, 64):
+        for n in (1, 2, 3, 4099, 1_000_003):
+            slot, contribs, err = kernel_case(n, T, 5, -2 ** 40, 2 ** 40,
+                                              -1, gen)
+            max_err = max(max_err, err, compare(slot, contribs[1:], T))
+        for off in (1, 2, 3):
+            n = 300_000 + off
+            slot = rand_slots(n + off, T, gen, -1)[off:]
+            max_err = max(max_err, compare_rows(
+                slot, rand_rows(n, gen, offset=off), T))
+            contribs = torch.randint(-BIG, BIG, (3, n), generator=gen,
+                                     dtype=torch.int64).cuda()
+            max_err = max(max_err, compare(slot, contribs, T))
+        log(f"phase 3: T={T}: n in (1, 2, 3, 4099, 1000003), contribs[1:] "
+            "and columns 1-3 elements off the 16-byte grid: both entries "
+            "equal")
+    # all rows in one slot; 1 % and 0 % of the rows live
+    n = 1_000_003
+    contribs = torch.randint(-2 ** 40, 2 ** 40, (Q1_A, n), generator=gen,
+                             dtype=torch.int64).cuda()
+    rows = rand_rows(n, gen)
+    pick = torch.rand(n, generator=gen).cuda()
+    for label, slot in (
+            ("all rows in slot 7",
+             torch.full((n,), 7, dtype=torch.int32).cuda()),
+            ("1 % live", torch.where(pick < 0.01, 3, Q1_T).to(torch.int32)),
+            ("0 % live", torch.full((n,), Q1_T, dtype=torch.int32).cuda())):
+        max_err = max(max_err, compare(slot, contribs, Q1_T),
+                      compare_rows(slot, rows, Q1_T))
+        log(f"phase 3: n={n} T={Q1_T} A={Q1_A}, {label}: both entries equal")
+    del contribs, rows, pick
+
+    # times at Q1's shape: Q1's 11 rows are count(*), five int64 sums and
+    # their five counts over five validity columns
+    contribs = torch.randint(-2 ** 40, 2 ** 40, (Q1_A, Q1_N), generator=gen,
+                             dtype=torch.int64).cuda()
+    data = [torch.randint(-2 ** 40, 2 ** 40, (Q1_N,), generator=gen,
+                          dtype=torch.int64).cuda() for _ in range(5)]
+    valid = [torch.ones(Q1_N, dtype=torch.bool).cuda() for _ in range(5)]
+    rows = [(None, None)] + [(None, v) for v in valid] \
+        + [(d, v) for d, v in zip(data, valid)]
+    uniform = torch.randint(0, Q1_T, (Q1_N,), generator=gen,
+                            dtype=torch.int32).cuda()
+    # Q1's skew: three of the 12 slots hold every row, one of them half
+    skewed = torch.tensor([0, 0, 5, 9], dtype=torch.int32).cuda()[
+        torch.randint(0, 4, (Q1_N,), generator=gen).cuda()]
+    max_err = max(max_err,
+                  timed_shape("Q1 shape, uniform slots", uniform, contribs,
+                              rows, Q1_T),
+                  timed_shape("Q1 shape, 3 of 12 slots hold all rows", skewed,
+                              contribs, rows, Q1_T))
+    sparse = torch.where(torch.rand(Q1_N, generator=gen).cuda() < 0.02, 0,
+                         1).to(torch.int32)
+    max_err = max(max_err, timed_shape(
+        "T = 1, 2 % live", sparse, contribs[:3].contiguous(),
+        [(None, None), (None, valid[0]), (data[0], valid[0])], 1))
     return max_err
 
 
-def read_gbs(ms):
-    return (4 + 8 * Q1_A) * Q1_N / ms / 1e6
+class spy_rows:
+    """Records every masked_slot_sums_rows call the aggregate operator
+    makes while the block runs: (row_slot, rows, T)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.real = plan_mod.masked_slot_sums_rows
+
+        def spy(row_slot, rows, T):
+            self.calls.append((row_slot, list(rows), T))
+            return self.real(row_slot, rows, T)
+
+        plan_mod.masked_slot_sums_rows = spy
+        return self.calls
+
+    def __exit__(self, *exc):
+        plan_mod.masked_slot_sums_rows = self.real
+
+
+def call_shapes(calls):
+    return [((len(rows), slot.shape[0]), T) for slot, rows, T in calls]
+
+
+def hold_call(phase, label, slot, rows, T):
+    """Both entries against their plain versions on one call a query made
+    (masked_slot_sums on the matrix those rows describe), with times,
+    bytes and bounds. Returns the numbers of the kernels line."""
+    err = compare_rows(slot, rows, T)
+    ms, dev_ms, plain = time_rows(slot, rows, T)
+    b = bound(slot, row_columns(rows), T, len(rows))
+    contribs = masked_sums.contribution_matrix(slot, rows)
+    m_err = compare(slot, contribs, T)
+    m_ms, m_dev_ms, m_plain = time_both(slot, contribs, T)
+    m_b = bound(slot, list(contribs), T, len(rows))
+    lib = library_ms(slot, contribs, T)
+    log(f"phase {phase}: {label} (n={slot.shape[0]}, {b['live']} live rows, "
+        f"T={T}, A={len(rows)}): masked_slot_sums_rows equal; kernel "
+        f"{ms:.4f} ms ({dev_ms:.4f} ms of device work), plain {plain:.4f} ms; "
+        f"must read {b['bytes']} B, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share "
+        f"{b['bound_ms'] / ms:.3f}")
+    log(f"phase {phase}: {label}, as a matrix: masked_slot_sums equal; kernel "
+        f"{m_ms:.4f} ms ({m_dev_ms:.4f} ms of device work), plain "
+        f"{m_plain:.4f} ms; must read {m_b['bytes']} B, "
+        f"bound {m_b['bound_ms']:.4f} ms by {m_b['bound_by']}, share "
+        f"{m_b['bound_ms'] / m_ms:.3f}; index_add_ alone {lib:.4f} ms; "
+        f"{host_note(slot, contribs, rows, T)}")
+    return {
+        "masked_slot_sums_rows": {
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": lib},
+        "masked_slot_sums": {
+            "max_abs_err": m_err, "ms": m_ms, "device_ms": m_dev_ms,
+            "plain_ms": m_plain,
+            "bound_ms": m_b["bound_ms"], "bound_by": m_b["bound_by"],
+            "library_ms": lib}}
+
+
+def held_err(held):
+    return max(v["max_abs_err"] for v in held.values())
 
 
 def numpy_q1(cols):
@@ -268,31 +542,22 @@ def phase_q1():
     setup_s = time.perf_counter() - t0
     log(f"phase 4: datagen + upload {setup_s:.3f} s ({n_rows} rows)")
 
-    calls = []
-    real = plan_mod.masked_slot_sums
-
-    def spy(row_slot, contribs, T):
-        calls.append((row_slot, contribs, T))
-        return real(row_slot, contribs, T)
-
-    masked_sums.masked_slot_sums.launches = 0
-    plan_mod.masked_slot_sums = spy
-    try:
+    reset_counts()
+    with spy_rows() as calls:
         t0 = time.perf_counter()
         batch, schema = df.collect()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-    finally:
-        plan_mod.masked_slot_sums = real
-    launches = masked_sums.masked_slot_sums.launches
-    if launches < 1:
-        raise AssertionError("Q1 ran without launching masked_slot_sums")
-    shapes = [(tuple(c.shape), T) for _, c, T in calls]
+    launches = read_counts()
+    if launches[0] < 1:
+        raise AssertionError("Q1 ran without launching masked_slot_sums_rows")
+    shapes = call_shapes(calls)
     if shapes != [((Q1_A, Q1_N), Q1_T)]:
         raise AssertionError(f"Q1's kernel calls {shapes} differ from the "
                              f"shape phase 3 checked ({Q1_A}, {Q1_N}), {Q1_T}")
-    log(f"phase 4: first run {first_s:.4f} s; masked_slot_sums launches "
-        f"{launches} at (A, n), T = {shapes[0]}")
+    log(f"phase 4: first run {first_s:.4f} s; masked_slot_sums_rows launches "
+        f"{launches[0]}, masked_slot_sums launches {launches[1]}, at (A, n), "
+        f"T = {shapes[0]}")
 
     got = df.to_numpy()
     want = numpy_q1(cols)
@@ -323,15 +588,17 @@ def phase_q1():
     return launches, calls[0]
 
 
-def phase_q1_inputs(slot, contribs, T):
-    """Kernel vs plain on the very tensors Q1's aggregate passed it. Real
-    slots put about half the rows into one slot and nearly all into three
-    of the 12, where the random slots of phase 3 spread them evenly."""
-    err = compare(slot, contribs, T)
-    ms, plain = time_both(slot, contribs, T)
-    log(f"phase 5: Q1's own kernel inputs: equal; kernel {ms:.4f} ms "
-        f"({read_gbs(ms):.1f} GB/s of reads), plain {plain:.4f} ms")
-    return err, ms, plain
+def phase_q1_inputs(slot, rows, T):
+    """Both entries against their plain versions on the very tensors Q1's
+    aggregate passed the kernel. Real slots put about half the rows into
+    one slot and nearly all into three of the 12, where phase 3's uniform
+    slots spread them evenly."""
+    described = [("ones" if d is None and v is None else
+                  "count" if d is None else str(d.dtype).split(".")[1])
+                 for d, v in rows]
+    log(f"phase 5: Q1's rows: {described}; "
+        f"{len(row_columns(rows))} distinct columns")
+    return hold_call(5, "Q1's own kernel inputs", slot, rows, T)
 
 
 def numpy_q5(tables):
@@ -372,34 +639,26 @@ def numpy_q5(tables):
 
 
 def run_query(ctx, q, phase, with_sql=False):
-    """First run (with every masked_slot_sums call recorded), answer
-    check, warm median of 10. `with_sql` times `ctx.sql(text).collect()`
+    """First run (with every masked_slot_sums_rows call of the aggregate
+    operator recorded), answer check, warm median of 10. `with_sql` times
+    `ctx.sql(text).collect()`
     (planning and scalar subqueries included), else `collect()` of one
-    planned DataFrame. Returns (launches, calls, rows)."""
-    calls = []
-    real = plan_mod.masked_slot_sums
-
-    def spy(row_slot, contribs, T):
-        calls.append((row_slot, contribs, T))
-        return real(row_slot, contribs, T)
-
+    planned DataFrame. Returns ((launches through masked_slot_sums_rows,
+    through masked_slot_sums), calls, rows)."""
     def run():
         return (ctx.sql(TPCH_QUERIES[q]) if with_sql else df).collect()
 
     df = None if with_sql else ctx.sql(TPCH_QUERIES[q])
-    masked_sums.masked_slot_sums.launches = 0
-    plan_mod.masked_slot_sums = spy
-    try:
+    reset_counts()
+    with spy_rows() as calls:
         t0 = time.perf_counter()
         batch, schema = run()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-    finally:
-        plan_mod.masked_slot_sums = real
-    launches = masked_sums.masked_slot_sums.launches
-    shapes = [(tuple(c.shape), T) for _, c, T in calls]
-    log(f"phase {phase}: Q{q} first run {first_s:.4f} s; masked_slot_sums "
-        f"launches {launches}, calls at (A, n), T = {shapes}")
+    launches = read_counts()
+    log(f"phase {phase}: Q{q} first run {first_s:.4f} s; masked_slot_sums_rows "
+        f"launches {launches[0]}, masked_slot_sums launches {launches[1]}, "
+        f"calls at (A, n), T = {call_shapes(calls)}")
     got = to_numpy(batch, schema)
     check_answers(got, schema, q)
     log(f"phase {phase}: Q{q} result equals answers/sf1/answers/q{q}.out "
@@ -437,9 +696,9 @@ def phase_joins():
 
     q3_launches, _, _ = run_query(ctx, 3, 6)
     q5_launches, calls, got = run_query(ctx, 5, 6)
-    if q5_launches < 1:
-        raise AssertionError("Q5 ran without launching masked_slot_sums")
-    shapes = [(tuple(c.shape), T) for _, c, T in calls]
+    if q5_launches[0] < 1:
+        raise AssertionError("Q5 ran without launching masked_slot_sums_rows")
+    shapes = call_shapes(calls)
     if shapes != [((Q5_A, Q1_N), Q5_T)]:
         raise AssertionError(f"Q5's kernel calls {shapes} differ from "
                              f"({Q5_A}, {Q1_N}), {Q5_T}")
@@ -450,15 +709,8 @@ def phase_joins():
         raise AssertionError(f"Q5 {mine} != numpy {want}")
     log("phase 6: Q5 result equals the numpy computation exactly")
 
-    slot, contribs, T = calls[0]
-    err = compare(slot, contribs, T)
-    ms, plain = time_both(slot, contribs, T)
-    live = int((slot < T).sum())
-    log(f"phase 6: Q5's own kernel inputs (n={slot.shape[0]}, {live} live "
-        f"rows, T={T}, A={contribs.shape[0]}): equal; kernel {ms:.4f} ms "
-        f"({(4 + 8 * contribs.shape[0]) * slot.shape[0] / ms / 1e6:.1f} GB/s "
-        f"of reads), plain {plain:.4f} ms")
-    return q3_launches + q5_launches, err, ctx
+    held = hold_call(6, "Q5's own kernel inputs", *calls[0])
+    return q3_launches + q5_launches, held, ctx
 
 
 SIX_TABLE_REST = (4, 6, 7, 10, 12, 13, 15, 18, 21, 22)
@@ -496,18 +748,14 @@ def phase_rest(ctx):
             f"{len(retries)}{(': ' + retries[0]) if retries else ''}")
     for q, T in ((6, 1), (12, 8)):
         launches, calls = kernel_calls[q]
-        if launches < 1:
-            raise AssertionError(f"Q{q} ran without launching masked_slot_sums")
+        if launches[0] < 1:
+            raise AssertionError(
+                f"Q{q} ran without launching masked_slot_sums_rows")
         # the main plan's call: the one at T (Q15/Q22-style subqueries
         # would come first)
-        slot, contribs, t = next(c for c in calls if c[2] == T)
-        err = compare(slot, contribs, t)
-        max_err = max(max_err, err)
-        ms, plain = time_both(slot, contribs, t)
-        live = int((slot < t).sum())
-        log(f"phase 7: Q{q}'s own kernel inputs (n={slot.shape[0]}, {live} "
-            f"live rows, T={t}, A={contribs.shape[0]}): equal; kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms")
+        call = next(c for c in calls if c[2] == T)
+        max_err = max(max_err, held_err(
+            hold_call(7, f"Q{q}'s own kernel inputs", *call)))
     return total_launches, max_err
 
 
@@ -528,16 +776,11 @@ def phase_rest_part(ctx):
             f"{len(retries)}{(': ' + retries[0]) if retries else ''}")
     for q in (14, 17, 19):
         launches, calls = kernel_calls[q]
-        if launches < 1 or not any(T == 1 for _, _, T in calls):
+        if launches[0] < 1 or not any(T == 1 for _, _, T in calls):
             raise AssertionError(f"Q{q} ran without the kernel at T = 1")
-        slot, contribs, t = next(c for c in calls if c[2] == 1)
-        err = compare(slot, contribs, t)
-        max_err = max(max_err, err)
-        ms, plain = time_both(slot, contribs, t)
-        live = int((slot < t).sum())
-        log(f"phase 8: Q{q}'s own kernel inputs (n={slot.shape[0]}, {live} "
-            f"live rows, T={t}, A={contribs.shape[0]}): equal; kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms")
+        call = next(c for c in calls if c[2] == 1)
+        max_err = max(max_err, held_err(
+            hold_call(8, f"Q{q}'s own kernel inputs", *call)))
     # host work of the LIKE queries: planning (which binds the LIKE) and
     # the lookup table alone over p_name's dictionary
     p_name = ctx.tables["part"].host["p_name"].dictionary
@@ -748,22 +991,42 @@ def main():
     lib = masked_sums.build()
     log(f"phase 2: built {os.path.relpath(lib)} in "
         f"{time.perf_counter() - t0:.2f} s")
+    # ptxas -v: registers and spills of every kernel instance
+    entry = None
+    for line in masked_sums.build.log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line or "Used" in line:
+            log(f"phase 2: ptxas {entry}: "
+                f"{line.replace('ptxas info    :', '').strip()}")
+    log(f"phase 2: {masked_sums.smem_bytes('cuda')} B of shared memory per "
+        f"block on request; a_chunk(26) = {masked_sums.a_chunk(26, 'cuda')}")
 
     max_err = phase_kernel()
     launches, q1_call = phase_q1()
-    err, ms, plain_ms = phase_q1_inputs(*q1_call)
-    join_launches, join_err, ctx = phase_joins()
+    q1_held = phase_q1_inputs(*q1_call)
+    join_launches, q5_held, ctx = phase_joins()
     rest_launches, rest_err = phase_rest(ctx)
     part_launches, part_err = phase_rest_part(ctx)
     phase_setops(ctx)
 
+    # one record for the kernel file; its times and bound are those of
+    # Q1's own call through the entry the queries use. `entry_points`
+    # gives each wrapper's own numbers on that call; launches are those of
+    # the 22 queries' first runs, counted per wrapper.
+    launches = launches + join_launches + rest_launches + part_launches
+    worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
+                part_err)
+    entries = [dict(name=name, launches=int(count), **q1_held[name])
+               for name, count in zip(("masked_slot_sums_rows",
+                                       "masked_slot_sums"), launches)]
     print(json.dumps({"kernels": [{
         "name": "masked_slot_sums", "route": "cuda",
         "source": "ballista_tpu_torch/csrc/masked_slot_sums.cu",
         "replaces": "ballista_tpu/ops/pallas_agg.py:106",
-        "launches": launches + join_launches + rest_launches + part_launches,
-        "max_abs_err": max(max_err, err, join_err, rest_err, part_err),
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": int(launches.sum()),
+        **q1_held["masked_slot_sums_rows"], "max_abs_err": worst,
+        "entry_points": entries}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,8 +14,9 @@ import torch
 from ballista_tpu_torch.benchmarks import TPCH_QUERIES
 from ballista_tpu_torch.client import SessionContext
 from ballista_tpu_torch.datagen import generate_tpch, register_tpch
-from ballista_tpu_torch.ops.masked_sums import (a_chunk, masked_slot_sums,
-                                                masked_slot_sums_reference)
+from ballista_tpu_torch.ops.masked_sums import (
+    a_chunk, masked_slot_sums, masked_slot_sums_reference,
+    masked_slot_sums_rows, masked_slot_sums_rows_reference)
 
 torch.set_num_threads(2)
 
@@ -56,7 +57,137 @@ def test_wide_kernel_call_is_split(cuda_device, n, T, A):
     got = masked_slot_sums(slot.to(cuda_device), contribs.to(cuda_device), T)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), masked_slot_sums_reference(slot, contribs, T))
-    assert masked_slot_sums.launches == launches + -(-A // a_chunk(T))
+    assert masked_slot_sums.launches == launches + -(
+        -A // a_chunk(T, cuda_device))
+
+
+# every T where the kernel changes its code path (registers up to 4,
+# lane columns in shared memory above, warp-matched cells where those do
+# not fit), at sizes below one vector, odd sizes and a tile multiple
+EDGE_T = (1, 2, 3, 4, 5, 8, 9, 16, 17, 26, 64)
+EDGE_N = (1, 2, 3, 2048, 4099, 1_000_003)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", EDGE_T)
+@pytest.mark.parametrize("n", EDGE_N)
+def test_kernel_edges_match_reference(cuda_device, n, T):
+    """The matrix entry, whole and as the view contribs[1:], whose rows sit
+    off the 16-byte grid when n is odd; slots from -1 to T + 1."""
+    g = torch.Generator().manual_seed(n * 67 + T)
+    slot = torch.randint(-1, T + 2, (n,), generator=g, dtype=torch.int32)
+    contribs = torch.randint(-BIG, BIG, (4, n), generator=g, dtype=torch.int64)
+    want = masked_slot_sums_reference(slot, contribs, T)
+    slot, contribs = slot.to(cuda_device), contribs.to(cuda_device)
+    got = masked_slot_sums(slot, contribs, T)
+    tail = masked_slot_sums(slot, contribs[1:], T)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(tail.cpu(), want[:, 1:])
+
+
+def _card_rows(n, g, device, offset=0):
+    """count(*), a count, int64 sums with and without NULLs (one sharing
+    the count's validity column), an int32 sum; every column a view that
+    starts `offset` elements into its storage."""
+    def col(dtype, lo, hi, to=None):
+        t = torch.randint(lo, hi, (n + offset,), generator=g, dtype=dtype)
+        return (t if to is None else t.to(to)).to(device)[offset:]
+
+    v1, v2 = (col(torch.int8, 0, 2, torch.bool) for _ in range(2))
+    return [(None, None), (None, v1), (col(torch.int64, -BIG, BIG), v1),
+            (col(torch.int64, -BIG, BIG), None),
+            (col(torch.int32, -2 ** 31, 2 ** 31 - 1), v2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", EDGE_T)
+@pytest.mark.parametrize("n,offset", [(1, 0), (2, 1), (3, 3), (4099, 0),
+                                      (300_001, 1), (300_002, 2),
+                                      (1_000_003, 3)])
+def test_rows_kernel_edges_match_reference(cuda_device, n, offset, T):
+    """The rows entry over int32 and int64 data with and without validity,
+    on columns and slots that start 0 to 3 elements off the 16-byte grid."""
+    g = torch.Generator().manual_seed(n * 31 + T)
+    slot = torch.randint(-1, T + 2, (n + offset,), generator=g,
+                         dtype=torch.int32).to(cuda_device)[offset:]
+    rows = _card_rows(n, g, cuda_device, offset)
+    launches = masked_slot_sums_rows.launches
+    got = masked_slot_sums_rows(slot, rows, T)
+    torch.cuda.synchronize()
+    assert torch.equal(got, masked_slot_sums_rows_reference(slot, rows, T))
+    assert masked_slot_sums_rows.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_slot", "one_percent_live", "none_live",
+                                  "wraps_up", "wraps_down"])
+def test_kernel_skew_sparsity_and_wraparound(cuda_device, case):
+    n, T, A = 500_001, 12, 11
+    g = torch.Generator().manual_seed(len(case))
+    lo, hi = {"wraps_up": (BIG - 2 ** 20, BIG),
+              "wraps_down": (-BIG, -BIG + 2 ** 20)}.get(
+                  case, (-2 ** 40, 2 ** 40))
+    contribs = torch.randint(lo, hi, (A, n), generator=g,
+                             dtype=torch.int64).to(cuda_device)
+    if case == "one_slot":
+        slot = torch.full((n,), 7, dtype=torch.int32)
+    elif case == "one_percent_live":
+        slot = torch.where(torch.rand(n, generator=g) < 0.01, 3, T).to(
+            torch.int32)
+    elif case == "none_live":
+        slot = torch.full((n,), T, dtype=torch.int32)
+    else:
+        slot = torch.randint(0, T, (n,), generator=g, dtype=torch.int32)
+    slot = slot.to(cuda_device)
+    rows = _card_rows(n, g, cuda_device)
+    got = masked_slot_sums(slot, contribs, T)
+    got_rows = masked_slot_sums_rows(slot, rows, T)
+    torch.cuda.synchronize()
+    assert torch.equal(got, masked_slot_sums_reference(slot, contribs, T))
+    assert torch.equal(got_rows,
+                       masked_slot_sums_rows_reference(slot, rows, T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [3, 12, 40, 6000])
+def test_wide_rows_call_is_split(cuda_device, T):
+    """More described rows than one launch streams columns, or more
+    outputs than its shared memory holds: several launches, one output."""
+    n = 100_003
+    g = torch.Generator().manual_seed(T)
+    slot = torch.randint(-1, T + 2, (n,), generator=g,
+                         dtype=torch.int32).to(cuda_device)
+    rows = _card_rows(n, g, cuda_device) * 3 + _card_rows(n, g, cuda_device) * 2
+    launches = masked_slot_sums_rows.launches
+    got = masked_slot_sums_rows(slot, rows, T)
+    torch.cuda.synchronize()
+    assert torch.equal(got, masked_slot_sums_rows_reference(slot, rows, T))
+    assert masked_slot_sums_rows.launches > launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 4, 26])
+def test_rows_kernel_takes_strided_columns(cuda_device, T):
+    """Stride-0 views (a literal, a broadcast join side) and every-other
+    views give the sums of their contiguous copies."""
+    n = 300_001
+    g = torch.Generator().manual_seed(T)
+    slot = torch.randint(-1, T + 2, (n,), generator=g,
+                         dtype=torch.int32).to(cuda_device)
+    wide = torch.randint(-BIG, BIG, (2 * n,), generator=g,
+                         dtype=torch.int64).to(cuda_device)
+    flags = (torch.rand(2 * n, generator=g) >= 0.3).to(cuda_device)
+    seven = torch.tensor([7], dtype=torch.int64, device=cuda_device).expand(n)
+    three = torch.tensor([3], dtype=torch.int32, device=cuda_device).expand(n)
+    yes = torch.tensor([True], device=cuda_device).expand(n)
+    rows = [(None, yes), (seven, yes), (three, flags[:n]), (seven, None),
+            (wide[::2], flags[::2]), (None, flags[1::2]), (wide[1::2], yes)]
+    launches = masked_slot_sums_rows.launches
+    got = masked_slot_sums_rows(slot, rows, T)
+    torch.cuda.synchronize()
+    assert torch.equal(got, masked_slot_sums_rows_reference(slot, rows, T))
+    assert masked_slot_sums_rows.launches == launches + 1
 
 
 @pytest.mark.cuda
@@ -73,6 +204,29 @@ QUERIES = {
     "no_key": ("select sum(l_extendedprice * (1 - l_discount)) as s, "
                "count(*) as n, max(l_tax) as t from lineitem "
                "where l_shipdate < date '1995-01-01'", 2),
+    # literal arguments bind to stride-0 views
+    "literals": ("select count(1) as n, sum(1) as s, count('x') as c "
+                 "from lineitem", 1),
+    "literals_grouped": (
+        "select l_linestatus, count(1) as n, sum(1) as s, sum(2.5) as d, "
+        "avg(3) as a from lineitem group by l_linestatus "
+        "order by l_linestatus", 1),
+    # a broadcast cross-join column; the derived table's aggregate makes
+    # two calls (its count(*), and max's per-slot validity count)
+    "broadcast": ("select sum(m.top) as s, count(m.top) as c from lineitem, "
+                  "(select max(l_quantity) as top from lineitem) m", 3),
+    "broadcast_grouped": (
+        "select l_linestatus, sum(m.top) as s, count(m.top) as c, "
+        "sum(l_quantity * m.top) as p from lineitem, "
+        "(select max(l_quantity) as top from lineitem) m "
+        "group by l_linestatus order by l_linestatus", 3),
+    # an int32 column goes to the kernel as it is
+    "int32": ("select sum(l_linenumber) as s, avg(l_linenumber) as a, "
+              "count(l_linenumber) as c from lineitem where l_quantity < 10",
+              1),
+    "int32_grouped": ("select l_returnflag, sum(l_linenumber) as s "
+                      "from lineitem group by l_returnflag "
+                      "order by l_returnflag", 1),
 }
 
 
@@ -85,9 +239,9 @@ def test_query_on_card_matches_cpu(cuda_device, query):
     for dev in ("cpu", cuda_device):
         ctx = SessionContext(device=dev)
         ctx.register_host("lineitem", fields, cols)
-        before = masked_slot_sums.launches
+        before = masked_slot_sums_rows.launches
         out[str(dev)] = ctx.sql(sql).to_numpy()
-        launched = masked_slot_sums.launches - before
+        launched = masked_slot_sums_rows.launches - before
         assert launched == (0 if dev == "cpu" else card_launches)
     for name, (values, valid) in out["cpu"].items():
         got_values, got_valid = out[str(cuda_device)][name]
@@ -104,9 +258,9 @@ def test_join_query_on_card_matches_cpu(cuda_device, q, card_launches):
     for dev in ("cpu", cuda_device):
         ctx = SessionContext(device=dev)
         register_tpch(ctx, 0.01)
-        before = masked_slot_sums.launches
+        before = masked_slot_sums_rows.launches
         out[str(dev)] = ctx.sql(TPCH_QUERIES[q]).to_numpy()
-        launched = masked_slot_sums.launches - before
+        launched = masked_slot_sums_rows.launches - before
         assert launched == (0 if dev == "cpu" else card_launches)
     for name, (values, valid) in out["cpu"].items():
         got_values, got_valid = out[str(cuda_device)][name]

@@ -96,6 +96,107 @@ def test_query_matches_jax(contexts, query):
     assert masked_slot_sums.launches == before
 
 
+@pytest.mark.parametrize("query,n_rows", [("q1", 11), ("q6_shape", 3),
+                                          ("extremes", 3)])
+def test_aggregate_passes_columns_not_a_matrix(contexts, monkeypatch, query,
+                                               n_rows):
+    """HashAggregateExec hands masked_slot_sums_rows the value and validity
+    columns themselves: count(*) first, each distinct sum and count once,
+    no (A, n) matrix; the batch equals the JAX package's."""
+    from ballista_tpu_torch.exec import plan as plan_mod
+    jctx, tctx = contexts
+    calls = []
+    real = plan_mod.masked_slot_sums_rows
+
+    def spy(row_slot, rows, T):
+        calls.append((row_slot, list(rows), T))
+        return real(row_slot, rows, T)
+
+    monkeypatch.setattr(plan_mod, "masked_slot_sums_rows", spy)
+    df = tctx.sql(QUERIES[query])
+    got = df.to_numpy()
+    (row_slot, rows, T), = calls
+    assert len(rows) == n_rows and rows[0] == (None, None)
+    for data, validity in rows[1:]:
+        assert validity.dtype == torch.bool and validity.shape == row_slot.shape
+        assert data is None or (data.dtype in (torch.int64, torch.int32)
+                                and data.shape == row_slot.shape)
+    jbatch, jschema = jctx.sql(QUERIES[query]).collect()
+    want = to_numpy(jbatch, jschema)
+    for name in want:
+        np.testing.assert_array_equal(got[name][1], want[name][1], err_msg=name)
+        np.testing.assert_array_equal(got[name][0][got[name][1]],
+                                      want[name][0][want[name][1]],
+                                      err_msg=name)
+
+
+TOP = "(select max(l_quantity) as top from lineitem) m"
+# aggregates whose argument columns are not plain contiguous int64: a
+# literal binds to a stride-0 view, a broadcast cross-join side too, and
+# an int32 column goes to the fused call as it is. (query, what the call
+# must have been handed)
+ODD_COLUMNS = {
+    "literals": ("select count(1) as n, sum(1) as s, count('x') as c "
+                 "from lineitem", "strided"),
+    "literals_grouped": (
+        "select l_linestatus, count(1) as n, sum(1) as s, sum(2.5) as d, "
+        "avg(3) as a from lineitem group by l_linestatus "
+        "order by l_linestatus", "strided"),
+    "broadcast": (f"select sum(m.top) as s, count(m.top) as c "
+                  f"from lineitem, {TOP}", "strided"),
+    "broadcast_grouped": (
+        f"select l_linestatus, sum(m.top) as s, count(m.top) as c, "
+        f"sum(l_quantity * m.top) as p from lineitem, {TOP} "
+        f"group by l_linestatus order by l_linestatus", "strided"),
+    "int32": ("select sum(l_linenumber) as s, avg(l_linenumber) as a, "
+              "count(l_linenumber) as c from lineitem where l_quantity < 10",
+              "int32"),
+    "int32_grouped": ("select l_returnflag, sum(l_linenumber) as s "
+                      "from lineitem group by l_returnflag "
+                      "order by l_returnflag", "int32"),
+}
+
+
+def odd_column_calls(ctx, query, monkeypatch):
+    """Runs ODD_COLUMNS[query] on `ctx`; returns (columns as numpy, the
+    masked_slot_sums_rows calls the aggregate made). The last call must
+    have been handed the kind of column the case is about."""
+    from ballista_tpu_torch.exec import plan as plan_mod
+    sql, kind = ODD_COLUMNS[query]
+    calls = []
+    real = plan_mod.masked_slot_sums_rows
+
+    def spy(row_slot, rows, T):
+        calls.append((row_slot, list(rows), T))
+        return real(row_slot, rows, T)
+
+    monkeypatch.setattr(plan_mod, "masked_slot_sums_rows", spy)
+    got = ctx.sql(sql).to_numpy()
+    columns = [t for pair in calls[-1][1] for t in pair if t is not None]
+    if kind == "strided":
+        assert any(not t.is_contiguous() for t in columns)
+    else:
+        assert any(t.dtype == torch.int32 for t in columns)
+    return got, calls
+
+
+@pytest.mark.parametrize("query", sorted(ODD_COLUMNS))
+def test_odd_argument_columns_match_jax(contexts, monkeypatch, query):
+    """count(1), sum(1), a sum over a broadcast cross-join column and a sum
+    over an int32 column, with no keys and with a small GROUP BY: the
+    masked layout answers them as the JAX package does."""
+    jctx, tctx = contexts
+    got, _ = odd_column_calls(tctx, query, monkeypatch)
+    jbatch, jschema = jctx.sql(ODD_COLUMNS[query][0]).collect()
+    want = to_numpy(jbatch, jschema)
+    assert list(got) == list(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name][1], want[name][1], err_msg=name)
+        np.testing.assert_array_equal(got[name][0][got[name][1]],
+                                      want[name][0][want[name][1]],
+                                      err_msg=name)
+
+
 def test_plan_shape(contexts):
     _, tctx = contexts
     plan = tctx.physical_plan(tctx.sql(TPCH_QUERIES[1]).plan).display()
