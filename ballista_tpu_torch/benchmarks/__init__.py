@@ -1,1 +1,1 @@
-from .queries import TPCH_QUERIES
+from .queries import ANALYTIC_QUERIES, TPCH_QUERIES

@@ -1,9 +1,13 @@
 """Where a TPC-H query's time goes on one CUDA device, operator by operator.
 
     python -m ballista_tpu_torch.benchmarks.op_profile --sf 1 --queries 3 5
+    python -m ballista_tpu_torch.benchmarks.op_profile --queries \
+        --analytic window_running moments_sorted
 
-For each query, over tables generated at `--sf` (seed 19940101) and
-uploaded before timing:
+`--analytic` takes names of `benchmarks.queries.ANALYTIC_QUERIES` (window
+functions, statistical aggregates, bag set operations); a bare `--queries`
+leaves the TPC-H queries out. For each query, over tables generated at
+`--sf` (seed 19940101) and uploaded before timing:
 - `collect()` and `run_plan` wall times (host clock around work that ends
   in a synchronize; median of `--reps`). `run_plan` runs the plan built
   with the context's options; where that plan overflows (`overflowed`),
@@ -36,7 +40,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..client import SessionContext
 from ..datagen import register_tpch
 from ..exec.plan import ExecNode, Run, run_plan
-from .queries import TPCH_QUERIES
+from .queries import ANALYTIC_QUERIES, TPCH_QUERIES
 
 
 class _Cached(ExecNode):
@@ -64,7 +68,8 @@ def _wall_ms(fn, reps):
 # torch ops whose device time (their kernels') is reported per query
 OPS = ("aten::sort", "aten::searchsorted", "aten::index_select",
        "aten::gather", "aten::cumsum", "aten::scatter_reduce_",
-       "aten::where", "aten::arange", "aten::cat")
+       "aten::where", "aten::arange", "aten::cat", "aten::cummax",
+       "aten::cummin", "aten::index_copy_", "aten::index_add_")
 
 
 def _device_ms(fn, reps, ops=None):
@@ -121,6 +126,8 @@ def profile_query(ctx, sql, reps):
     run = Run(inputs)
     outputs, ops = {}, []
     for node in _post_order(plan):
+        if id(node) in outputs:     # a subtree shared by several parents
+            continue
         kids = node.children
         node.children = tuple(_Cached(c, outputs[id(c)]) for c in kids)
         try:
@@ -138,7 +145,9 @@ def profile_query(ctx, sql, reps):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
-    ap.add_argument("--queries", type=int, nargs="+", default=[3, 5])
+    ap.add_argument("--queries", type=int, nargs="*", default=[3, 5])
+    ap.add_argument("--analytic", nargs="*", default=[],
+                    choices=sorted(ANALYTIC_QUERIES), metavar="NAME")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default="build/op_profile.json")
     args = ap.parse_args(argv)
@@ -147,10 +156,12 @@ def main(argv=None):
     ctx = SessionContext(device="cuda")
     register_tpch(ctx, args.sf)
     result = {"device": torch.cuda.get_device_name(0), "sf": args.sf}
-    for q in args.queries:
-        r = profile_query(ctx, TPCH_QUERIES[q], args.reps)
-        result[f"q{q}"] = r
-        print(f"Q{q}: collect {r['collect_ms']:.3f} ms, run_plan "
+    queries = [(f"q{q}", TPCH_QUERIES[q]) for q in args.queries] \
+        + [(name, ANALYTIC_QUERIES[name]) for name in args.analytic]
+    for q, sql in queries:
+        r = profile_query(ctx, sql, args.reps)
+        result[q] = r
+        print(f"{q}: collect {r['collect_ms']:.3f} ms, run_plan "
               f"{r['run_plan_ms']:.3f} ms, device busy "
               f"{r['device_busy_ms']:.3f} ms "
               f"({100 * r['device_busy_share']:.1f} %)"

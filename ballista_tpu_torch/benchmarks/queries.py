@@ -682,3 +682,76 @@ order by
     cntrycode
 """,
 }
+
+# The analytic slice over the TPC-H tables: the statistical aggregates on
+# both layouts, percentiles, every window path and the bag set operations.
+# `chip_smoke.py` checks each against numpy at SF1; `op_profile --analytic`
+# gives their per-operator times.
+_BY_LINE = "(partition by l_orderkey order by l_linenumber"
+ANALYTIC_QUERIES = {
+    "moments_masked": """
+        select l_returnflag, l_linestatus, stddev_samp(l_quantity) as sd,
+               var_pop(l_extendedprice) as vp,
+               corr(l_quantity, l_extendedprice) as c
+        from lineitem group by l_returnflag, l_linestatus""",
+    "moments_sorted": """
+        select l_suppkey, stddev_samp(l_quantity) as sd,
+               var_pop(l_extendedprice) as vp,
+               corr(l_quantity, l_extendedprice) as c
+        from lineitem group by l_suppkey""",
+    "percentiles_grouped": """
+        select l_shipmode, median(l_extendedprice) as m,
+               percentile_cont(l_extendedprice, 0.9) as p90
+        from lineitem group by l_shipmode""",
+    "percentiles_global": """
+        select median(l_extendedprice) as m,
+               percentile_cont(l_extendedprice, 0.9) as p90 from lineitem""",
+    "window_running": f"""
+        select l_orderkey, l_linenumber,
+               row_number() over {_BY_LINE}) as rn,
+               sum(l_quantity) over {_BY_LINE}) as run
+        from lineitem""",
+    "window_ranks": """
+        select o_orderkey,
+               rank() over (partition by o_custkey
+                            order by o_totalprice desc) as rk,
+               dense_rank() over (partition by o_custkey
+                                  order by o_totalprice desc) as dr,
+               rank() over (partition by o_custkey
+                            order by o_orderpriority) as rp,
+               dense_rank() over (partition by o_custkey
+                                  order by o_orderpriority) as dp
+        from orders""",
+    "window_navigation": f"""
+        select l_orderkey, l_linenumber,
+               lag(l_quantity) over {_BY_LINE}) as prev,
+               lead(l_extendedprice, 2) over {_BY_LINE}) as nxt,
+               first_value(l_shipdate) over {_BY_LINE}) as fv
+        from lineitem""",
+    # ROWS k PRECEDING: the sparse table
+    "window_framed_extrema": f"""
+        select l_orderkey, l_linenumber,
+               min(l_extendedprice) over {_BY_LINE}
+                   rows between 2 preceding and current row) as mn,
+               max(l_quantity) over {_BY_LINE}
+                   rows between 2 preceding and current row) as mx
+        from lineitem""",
+    # the default frame: the segmented prefix extremum
+    "window_running_extrema": f"""
+        select l_orderkey, l_linenumber,
+               min(l_extendedprice) over {_BY_LINE}) as mn,
+               max(l_quantity) over {_BY_LINE}) as mx
+        from lineitem""",
+    # no ORDER BY: a second sort by (partition, value)
+    "window_partition_extrema": """
+        select l_orderkey, l_linenumber,
+               min(l_extendedprice) over (partition by l_orderkey) as mn,
+               max(l_quantity) over (partition by l_orderkey) as mx
+        from lineitem""",
+    "intersect_all": """
+        select o_custkey from orders intersect all
+        select c_nationkey from customer""",
+    "except_all": """
+        select o_custkey from orders except all
+        select c_nationkey from customer""",
+}

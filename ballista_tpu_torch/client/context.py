@@ -126,8 +126,8 @@ class SessionContext:
         statements (the TPC-H Q15 shape); returns the last SELECT. Each
         SELECT is planned when it is read, so a view dropped after it has
         already been expanded into its plan."""
-        from ..sql.parser import (CreateView, DropView, SelectStmt, UnionStmt,
-                                  parse_statements)
+        from ..sql.parser import (CreateView, DropView, SelectStmt,
+                                  SetOpStmt, UnionStmt, parse_statements)
         from ..sql.planner import SqlPlanner
 
         last = None
@@ -138,7 +138,7 @@ class SessionContext:
             if isinstance(stmt, DropView):
                 self.views.pop(stmt.name, None)
                 continue
-            if not isinstance(stmt, (SelectStmt, UnionStmt)):
+            if not isinstance(stmt, (SelectStmt, UnionStmt, SetOpStmt)):
                 raise NotImplementedError(
                     f"{type(stmt).__name__} statements are not ported yet")
             last = DataFrame(self, SqlPlanner(self).plan_select(stmt))
@@ -164,7 +164,15 @@ class SessionContext:
                                     options or self.options, self.device)
 
     def collect(self, plan: L.LogicalPlan, max_retries: int = 5):
-        """Execute a logical plan: returns (Batch on the device, Schema).
+        """Execute a logical plan: returns (Batch on the device, Schema)."""
+        exec_plan, _, out = self.converge(plan, max_retries)
+        return out, exec_plan.schema
+
+    def converge(self, plan: L.LogicalPlan, max_retries: int = 5):
+        """Plan and run until the output fits: returns (exec_plan, inputs,
+        out), the first physical plan whose run did not overflow, its bound
+        inputs and that run's Batch. `run_plan(exec_plan, inputs)` runs it
+        again without planning (timing loops, repeated queries).
 
         A plan whose group table or expanding-join output outgrows its
         static capacity raises the run's overflow flag; it is read once per
@@ -178,7 +186,7 @@ class SessionContext:
                                        for leaf in exec_plan.leaves()])
             out, overflow = run_plan(exec_plan, inputs)
             if overflow is None or not bool(overflow):
-                return out, exec_plan.schema
+                return exec_plan, inputs, out
             self.warnings.append(
                 f"output overflowed capacity on attempt {attempt + 1} "
                 f"(max_group_table {opts.max_group_table}, join_out_factor "

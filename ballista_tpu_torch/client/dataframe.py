@@ -15,6 +15,12 @@ class DataFrame:
         """Execute and return (Batch, Schema)."""
         return self._ctx.collect(self.plan)
 
+    def converge(self, max_retries: int = 5):
+        """(exec_plan, inputs, out): the physical plan that ran without
+        overflow, for re-running with `run_plan(exec_plan, inputs)`
+        (`SessionContext.converge`)."""
+        return self._ctx.converge(self.plan, max_retries)
+
     def to_numpy(self) -> dict:
         """Live rows host-side: name -> (values, validity) numpy arrays;
         strings decoded, decimals as scaled int64."""

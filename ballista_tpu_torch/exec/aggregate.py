@@ -1,8 +1,9 @@
-"""Aggregate expression machinery (port of ballista_tpu/exec/aggregate.py).
+"""Aggregate expression machinery (port of ballista_tpu/exec/aggregate.py;
+two-phase, DataFusion Partial/Final parity).
 
-Each AggExpr binds to per-group state columns (computed over a layout)
-and a finalize step (e.g. avg = sum / count in exact decimal math). The
-port carries sum, count, count_star, avg, min, max and carry.
+Each AggExpr binds to partial state columns (computed over a layout), a
+merge step (states of several partial aggregates re-aggregated on the group
+keys) and a finalize step (e.g. avg = sum / count in exact decimal math).
 """
 
 from __future__ import annotations
@@ -20,9 +21,8 @@ from ..schema import DataType, Field, FLOAT32, FLOAT64, INT64, Schema, TypeKind,
 @dataclasses.dataclass(frozen=True)
 class AggExpr:
     kind: str                 # sum | count | count_star | min | max | avg |
-                              # carry (and, in the SQL frontend, the kinds
-                              # not ported yet: var_*, stddev_*, corr,
-                              # median, percentile)
+                              # carry | var_samp | var_pop | stddev_samp |
+                              # stddev_pop | corr | median | percentile
     arg: Optional[Expr] = None
     alias: Optional[str] = None
     distinct: bool = False
@@ -38,6 +38,12 @@ class AggExpr:
         if self.kind == "corr":
             return f"corr({expr_name(self.arg)}, {expr_name(self.arg2)})"
         return f"{self.kind}({expr_name(self.arg)})"
+
+
+# kinds whose state cannot be merged across partial aggregates: a planner
+# that splits an aggregate must hand these the raw rows, grouped, once
+NON_DECOMPOSABLE = ("median", "percentile")
+MOMENT_KINDS = ("var_samp", "var_pop", "stddev_samp", "stddev_pop")
 
 
 def _sum_dtype(dt: DataType) -> DataType:
@@ -80,8 +86,24 @@ class BoundAgg:
             st = _sum_dtype(self.arg.dtype)
             self.state_dtypes = [st, INT64]
             self.out_field = Field(spec.name, _avg_dtype(self.arg.dtype), nullable=True)
+        elif k in MOMENT_KINDS:
+            # one-pass moments: [sum(x), sum(x^2), n] in f64
+            self.state_dtypes = [FLOAT64, FLOAT64, INT64]
+            self.out_field = Field(spec.name, FLOAT64, nullable=True)
+        elif k == "corr":
+            self.arg2 = bind_expr(spec.arg2, in_schema)
+            self.state_dtypes = [FLOAT64, FLOAT64, FLOAT64, FLOAT64,
+                                 FLOAT64, INT64]
+            self.out_field = Field(spec.name, FLOAT64, nullable=True)
+        elif k in NON_DECOMPOSABLE:
+            self.state_dtypes = [FLOAT64]
+            self.out_field = Field(spec.name, FLOAT64, nullable=True)
         else:
-            raise NotImplementedError(f"aggregate {k} is not ported yet")
+            raise NotImplementedError(f"aggregate {k}")
+
+    def state_fields(self) -> List[Field]:
+        return [Field(f"{self.spec.name}#s{i}", dt, True)
+                for i, dt in enumerate(self.state_dtypes)]
 
     @property
     def exact_sums(self) -> bool:
@@ -120,6 +142,22 @@ class BoundAgg:
         return ([("sum", data, validity), ("count", data, validity)],
                 lambda outs: [outs[0], _ones(outs[1])])
 
+    def fused_merge_requests(self, state_cols: List[Column]):
+        """fused_requests for the final mode of an aggregate with
+        `exact_sums`: every state is an int64 sum or count, and merging it
+        is a sum over the partial states. Kind 'sum' is NULL where no
+        state of the group is valid; 'total' (a merged count) is always
+        valid."""
+        k = self.spec.kind
+        s = state_cols[0]
+        if k in ("count", "count_star"):
+            return [("total", s.data, s.validity)], list
+        if k == "sum":
+            return [("sum", s.data, s.validity)], list
+        c = state_cols[1]   # avg
+        return ([("sum", s.data, s.validity), ("total", c.data, c.validity)],
+                list)
+
     def partial(self, batch: Batch, layout) -> List[Column]:
         """Raw rows -> per-group states over a layout (ops.segagg)."""
         k = self.spec.kind
@@ -130,13 +168,59 @@ class BoundAgg:
             return [Column(*layout.count(data, validity))]
         if k in ("sum", "min", "max", "carry"):
             return [Column(*getattr(layout, k)(data, validity))]
-        s, sv = layout.sum(data, validity)
-        c, _ = layout.count(data, validity)
-        return [Column(s, sv), Column(c, torch.ones_like(sv))]
+        if k == "avg":
+            s, sv = layout.sum(data, validity)
+            c, _ = layout.count(data, validity)
+            return [Column(s, sv), Column(c, torch.ones_like(sv))]
+        col = Column(data, validity)
+        x = _as_f64(self.arg, col)
+        if k in MOMENT_KINDS:
+            s1, v = layout.sum(x, validity)
+            s2, _ = layout.sum(x * x, validity)
+            n, _ = layout.count(x, validity)
+            ones = torch.ones_like(v)
+            return [Column(s1, ones), Column(s2, ones), Column(n, ones)]
+        if k == "corr":
+            col2 = self.arg2.fn(batch)
+            both = validity & col2.validity
+            y = _as_f64(self.arg2, col2)
+            sums = [layout.sum(d, both)[0]
+                    for d in (x, y, x * x, y * y, x * y)]
+            n, v = layout.count(x, both)
+            ones = torch.ones_like(v)
+            return [Column(s, ones) for s in sums] + [Column(n, ones)]
+        # median / percentile
+        frac = 0.5 if k == "median" else float(self.spec.frac)
+        return [Column(*layout.percentile(x, validity, frac))]
+
+    def merge(self, state_cols: List[Column], layout) -> List[Column]:
+        """States of several partial aggregates -> merged states, over a
+        layout of the state rows' group keys."""
+        k = self.spec.kind
+        if k in NON_DECOMPOSABLE:
+            raise NotImplementedError(
+                f"{k} state cannot be merged; the planner must aggregate "
+                "the raw rows once (NON_DECOMPOSABLE)")
+        if k in ("min", "max", "carry"):
+            s = state_cols[0]
+            return [Column(*getattr(layout, k)(s.data, s.validity))]
+        merged = [layout.sum(sc.data, sc.validity) for sc in state_cols]
+        if k == "sum":
+            return [Column(*merged[0])]
+        ones = torch.ones_like(merged[0][1])
+        if k == "avg":
+            return [Column(*merged[0]), Column(merged[1][0], ones)]
+        # counts, moments and corr: every merged state is valid
+        return [Column(s, ones) for s, _ in merged]
 
     def finalize(self, state_cols: List[Column]) -> Column:
         """States -> output column."""
-        if self.spec.kind != "avg":
+        k = self.spec.kind
+        if k in MOMENT_KINDS:
+            return _finalize_moment(k, *(c.data for c in state_cols))
+        if k == "corr":
+            return _finalize_corr(*(c.data for c in state_cols))
+        if k != "avg":
             return state_cols[0]
         s, c = state_cols
         out = self.out_field.dtype
@@ -147,3 +231,40 @@ class BoundAgg:
         td = out.torch_dtype
         d = s.data.to(td) / c.data.clamp(min=1).to(td)
         return Column(d, s.validity & (c.data > 0))
+
+
+def _finalize_moment(k: str, s1, s2, nn) -> Column:
+    """Variance or standard deviation from [sum(x), sum(x^2), n]: NULL for
+    n = 0 (population) or n <= 1 (sample); f64 cancellation noise below 0
+    is clamped."""
+    n = nn.clamp(min=1).to(torch.float64)
+    if k.endswith("_pop"):
+        var = s2 / n - (s1 / n) ** 2
+        valid = nn > 0
+    else:
+        var = torch.where(nn > 1, (s2 - s1 * s1 / n) / (n - 1.0).clamp(min=1.0),
+                          torch.zeros_like(s2))
+        valid = nn > 1
+    var = var.clamp(min=0.0)
+    out = var.sqrt() if k.startswith("stddev") else var
+    return Column(torch.where(valid, out, torch.zeros_like(out)), valid)
+
+
+def _finalize_corr(sx, sy, sxx, syy, sxy, nn) -> Column:
+    """Pearson correlation from the five sums and n: NULL where n <= 1 or
+    either argument is constant (a zero denominator)."""
+    n = nn.to(torch.float64)
+    cov = n * sxy - sx * sy
+    dx = n * sxx - sx * sx
+    dy = n * syy - sy * sy
+    denom = (dx.clamp(min=0.0) * dy.clamp(min=0.0)).sqrt()
+    valid = (nn > 1) & (denom > 0)
+    out = cov / denom.clamp(min=1e-300)
+    return Column(torch.where(valid, out, torch.zeros_like(out)), valid)
+
+
+def _as_f64(bound: Bound, col: Column) -> torch.Tensor:
+    d = col.data.to(torch.float64)
+    if bound.dtype.kind is TypeKind.DECIMAL:
+        return d / (10.0 ** bound.dtype.scale)
+    return d

@@ -4,11 +4,14 @@ ballista_tpu/exec/plan.py).
 Each node's `evaluate` maps a `Run` (the bound inputs, plus the overflow
 flags nodes raise) to its output Batch on the inputs' device; `run_plan`
 evaluates a whole tree (the JAX package compiled it into one XLA program
-with `compile_stage` instead). Ported so far: InputLeaf, OneRowExec,
-FilterExec, ProjectExec, HashAggregateExec in `single` mode (direct-slot
-and sorted layouts), HashJoinExec (inner, left and full outer, semi and
-anti, on a unique or a duplicate-key build), CrossJoinExec,
-NestedLoopJoinExec, DictRemapExec, CoalesceExec, SortExec and LimitExec.
+with `compile_stage` instead). Nodes: InputLeaf, OneRowExec, FilterExec,
+ProjectExec, HashAggregateExec (`single`, `partial` and `final` modes,
+direct-slot and sorted layouts), HashJoinExec (inner, left and full outer,
+semi and anti, on a unique or a duplicate-key build), CrossJoinExec,
+NestedLoopJoinExec, DictRemapExec, CoalesceExec, SortExec and LimitExec;
+WindowExec lives in exec/window.py. A node reads a child through
+`run.eval(child)`, so a subtree that `exec.cse.cse_tree` shares between
+several parents is evaluated once per run.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ from ..ops.masked_sums import masked_slot_sums_rows
 from ..ops.merge_join import merge_full_unique, probe_unique
 from ..ops.sort import SortKeySpec, sort_batch
 from ..ops.vsort import compact_batch, sort_batch_columns
-from ..schema import INT64, Field, Schema
-from .aggregate import AggExpr, BoundAgg
+from ..schema import FLOAT64, INT64, Field, Schema
+from .aggregate import AggExpr, BoundAgg, _avg_dtype
 
 # sorted-layout sentinel: dead rows sort behind every normalised key
 DEAD = 2 ** 62
@@ -44,16 +47,38 @@ def _next_pow2(n: int) -> int:
 
 
 class Run:
-    """One evaluation of a plan: its bound inputs, and the overflow flags
+    """One evaluation of a plan: its bound inputs, the overflow flags
     (0-d bool tensors) raised by nodes whose output outgrew its static
-    capacity. `run_plan` reads them once, at the end."""
+    capacity (`run_plan` reads them once, at the end), and the outputs of
+    the nodes that several parents share."""
 
     def __init__(self, inputs: Dict[str, Batch]):
         self.inputs = inputs
         self.flags: List[torch.Tensor] = []
+        self.evaluated = 0      # evaluate() calls made in this run
+        # id(node) -> [output, parents that have not read it yet]
+        self._shared: Dict[int, list] = {}
 
     def flag_overflow(self, flag: torch.Tensor) -> None:
         self.flags.append(flag)
+
+    def eval(self, node: "ExecNode") -> Batch:
+        """`node`'s output in this run. A node with several parents
+        (`n_parents`, set by exec.cse.cse_tree) is evaluated for the first
+        of them, so it raises its overflow flag once, and its output is
+        dropped when the last parent has read it."""
+        if node.n_parents <= 1:
+            self.evaluated += 1
+            return node.evaluate(self)
+        entry = self._shared.get(id(node))
+        if entry is None:
+            self.evaluated += 1
+            entry = self._shared[id(node)] = [node.evaluate(self),
+                                              node.n_parents]
+        entry[1] -= 1
+        if entry[1] == 0:
+            del self._shared[id(node)]
+        return entry[0]
 
 
 class ExecNode:
@@ -63,6 +88,7 @@ class ExecNode:
     schema: Schema
     capacity: int
     children: Tuple["ExecNode", ...] = ()
+    n_parents: int = 1   # parent edges after exec.cse.cse_tree
 
     def evaluate(self, run: Run) -> Batch:
         raise NotImplementedError
@@ -142,7 +168,7 @@ class FilterExec(ExecNode):
         self._bound = bind_expr(predicate, child.schema)
 
     def evaluate(self, run):
-        b = self.children[0].evaluate(run)
+        b = run.eval(self.children[0])
         return filter_batch(b, self._bound.fn(b))
 
     def _label(self):
@@ -173,7 +199,7 @@ class ProjectExec(ExecNode):
         self.capacity = child.capacity
 
     def evaluate(self, run):
-        b = self.children[0].evaluate(run)
+        b = run.eval(self.children[0])
         live = row_mask(b)
         cols = []
         for bound in self._bounds:
@@ -186,8 +212,11 @@ class ProjectExec(ExecNode):
 
 
 class HashAggregateExec(ExecNode):
-    """GROUP BY, mode 'single' (rows -> output). The WHERE clause may ride
-    along as `pre_filter`, fused into the aggregate's live mask.
+    """GROUP BY. mode 'single' maps rows to output; 'partial' maps rows to
+    state columns `name#s{i}` and 'final' merges the state rows of several
+    partial aggregates (under a CoalesceExec, or an exchange) into the
+    output. The WHERE clause may ride along as `pre_filter`, fused into
+    the aggregate's live mask.
 
     Keys whose static code bounds multiply to at most MASKED_MAX direct
     slots (and no keys at all) take the masked layout: every int64 sum and
@@ -203,9 +232,8 @@ class HashAggregateExec(ExecNode):
                  table_size: Optional[int] = None,
                  group_names: Optional[Sequence[str]] = None,
                  pre_filter: Optional[Expr] = None):
-        if mode != "single":
-            raise NotImplementedError(f"HashAggregateExec mode {mode!r} is "
-                                      "not ported yet")
+        if mode not in ("partial", "final", "single"):
+            raise ValueError(f"HashAggregateExec: unknown mode {mode!r}")
         self.children = (child,)
         self.mode = mode
         self.group_exprs = tuple(group_exprs)
@@ -281,28 +309,62 @@ class HashAggregateExec(ExecNode):
             base = e.child if isinstance(e, Alias) else e
             if isinstance(base, Col) and in_schema.dictionary(base.name) is not None:
                 dicts[n] = in_schema.dictionary(base.name)
-        self._bound_aggs = [BoundAgg(a, in_schema) for a in aggs]
-        for ba in self._bound_aggs:
-            # dict-coded min/max stay in code space (sorted dictionaries
-            # make code extrema exact)
-            a = ba.spec
-            if a.kind in ("min", "max", "carry") and ba.arg.dictionary is not None:
-                dicts[a.name] = ba.arg.dictionary
         bounds = {n: b.int_bound
                   for n, b in zip(self._group_names, self._group_bounds)
                   if b.int_bound}
-        for a in aggs:
-            if a.kind in ("min", "max", "carry") and a.arg is not None:
+        # where a min/max/carry keeps its dictionary and int bounds: under
+        # the first state column between the two phases
+        suffix = "#s0" if mode == "partial" else ""
+        if mode == "final":
+            # the child emits key columns + state columns
+            self._bound_aggs = [_final_agg(a, in_schema) for a in aggs]
+            self._state_idx = [
+                [i for i, f in enumerate(in_schema.fields)
+                 if f.name.startswith(f"{a.name}#s")] for a in aggs]
+            for a in aggs:
+                if a.kind in ("min", "max", "carry"):
+                    if in_schema.dictionary(f"{a.name}#s0") is not None:
+                        dicts[a.name] = in_schema.dictionary(f"{a.name}#s0")
+                    if in_schema.int_bound(f"{a.name}#s0") is not None:
+                        bounds[a.name] = in_schema.int_bound(f"{a.name}#s0")
+        else:
+            self._bound_aggs = [BoundAgg(a, in_schema) for a in aggs]
+            for ba in self._bound_aggs:
+                # dict-coded min/max stay in code space (sorted
+                # dictionaries make code extrema exact)
+                a = ba.spec
+                if a.kind not in ("min", "max", "carry"):
+                    continue
+                if ba.arg.dictionary is not None:
+                    dicts[a.name + suffix] = ba.arg.dictionary
                 base = a.arg.child if isinstance(a.arg, Alias) else a.arg
-                if isinstance(base, Col):
-                    ib = in_schema.int_bound(base.name)
-                    if ib is not None:
-                        bounds[a.name] = ib
-        agg_fields = tuple(ba.out_field for ba in self._bound_aggs)
+                if isinstance(base, Col) and in_schema.int_bound(base.name):
+                    bounds[a.name + suffix] = in_schema.int_bound(base.name)
+        if mode == "partial":
+            agg_fields = tuple(f for ba in self._bound_aggs
+                               for f in ba.state_fields())
+        else:
+            agg_fields = tuple(ba.out_field for ba in self._bound_aggs)
         self.schema = Schema(key_fields + agg_fields, dicts, bounds)
 
+    def _child_states(self, b: Batch, i: int) -> List[Column]:
+        """final mode: the child's state columns of aggregate i."""
+        return [b.columns[j] for j in self._state_idx[i]]
+
+    def _states(self, b: Batch, i: int, layout) -> List[Column]:
+        """Aggregate i's per-group states over a layout: merged from the
+        child's state rows in final mode, else computed from its rows."""
+        ba = self._bound_aggs[i]
+        if self.mode == "final":
+            return ba.merge(self._child_states(b, i), layout)
+        return ba.partial(b, layout)
+
+    def _emit(self, ba: BoundAgg, states: List[Column]) -> List[Column]:
+        """An aggregate's output columns from its (merged) states."""
+        return states if self.mode == "partial" else [ba.finalize(states)]
+
     def evaluate(self, run):
-        b = self.children[0].evaluate(run)
+        b = run.eval(self.children[0])
         live = _live_where(b, self._pre_bound)
         key_cols = [g.fn(b) for g in self._group_bounds]
         if not self._masked:
@@ -327,8 +389,8 @@ class HashAggregateExec(ExecNode):
         else:
             used = None
             n_groups = torch.ones((), dtype=torch.int32, device=b.device)
-        out_cols = key_out + [ba.finalize(st)
-                              for ba, st in zip(self._bound_aggs, states)]
+        out_cols = key_out + [c for ba, st in zip(self._bound_aggs, states)
+                              for c in self._emit(ba, st)]
         return self._finish(out_cols, T, n_groups, used)
 
     def _evaluate_sorted(self, run, b: Batch, live, key_cols):
@@ -363,8 +425,8 @@ class HashAggregateExec(ExecNode):
         out_cols = [Column(kc.data.index_select(0, src),
                            kc.validity.index_select(0, src) & gvalid)
                     for kc in key_cols]
-        out_cols += [ba.finalize(ba.partial(b, layout))
-                     for ba in self._bound_aggs]
+        for i, ba in enumerate(self._bound_aggs):
+            out_cols += self._emit(ba, self._states(b, i, layout))
         return self._finish(out_cols, T_used, n_groups, None)
 
     def _aggregate(self, b: Batch, layout: segagg.MaskedLayout):
@@ -373,28 +435,37 @@ class HashAggregateExec(ExecNode):
         The int64 sums and counts of all aggregates become the described
         rows (data column, validity column) of one masked_slot_sums_rows
         call, which reads the columns themselves: no contribution matrix
-        is written. Rows
-        are keyed by (kind, argument), so sum(x) and avg(x) share a sum
-        row and every count over x shares a count row. Dead rows carry
+        is written. In `single` and `partial` mode rows are keyed by
+        (kind, argument), so sum(x) and avg(x) share a sum row and every
+        count over x shares a count row; in `final` mode the rows are the
+        child's int64 state columns, each summed once. Dead rows carry
         slot T, so a row only needs its argument's validity applied."""
         count_star = ("count", None)
         rows = {count_star: (None, None)}   # key -> (data, validity)
         plans = []
-        for ba in self._bound_aggs:
+        for i, ba in enumerate(self._bound_aggs):
             if not ba.exact_sums:
                 plans.append((ba, None, None))
                 continue
-            reqs, assemble = ba.fused_requests(b)
+            if self.mode == "final":
+                reqs, assemble = ba.fused_merge_requests(
+                    self._child_states(b, i))
+                tags = self._state_idx[i]
+            else:
+                reqs, assemble = ba.fused_requests(b)
+                tags = [ba.spec.arg if data is not None else None
+                        for _, data, _ in reqs]
+            # per request: (the row that holds its value, the count row
+            # that says where it is valid, or None for everywhere)
             keys = []
-            for kind, data, validity in reqs:
-                arg = ba.spec.arg if data is not None else None
-                count = ("count", arg)
-                rows.setdefault(count, (None, validity))
-                if kind == "sum":
-                    rows.setdefault(("sum", arg), (data, validity))
-                    keys.append((("sum", arg), count))
-                else:
-                    keys.append((None, count))
+            for (kind, data, validity), tag in zip(reqs, tags):
+                count, total = ("count", tag), ("sum", tag)
+                if kind != "total":
+                    rows.setdefault(count, (None, validity))
+                if kind != "count":
+                    rows.setdefault(total, (data, validity))
+                keys.append({"count": (count, None), "sum": (total, count),
+                             "total": (total, None)}[kind])
             plans.append((ba, keys, assemble))
 
         sums = masked_slot_sums_rows(layout.row_slot, list(rows.values()),
@@ -403,13 +474,13 @@ class HashAggregateExec(ExecNode):
 
         ones = torch.ones(layout.T, dtype=torch.bool, device=b.device)
         states = []
-        for ba, keys, assemble in plans:
+        for i, (ba, keys, assemble) in enumerate(plans):
             if keys is None:
-                states.append(ba.partial(b, layout))
+                states.append(self._states(b, i, layout))
                 continue
-            outs = [Column(per_slot[c], ones) if s is None
-                    else Column(per_slot[s], per_slot[c] > 0)
-                    for s, c in keys]
+            outs = [Column(per_slot[value],
+                           ones if valid is None else per_slot[valid] > 0)
+                    for value, valid in keys]
             states.append(assemble(outs))
         return per_slot[count_star], states
 
@@ -469,6 +540,8 @@ class HashJoinExec(ExecNode):
         self.on = tuple(on)
         self.join_type = join_type
         # fused predicates: filtering through the join's live masks
+        self.build_pre_filter = build_pre_filter
+        self.probe_pre_filter = probe_pre_filter
         self._build_pre = (bind_expr(build_pre_filter, build.schema)
                            if build_pre_filter is not None else None)
         self._probe_pre = (bind_expr(probe_pre_filter, probe.schema)
@@ -544,8 +617,8 @@ class HashJoinExec(ExecNode):
         return keys
 
     def evaluate(self, run):
-        build_b = self.children[0].evaluate(run)
-        probe_b = self.children[1].evaluate(run)
+        build_b = run.eval(self.children[0])
+        probe_b = run.eval(self.children[1])
         blive = _live_where(build_b, self._build_pre)
         plive = _live_where(probe_b, self._probe_pre)
         bkeys = self._keys(build_b, self._build_idx, 0)
@@ -628,6 +701,30 @@ class HashJoinExec(ExecNode):
         return f"HashJoinExec[{self.join_type},{mode}](on={list(self.on)})"
 
 
+def _final_agg(a: AggExpr, in_schema: Schema) -> BoundAgg:
+    """The BoundAgg of a `final` aggregate: its argument is gone, its
+    state dtypes are those of the child's `name#s{i}` fields."""
+    ba = BoundAgg.__new__(BoundAgg)
+    ba.spec = a
+    ba.arg = None
+    ba.state_dtypes = [f.dtype for f in in_schema.fields
+                       if f.name.startswith(f"{a.name}#s")]
+    if not ba.state_dtypes:
+        raise ValueError(f"final aggregate {a.name}: no state columns in "
+                         f"{in_schema}")
+    k = a.kind
+    if k in ("count", "count_star"):
+        ba.out_field = Field(a.name, INT64, nullable=False)
+    elif k in ("sum", "min", "max", "carry"):
+        ba.out_field = Field(a.name, ba.state_dtypes[0], nullable=True)
+    elif k == "avg":
+        ba.out_field = Field(a.name, _avg_dtype(ba.state_dtypes[0]),
+                             nullable=True)
+    else:   # moments and corr finalize to f64
+        ba.out_field = Field(a.name, FLOAT64, nullable=True)
+    return ba
+
+
 def _joined_schema(build: Schema, probe: Schema,
                    nullable: bool = False) -> Schema:
     """Build columns, then probe columns (every field nullable when
@@ -702,8 +799,8 @@ class CrossJoinExec(ExecNode):
         self.schema = _joined_schema(build.schema, probe.schema)
 
     def evaluate(self, run):
-        build_b = self.children[0].evaluate(run)
-        probe_b = self.children[1].evaluate(run)
+        build_b = run.eval(self.children[0])
+        probe_b = run.eval(self.children[1])
         total = (build_b.num_rows * probe_b.num_rows).to(torch.int32)
         if self._bcast is not None:
             one, many = ((build_b, probe_b) if self._bcast == "build"
@@ -757,8 +854,8 @@ class NestedLoopJoinExec(ExecNode):
         self.n_chunks = -(-build.capacity // self.chunk_b)
 
     def evaluate(self, run):
-        build_b = self.children[0].evaluate(run)
-        probe_b = self.children[1].evaluate(run)
+        build_b = run.eval(self.children[0])
+        probe_b = run.eval(self.children[1])
         dev = build_b.device
         bcap, pcap = build_b.capacity, probe_b.capacity
         cb, out_cap = self.chunk_b, self.capacity
@@ -819,7 +916,7 @@ class DictRemapExec(ExecNode):
                              child.schema.int_bounds)
 
     def evaluate(self, run):
-        b = self.children[0].evaluate(run)
+        b = run.eval(self.children[0])
         cols = list(b.columns)
         for idx, lut in self._luts.items():
             c = cols[idx]
@@ -840,7 +937,7 @@ class CoalesceExec(ExecNode):
         self.capacity = sum(c.capacity for c in children)
 
     def evaluate(self, run):
-        return concat_batches([c.evaluate(run) for c in self.children],
+        return concat_batches([run.eval(c) for c in self.children],
                               self.capacity)
 
     def _label(self):
@@ -879,7 +976,7 @@ class SortExec(ExecNode):
                             for e, asc, nf in keys]
 
     def evaluate(self, run):
-        b = self.children[0].evaluate(run)
+        b = run.eval(self.children[0])
         # materialize key columns alongside, sort, drop keys
         ncols = len(b.columns)
         key_cols = tuple(kb.fn(b) for kb, _, _ in self._key_bounds)
@@ -905,7 +1002,7 @@ class LimitExec(ExecNode):
         self.capacity = max(1, min(child.capacity - offset, n))
 
     def evaluate(self, run):
-        b = self.children[0].evaluate(run)
+        b = run.eval(self.children[0])
         cap = self.capacity
         # clamp so the slice always yields `cap` rows even when offset
         # exceeds the child's capacity (the result is all-dead then)
@@ -927,7 +1024,7 @@ def run_plan(root: ExecNode, inputs: Dict[str, Batch]):
     overflow is a 0-d bool tensor on the device, the OR of every node's
     flag, or None when no node of the plan can overflow."""
     run = Run(inputs)
-    out = root.evaluate(run)
+    out = run.eval(root)
     overflow = None
     for flag in run.flags:
         overflow = flag if overflow is None else overflow | flag

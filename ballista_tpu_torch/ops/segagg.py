@@ -11,8 +11,9 @@ Any other GROUP BY sorts the batch by its keys first: equal keys form
 adjacent runs, and `SortedLayout` reduces each run (sums and counts as
 differences of running sums at run ends, extrema by a scatter-reduce over
 the run id, which the GPU does cheaply where the TPU needed binary
-lifting). The reference's `fused_sorted_aggregate` and percentile are not
-ported yet.
+lifting). Percentiles sort (group, value) once more and read two
+neighbours per group. The reference's `fused_sorted_aggregate` is not
+ported.
 """
 
 from __future__ import annotations
@@ -96,6 +97,35 @@ class MaskedLayout(NamedTuple):
         """Any value of the group (all equal by construction — the
         functional-dependency group-key demotion, optimizer.py)."""
         return self._extreme(values, validity, False)
+
+    def percentile(self, values, validity, frac: float):
+        cnt, gvalid = self.count(values, validity)
+        return _group_percentile(self.row_slot, self.live & validity, values,
+                                 frac, cnt, gvalid, self.T)
+
+
+def _group_percentile(gid, ok, values, frac: float, counts, gvalid, T: int):
+    """Exact linear-interpolated percentile per group (percentile_cont).
+
+    Sorting by (group, value) packs each group's valid values into one
+    ascending run that starts at the exclusive running sum of the counts;
+    the percentile interpolates between two reads of that run. NaN sorts
+    behind every number, -0.0 beside 0.0."""
+    from .vsort import lex_perm
+    n = values.shape[0]
+    key = torch.where(ok, gid.to(torch.int64), T)
+    s_val = values.index_select(0, lex_perm([key, values]))
+    cnt = counts.to(torch.int64)
+    vstart = torch.cumsum(cnt, 0) - cnt          # exclusive prefix
+    pos = vstart.to(torch.float64) + (cnt - 1).to(torch.float64) * frac
+    lo = pos.floor().to(torch.int64).clamp(0, n - 1)
+    hi = pos.ceil().to(torch.int64).clamp(0, n - 1)
+    w = pos - pos.floor()
+    a = s_val.index_select(0, lo).to(torch.float64)
+    b = s_val.index_select(0, hi).to(torch.float64)
+    valid = gvalid & (cnt > 0)
+    out = a * (1.0 - w) + b * w
+    return torch.where(valid, out, torch.zeros_like(out)), valid
 
 
 def direct_slots(key_cols: Sequence[Column], bounds: Sequence[int],
@@ -210,6 +240,12 @@ class SortedLayout(NamedTuple):
         valid = self._valid() & ok
         out = values.index_select(0, self.run_end)
         return torch.where(valid, out, torch.zeros_like(out)), valid
+
+    def percentile(self, values, validity, frac: float):
+        ok = validity & self.live_sorted
+        cnt, gvalid = self._count_ok(ok)
+        return _group_percentile(self.run_id.clamp(max=self.T), ok, values,
+                                 frac, cnt, gvalid, self.T)
 
 
 def layout_from_sorted_keys(s_keys: Sequence[torch.Tensor],

@@ -231,7 +231,12 @@ class Window(LogicalPlan):
     specs: Tuple  # Tuple[exec.window.WindowFnSpec, ...]
 
     def schema(self) -> Schema:
-        raise NotImplementedError("window functions are not ported yet")
+        from ..exec.window import _out_field
+        in_schema = self.input.schema()
+        fields = in_schema.fields + tuple(
+            _out_field(s, in_schema) for s in self.specs)
+        return Schema(fields, dict(in_schema.dictionaries),
+                      in_schema.int_bounds)
 
     def children(self):
         return (self.input,)

@@ -6,7 +6,8 @@ fused into the aggregate's live mask), Join (with the filters directly
 under each side fused into the join's live masks, except where an outer
 join needs them as FilterExecs; a filtered cross join becomes a
 NestedLoopJoinExec when its product is too large to materialize), Union,
-Sort, Limit and OneRow. Window raises NotImplementedError.
+Sort, Limit, Window and OneRow. The lowered tree goes through
+`exec.cse.cse_tree`, which shares structurally identical subtrees.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..batch import round_capacity
+from ..exec.cse import cse_tree
 from ..exec.plan import (CoalesceExec, CrossJoinExec, DictRemapExec, ExecNode,
                          FilterExec, HashAggregateExec, HashJoinExec,
                          InputLeaf, LimitExec, NestedLoopJoinExec, OneRowExec,
                          ProjectExec, SortExec, _next_pow2, _static_one_row)
+from ..exec.window import WindowExec
 from ..exprs import BinOp, Col
 from ..schema import TypeKind
 from . import logical as L
@@ -180,11 +183,12 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
                                 out_capacity=out_cap,
                                 build_pre_filter=bpred,
                                 probe_pre_filter=ppred)
+        if isinstance(p, L.Window):
+            return WindowExec(lower(p.input), p.specs)
         if isinstance(p, L.Union):
             return CoalesceExec(align_union_inputs([lower(c)
                                                     for c in p.inputs]))
-        raise NotImplementedError(
-            f"{type(p).__name__} is not ported yet")
+        raise NotImplementedError(type(p).__name__)
 
     def lower_filtered_cross(join: L.Join, predicate) -> ExecNode:
         """A predicate over a cross join: a chunked NestedLoopJoinExec
@@ -196,4 +200,4 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
             return NestedLoopJoinExec(b, pr, predicate, opts)
         return FilterExec(CrossJoinExec(b, pr), predicate)
 
-    return lower(plan)
+    return cse_tree(lower(plan))

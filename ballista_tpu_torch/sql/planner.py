@@ -988,19 +988,48 @@ class SqlPlanner:
         pairs = tuple((f"{tag}r{x}{i}", f"{tag}l{x}{i}")
                       for i in range(len(names)) for x in ("v", "f"))
         if getattr(stmt, "all", False):
-            # the reference's bag semantics number each left row within its
-            # key group (row_number over the null-safe keys) and compare
-            # that with the right side's per-key count
-            raise NotImplementedError(
-                "INTERSECT ALL / EXCEPT ALL plan through window functions, "
-                "which are not ported yet")
-        lk = with_keys(L.Distinct(left), "l")
-        rk_all = with_keys(right, "r")
-        rk = L.Distinct(L.Projection(
-            rk_all, tuple(Col(n) for n in key_names_r), tuple(key_names_r)))
-        how = "semi" if stmt.op == "intersect" else "anti"
-        out = L.Projection(L.Join(rk, lk, pairs, how),
-                           tuple(Col(n) for n in names), tuple(names))
+            # Bag semantics: number each left row within its key group
+            # (row_number over the null-safe keys) and compare against
+            # the right side's per-key count — a row survives INTERSECT
+            # ALL iff its occurrence number <= right count (min(l,r)
+            # copies) and EXCEPT ALL iff it exceeds it (max(l-r,0)).
+            from ..exec.window import WindowFnSpec
+            key_names_l = [f"{tag}l{x}{i}" for i in range(len(names))
+                           for x in ("v", "f")]
+            lk_all = with_keys(left, "l")
+            ln, rc = f"{tag}ln", f"{tag}rc"
+            w = L.Window(lk_all, (WindowFnSpec(
+                "row_number", None,
+                tuple(Col(k) for k in key_names_l),
+                ((Col(key_names_l[0]), True, None),), alias=ln),))
+            rk_all = with_keys(right, "r")
+            rcnt = L.Aggregate(
+                L.Projection(rk_all, tuple(Col(n) for n in key_names_r),
+                             tuple(key_names_r)),
+                tuple(Col(k) for k in key_names_r),
+                (AggExpr("count_star", alias=rc),),
+                group_names=tuple(key_names_r))
+            if stmt.op == "intersect":
+                joined = L.Join(rcnt, w, pairs, "inner")
+                keep = BinOp("<=", Col(ln), Col(rc))
+            else:
+                from ..exprs import IsNull
+                joined = L.Join(rcnt, w, pairs, "left_outer")
+                keep = BinOp("or", IsNull(Col(rc)),
+                             BinOp(">", Col(ln), Col(rc)))
+            out: L.LogicalPlan = L.Projection(
+                L.Filter(joined, keep),
+                tuple(Col(n) for n in names), tuple(names))
+        else:
+            lk = with_keys(L.Distinct(left), "l")
+            rk_all = with_keys(right, "r")
+            rk = L.Distinct(L.Projection(
+                rk_all, tuple(Col(n) for n in key_names_r),
+                tuple(key_names_r)))
+            how = "semi" if stmt.op == "intersect" else "anti"
+            joined = L.Join(rk, lk, pairs, how)
+            out = L.Projection(
+                joined, tuple(Col(n) for n in names), tuple(names))
         if stmt.order_by:
             keys = []
             for key, asc, nf in stmt.order_by:
@@ -1092,7 +1121,19 @@ class SqlPlanner:
         for e, _ in items:
             _find_windows(e, win_calls)
         if win_calls:
-            raise NotImplementedError("window functions are not ported yet")
+            from ..exec.window import WindowFnSpec
+            specs = []
+            current_names = {f.name for f in current.schema().fields}
+            for i, w in enumerate(win_calls):
+                nm = f"#win{i}"
+                while nm in current_names:
+                    nm = f"#{nm}"
+                specs.append(WindowFnSpec(w.kind, w.arg, w.partition_by,
+                                          w.order_by, w.offset,
+                                          frame=w.frame, alias=nm))
+                items = [(_replace_subtree(e, w, Col(nm)), n)
+                         for e, n in items]
+            current = L.Window(current, tuple(specs))
 
         proj = L.Projection(current, tuple(e for e, _ in items),
                             tuple(nm for _, nm in items))

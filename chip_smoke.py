@@ -2,7 +2,10 @@
 CUDA kernel, holds it against its plain PyTorch version, then runs all 22
 TPC-H queries at SF1 end to end through SessionContext(device="cuda") and
 checks each answer exactly, and a full outer join on each path, UNION
-[ALL] and a chunked theta join against numpy.
+[ALL] and a chunked theta join against numpy; then the analytic slice at
+SF1 against numpy: statistical aggregates, percentiles, a partial -> final
+aggregate, window functions over lineitem and orders, INTERSECT/EXCEPT ALL,
+and a converged plan re-run without planning.
 
     python3 chip_smoke.py
 
@@ -51,6 +54,22 @@ Phases:
    the unique and on the expanding path, UNION ALL and UNION over
    differing dictionaries, and a theta join (supplier x customer) past
    CrossJoinExec.MAX_CELLS that runs as a chunked NestedLoopJoinExec.
+10. the analytic slice on the same context, each answer against a numpy
+   computation on the same host columns, first run and warm median of 3:
+   stddev_samp, var_pop and corr grouped on the masked layout
+   (l_returnflag, l_linestatus) and the sorted layout (l_suppkey; f64 at
+   rtol 1e-9, because the card adds f64 sums in no fixed order and the
+   one-pass variance cancels); median and percentile_cont(0.9) by
+   l_shipmode and ungrouped (rtol 1e-12); Q1's aggregate as `partial` over
+   each half of lineitem, CoalesceExec and `final`, equal to phase 4's
+   answer exactly, where the final node must launch masked_slot_sums_rows
+   at T = 12 and that call is held against its plain version; row_number
+   and a running sum, rank and dense_rank, lag / lead / first_value, and
+   min / max through the sparse table (ROWS 2 PRECEDING), the prefix
+   extremum (default frame) and the partition extremum, all exact;
+   INTERSECT ALL and EXCEPT ALL of o_custkey against c_nationkey, exact;
+   Q21 planned once with `converge` and re-run with `run_plan`, beside
+   `collect()`, and its evaluate calls with and without shared subtrees.
 The line before the last is a JSON object describing the kernel (its
 launches summed over every query's first run, per entry point under
 `entry_points`); the last line is
@@ -69,13 +88,13 @@ import time
 import numpy as np
 import torch
 
-from ballista_tpu_torch.batch import round_capacity, to_numpy
-from ballista_tpu_torch.benchmarks import TPCH_QUERIES
+from ballista_tpu_torch.batch import Batch, Column, round_capacity, to_numpy
+from ballista_tpu_torch.benchmarks import ANALYTIC_QUERIES, TPCH_QUERIES
 from ballista_tpu_torch.benchmarks.timing import cuda_ms, host_ms
 from ballista_tpu_torch.client import SessionContext
 from ballista_tpu_torch.datagen import TPCH_TABLES, generate_tpch
 from ballista_tpu_torch.exec import plan as plan_mod
-from ballista_tpu_torch.exprs import like_lut, parse_date
+from ballista_tpu_torch.exprs import Col, like_lut, parse_date
 from ballista_tpu_torch.ops import masked_sums
 from ballista_tpu_torch.schema import TypeKind
 
@@ -94,6 +113,11 @@ ANSWER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # an inner unique join keeps from its probe side
 Q5_T, Q5_A = 26, 3
 BIG = 2 ** 62
+# f64 moments and corr against numpy's two-pass values: the card adds the
+# f64 sums with atomics in no fixed order, and s2/n - (s1/n)^2 cancels
+MOMENT_RTOL = 1e-9
+# a percentile interpolates two stored values
+PERCENTILE_RTOL = 1e-12
 
 
 def log(msg):
@@ -977,6 +1001,400 @@ def phase_setops(ctx):
                                                          "c_custkey"]), want)
 
 
+def _timed_sql(ctx, name, runs=4):
+    """ANALYTIC_QUERIES[name] through ctx.sql(text).collect(): the kernel's
+    launches on the first run, first-run and warm-median times, the answer
+    as host columns."""
+    sql = ANALYTIC_QUERIES[name]
+    times = []
+    for i in range(runs):
+        if i == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        batch, schema = ctx.sql(sql).collect()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = read_counts()
+    log(f"phase 10: {name}: {int(batch.num_rows)} rows; first run "
+        f"{times[0]:.4f} s, warm median "
+        f"{statistics.median(times[1:]) * 1e3:.3f} ms; masked_slot_sums_rows "
+        f"launches {launches[0]}")
+    return to_numpy(batch, schema), launches
+
+
+def _close(label, got, want, rtol):
+    got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {got.shape} vs numpy {want.shape}")
+    err = float(np.max(np.abs(got - want) / np.abs(want))) if got.size else 0.0
+    if not err <= rtol:
+        raise AssertionError(f"{label}: max relative error {err:.3e} > {rtol}")
+    log(f"phase 10: {label}: within rtol {rtol} of numpy (max relative error "
+        f"{err:.3e})")
+
+
+def _exact(label, got, want):
+    if not np.array_equal(np.asarray(got), np.asarray(want)):
+        bad = np.nonzero(np.asarray(got) != np.asarray(want))[0]
+        raise AssertionError(f"{label}: {len(bad)} of {len(want)} differ from "
+                             f"numpy, first at row {bad[0]}: {got[bad[0]]} vs "
+                             f"{want[bad[0]]}")
+    log(f"phase 10: {label}: equals the numpy computation exactly "
+        f"({len(want)} values)")
+
+
+def _all_valid(got, names):
+    for n in names:
+        if not got[n][1].all():
+            raise AssertionError(f"NULL in {n}")
+
+
+def _numpy_moments(gid, x, y):
+    """Per group of `gid` (0..G-1, every group present), two passes in f64:
+    (stddev_samp(x), var_pop(y), corr(x, y))."""
+    n = np.bincount(gid).astype(float)
+    dx = x - (np.bincount(gid, x) / n)[gid]
+    dy = y - (np.bincount(gid, y) / n)[gid]
+    sxx, syy = np.bincount(gid, dx * dx), np.bincount(gid, dy * dy)
+    return (np.sqrt(sxx / (n - 1)), syy / n,
+            np.bincount(gid, dx * dy) / np.sqrt(sxx * syy))
+
+
+def analytic_moments(ctx):
+    qty = _raw(ctx, "lineitem", "l_quantity") / 100.0
+    price = _raw(ctx, "lineitem", "l_extendedprice") / 100.0
+    flag, status = (ctx.tables["lineitem"].host[c]
+                    for c in ("l_returnflag", "l_linestatus"))
+    total = np.zeros(2, dtype=np.int64)
+    for name, key, result_key in (
+            ("moments_masked",
+             flag.values.astype(np.int64) * len(status.dictionary)
+             + status.values,
+             lambda g: np.searchsorted(flag.dictionary.astype(str),
+                                       g["l_returnflag"][0].astype(str))
+             * len(status.dictionary)
+             + np.searchsorted(status.dictionary.astype(str),
+                               g["l_linestatus"][0].astype(str))),
+            ("moments_sorted", _raw(ctx, "lineitem", "l_suppkey"),
+             lambda g: g["l_suppkey"][0])):
+        got, launches = _timed_sql(ctx, name)
+        total += launches
+        _all_valid(got, ("sd", "vp", "c"))
+        groups, gid = np.unique(key, return_inverse=True)
+        order = np.argsort(result_key(got))
+        _exact(f"{name} groups", result_key(got)[order], groups)
+        for col, want in zip(("sd", "vp", "c"),
+                             _numpy_moments(gid, qty, price)):
+            _close(f"{name} {col}", got[col][0][order], want, MOMENT_RTOL)
+    return total
+
+
+def analytic_percentiles(ctx):
+    price = _raw(ctx, "lineitem", "l_extendedprice") / 100.0
+    mode = ctx.tables["lineitem"].host["l_shipmode"]
+    got, launches = _timed_sql(ctx, "percentiles_grouped")
+    _all_valid(got, ("m", "p90"))
+    order = np.argsort(got["l_shipmode"][0].astype(str))
+    _exact("percentiles_grouped groups",
+           got["l_shipmode"][0].astype(str)[order],
+           np.sort(mode.dictionary.astype(str)))
+    by_name = np.argsort(mode.dictionary.astype(str))
+    want = np.array([np.quantile(price[mode.values == k], [0.5, 0.9])
+                     for k in by_name])
+    _close("median by l_shipmode", got["m"][0][order], want[:, 0],
+           PERCENTILE_RTOL)
+    _close("percentile_cont(0.9) by l_shipmode", got["p90"][0][order],
+           want[:, 1], PERCENTILE_RTOL)
+    got, more = _timed_sql(ctx, "percentiles_global")
+    _all_valid(got, ("m", "p90"))
+    _close("median and percentile_cont(0.9), ungrouped",
+           [got["m"][0][0], got["p90"][0][0]], np.quantile(price, [0.5, 0.9]),
+           PERCENTILE_RTOL)
+    return launches + more
+
+
+def analytic_partial_final(ctx):
+    """Q1's aggregate split in two phases: `partial` over each half of
+    lineitem, CoalesceExec, `final`, under Q1's own projection and sort.
+    Returns (launches, the final node's kernel call)."""
+    df = ctx.sql(TPCH_QUERIES[1])
+    sort = ctx.physical_plan(df.plan)
+    project, = sort.children
+    single, = project.children
+    leaf, = single.children
+    if not (isinstance(single, plan_mod.HashAggregateExec)
+            and isinstance(leaf, plan_mod.InputLeaf)):
+        raise AssertionError(f"Q1's plan changed:\n{sort.display()}")
+    whole = ctx.bind_inputs([leaf.input_id])[leaf.input_id]
+    half = round_capacity(LINEITEM_ROWS // 2)
+    n_rows = int(whole.num_rows)
+    inputs, partials = {}, []
+    for name, lo, hi, rows in (("half0", 0, half, half),
+                               ("half1", half, whole.capacity,
+                                n_rows - half)):
+        inputs[name] = Batch(
+            tuple(Column(c.data[lo:hi], c.validity[lo:hi])
+                  for c in whole.columns),
+            torch.tensor(rows, dtype=torch.int32, device=whole.device))
+        partials.append(plan_mod.HashAggregateExec(
+            plan_mod.InputLeaf(name, leaf.schema, hi - lo),
+            single.group_exprs, single.aggs, mode="partial",
+            group_names=single._group_names, pre_filter=single.pre_filter))
+    keys = single._group_names
+    final = plan_mod.HashAggregateExec(
+        plan_mod.CoalesceExec(partials), [Col(k) for k in keys], single.aggs,
+        mode="final", group_names=keys)
+    plan = plan_mod.SortExec(
+        plan_mod.ProjectExec(final, project.exprs,
+                             names=[f.name for f in project.schema.fields]),
+        sort.keys)
+    log(f"phase 10: partial -> final plan:\n{plan.display().rstrip()}")
+    times = []
+    for i in range(4):
+        if i == 0:
+            reset_counts()
+        with spy_rows() as calls:
+            t0 = time.perf_counter()
+            batch, overflow = plan_mod.run_plan(plan, inputs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches, first_calls = read_counts(), list(calls)
+    if overflow is not None and bool(overflow):
+        raise AssertionError("partial -> final overflowed")
+    merged = [c for c in first_calls if c[0].shape[0] == 2 * 128]
+    if launches[0] < 3 or len(merged) != 1 or merged[0][2] != Q1_T:
+        raise AssertionError(
+            "the final aggregate did not launch masked_slot_sums_rows at "
+            f"T = {Q1_T} over the two partials' 256 state rows: launches "
+            f"{launches}, calls {call_shapes(first_calls)}")
+    log(f"phase 10: partial -> final: first run {times[0]:.4f} s, warm median "
+        f"{statistics.median(times[1:]) * 1e3:.3f} ms; masked_slot_sums_rows "
+        f"launches {launches[0]}, calls at (A, n), T = "
+        f"{call_shapes(first_calls)}")
+    got = to_numpy(batch, plan.schema)
+    want = df.to_numpy()
+    if list(got) != list(want):
+        raise AssertionError(f"partial -> final columns {list(got)}")
+    for name in want:
+        if not (np.array_equal(got[name][0], want[name][0])
+                and np.array_equal(got[name][1], want[name][1])):
+            raise AssertionError(f"partial -> final differs from the single "
+                                 f"aggregate in {name}")
+    check_answers(got, plan.schema, 1)
+    log("phase 10: partial -> final equals the single-mode Q1 answer and "
+        "answers/sf1/answers/q1.out exactly")
+    return launches, merged[0]
+
+
+def _runs(part, *order):
+    """Rows sorted by (part, *order): (sort index, position, partition
+    start and end per sorted position, partition-first flags)."""
+    idx = np.lexsort(tuple(reversed((part,) + order)))
+    sp = part[idx]
+    n = len(idx)
+    pos = np.arange(n)
+    first = np.r_[True, sp[1:] != sp[:-1]]
+    last = np.r_[first[1:], True]
+    start = np.maximum.accumulate(np.where(first, pos, 0))
+    end = np.minimum.accumulate(np.where(last, pos, n - 1)[::-1])[::-1]
+    return idx, pos, start, end, first
+
+
+def _unsort(idx, values):
+    out = np.empty_like(values)
+    out[idx] = values
+    return out
+
+
+def _shifted(x, pos, k, lo, hi):
+    """(x at sorted position pos + k, whether that lies in [lo, hi])."""
+    src = pos + k
+    ok = (src >= lo) & (src <= hi)
+    return x[np.clip(src, 0, len(x) - 1)], ok
+
+
+def analytic_windows(ctx):
+    okey = _raw(ctx, "lineitem", "l_orderkey")
+    line = _raw(ctx, "lineitem", "l_linenumber").astype(np.int64)
+    qty = _raw(ctx, "lineitem", "l_quantity")
+    price = _raw(ctx, "lineitem", "l_extendedprice")
+    ship = _raw(ctx, "lineitem", "l_shipdate")
+    idx, pos, start, end, _ = _runs(okey, line)
+    sq, sp_, ss = qty[idx], price[idx], ship[idx]
+    depth = int((end - start).max())
+    total = np.zeros(2, dtype=np.int64)
+
+    def run(name):
+        got, launches = _timed_sql(ctx, name)
+        total[:] += launches
+        # the operator is positional: rows come back in table order
+        _exact(f"{name} row order", got["l_orderkey"][0] * 8
+               + got["l_linenumber"][0], okey * 8 + line)
+        return got
+
+    got = run("window_running")
+    _all_valid(got, ("rn", "run"))
+    _exact("row_number", got["rn"][0], _unsort(idx, pos - start + 1))
+    csum = np.cumsum(sq)
+    _exact("running sum(l_quantity)", got["run"][0],
+           _unsort(idx, csum - (csum - sq)[start]))
+
+    got = run("window_navigation")
+    for col, (want, ok) in (
+            ("prev", _shifted(sq, pos, -1, start, end)),
+            ("nxt", _shifted(sp_, pos, 2, start, end)),
+            ("fv", (ss[start], np.ones(len(pos), dtype=bool)))):
+        _exact(f"{col} validity", got[col][1], _unsort(idx, ok))
+        _exact(col, got[col][0][got[col][1]], _unsort(idx, want)[got[col][1]])
+
+    def extrema(k_max):
+        """min(price) and max(qty) over the k_max rows before and the row."""
+        mn, mx = sp_.copy(), sq.copy()
+        for k in range(1, k_max + 1):
+            v, ok = _shifted(sp_, pos, -k, start, end)
+            mn = np.where(ok, np.minimum(mn, v), mn)
+            v, ok = _shifted(sq, pos, -k, start, end)
+            mx = np.where(ok, np.maximum(mx, v), mx)
+        return _unsort(idx, mn), _unsort(idx, mx)
+
+    for name, (mn, mx) in (
+            ("window_framed_extrema", extrema(2)),
+            ("window_running_extrema", extrema(depth)),
+            ("window_partition_extrema",
+             (_unsort(idx, np.minimum.reduceat(
+                 sp_, np.unique(start))[np.searchsorted(np.unique(start),
+                                                        start)]),
+              _unsort(idx, np.maximum.reduceat(
+                  sq, np.unique(start))[np.searchsorted(np.unique(start),
+                                                        start)])))):
+        got = run(name)
+        _all_valid(got, ("mn", "mx"))
+        _exact(f"{name} min(l_extendedprice)", got["mn"][0], mn)
+        _exact(f"{name} max(l_quantity)", got["mx"][0], mx)
+
+    cust = _raw(ctx, "orders", "o_custkey")
+    got, launches = _timed_sql(ctx, "window_ranks")
+    total += launches
+    _exact("window_ranks row order", got["o_orderkey"][0],
+           _raw(ctx, "orders", "o_orderkey"))
+    _all_valid(got, ("rk", "dr", "rp", "dp"))
+    # o_totalprice hardly ever ties within a customer; o_orderpriority's
+    # five values (codes in dictionary order) tie all the time
+    for rank, dense, key in (
+            ("rk", "dr", -_raw(ctx, "orders", "o_totalprice")),
+            ("rp", "dp", _raw(ctx, "orders", "o_orderpriority"))):
+        idx, pos, start, _, first = _runs(cust, key)
+        k = key[idx]
+        peer_first = first | np.r_[True, k[1:] != k[:-1]]
+        peer_start = np.maximum.accumulate(np.where(peer_first, pos, 0))
+        _exact(f"rank {rank}", got[rank][0],
+               _unsort(idx, peer_start - start + 1))
+        run_no = np.cumsum(peer_first)
+        _exact(f"dense_rank {dense}", got[dense][0],
+               _unsort(idx, run_no - run_no[start] + 1))
+    if not (got["rp"][0] != got["dp"][0]).any():
+        raise AssertionError("window_ranks: no ties, rank == dense_rank")
+    return total
+
+
+def analytic_setops(ctx):
+    cust = _raw(ctx, "orders", "o_custkey")
+    nation = _raw(ctx, "customer", "c_nationkey")
+    size = int(max(cust.max(), nation.max())) + 1
+    left, right = np.bincount(cust, minlength=size), \
+        np.bincount(nation, minlength=size)
+    total = np.zeros(2, dtype=np.int64)
+    for name, want in (("intersect_all", np.minimum(left, right)),
+                       ("except_all", np.maximum(left - right, 0))):
+        got, launches = _timed_sql(ctx, name)
+        total += launches
+        _all_valid(got, ("o_custkey",))
+        if not 0 < want.sum() < len(cust):
+            raise AssertionError(f"{name}: the bags do not overlap in part")
+        _exact(f"{name} copies per key",
+               np.bincount(got["o_custkey"][0], minlength=size), want)
+    return total
+
+
+def analytic_converge(ctx):
+    """Q21 planned once: `converge` gives the plan that ran without
+    overflow, `run_plan` runs it again without planning."""
+    df = ctx.sql(TPCH_QUERIES[21])
+    n_warn = len(ctx.warnings)
+    t0 = time.perf_counter()
+    plan, inputs, out = df.converge()
+    torch.cuda.synchronize()
+    log(f"phase 10: Q21 converge {time.perf_counter() - t0:.4f} s, "
+        f"{len(ctx.warnings) - n_warn} overflow retries")
+
+    def median_ms(fn):
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3, result
+
+    rerun_ms, (batch, overflow) = median_ms(
+        lambda: plan_mod.run_plan(plan, inputs))
+    if overflow is None or bool(overflow):
+        raise AssertionError("Q21's converged plan overflowed when re-run")
+    check_answers(to_numpy(batch, plan.schema), plan.schema, 21)
+    collect_ms, _ = median_ms(df.collect)
+    sql_ms, _ = median_ms(lambda: ctx.sql(TPCH_QUERIES[21]).collect())
+    log(f"phase 10: Q21 run_plan on the converged plan {rerun_ms:.3f} ms "
+        f"(median of 10, equals answers/sf1/answers/q21.out exactly); "
+        f"collect() of the planned DataFrame {collect_ms:.3f} ms; "
+        f"ctx.sql(text).collect() {sql_ms:.3f} ms")
+    # evaluate calls per run: every distinct node once, against every
+    # parent edge once when nothing is shared
+    nodes, stack = {}, [plan]
+    while stack:
+        node = stack.pop()
+        nodes[id(node)] = node
+        stack.extend(node.children)
+    run = plan_mod.Run(inputs)
+    run.eval(plan)
+    shared = {i: n.n_parents for i, n in nodes.items() if n.n_parents > 1}
+    for i in shared:
+        nodes[i].n_parents = 1
+    try:
+        unshared = plan_mod.Run(inputs)
+        unshared.eval(plan)
+    finally:
+        for i, parents in shared.items():
+            nodes[i].n_parents = parents
+    if not run.evaluated == len(nodes) < unshared.evaluated:
+        raise AssertionError(f"Q21: {run.evaluated} evaluate calls for "
+                             f"{len(nodes)} nodes, {unshared.evaluated} "
+                             "without sharing")
+    log(f"phase 10: Q21 evaluate calls per run: {run.evaluated} with shared "
+        f"subtrees ({[nodes[i]._label()[:40] for i in shared]}), "
+        f"{unshared.evaluated} without")
+
+
+def _raw(ctx, table, name):
+    """The stored values of one registered host column (scaled integers
+    for decimals, days for dates; the generated columns have no NULLs)."""
+    return ctx.tables[table].host[name].values
+
+
+def phase_analytic(ctx):
+    """Returns (kernel launches over the first runs, max |kernel - plain|
+    on the final aggregate's call)."""
+    launches = analytic_moments(ctx)
+    launches += analytic_percentiles(ctx)
+    pf_launches, call = analytic_partial_final(ctx)
+    err = held_err(hold_call(10, "the final aggregate's merge of Q1's "
+                             "states", *call))
+    launches += pf_launches + analytic_windows(ctx) + analytic_setops(ctx)
+    analytic_converge(ctx)
+    return launches, err
+
+
 def main():
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -1009,14 +1427,17 @@ def main():
     rest_launches, rest_err = phase_rest(ctx)
     part_launches, part_err = phase_rest_part(ctx)
     phase_setops(ctx)
+    analytic_launches, analytic_err = phase_analytic(ctx)
 
     # one record for the kernel file; its times and bound are those of
     # Q1's own call through the entry the queries use. `entry_points`
     # gives each wrapper's own numbers on that call; launches are those of
-    # the 22 queries' first runs, counted per wrapper.
-    launches = launches + join_launches + rest_launches + part_launches
+    # the 22 queries' and the analytic slice's first runs, counted per
+    # wrapper.
+    launches = (launches + join_launches + rest_launches + part_launches
+                + analytic_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
-                part_err)
+                part_err, analytic_err)
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]

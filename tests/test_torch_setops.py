@@ -198,6 +198,73 @@ def test_full_outer_rows(contexts):
                     (None, None, 9, 30), ("bob", 2, None, None)}
 
 
+# the bags of tests/test_setops.py: INTERSECT / EXCEPT with NULLs that
+# compare equal, and their ALL forms (row_number against the right side's
+# per-key count)
+BAGS = {
+    "sa": pa.table({"x": pa.array([1, 2, 2, 3, None], pa.int64()),
+                    "s": ["p", "q", "q", "r", None]}),
+    "sb": pa.table({"x": pa.array([2, 3, 4, None], pa.int64()),
+                    "s": ["q", "zz", "t", None]}),
+    "ba": pa.table({"x": pa.array([1, 1, 1, 2, 2, 3, None, None],
+                                  pa.int64())}),
+    "bb": pa.table({"x": pa.array([1, 1, 2, 4, None], pa.int64())}),
+    "ma": pa.table({"x": pa.array([1, 1, 2], pa.int64()),
+                    "y": ["a", "a", "b"]}),
+    "mb": pa.table({"x": pa.array([1, 2], pa.int64()), "y": ["a", "b"]}),
+    "oa": pa.table({"x": pa.array([3, 1, 2], pa.int64()),
+                    "y": pa.array([1, 1, 1], pa.int64())}),
+    "ob": pa.table({"x": pa.array([9], pa.int64()),
+                    "y": pa.array([0], pa.int64())}),
+}
+# name -> (sql, x column of the answer, None for NULL)
+SETOPS = {
+    "intersect": ("select x, s from sa intersect select x, s from sb "
+                  "order by x", [2, None]),
+    "except": ("select x, s from sa except select x, s from sb order by x",
+               [1, 3]),
+    "except_self": ("select x from sa except select x from sa where x = 2 "
+                    "order by x", [1, 3, None]),
+    # each row min(l, r) times; NULLs compare equal
+    "intersect_all": ("select x from ba intersect all select x from bb "
+                      "order by x", [1, 1, 2, None]),
+    # each row max(l - r, 0) times
+    "except_all": ("select x from ba except all select x from bb order by x",
+                   [1, 2, 3, None]),
+    "except_all_multicol": ("select x, y from ma except all "
+                            "select x, y from mb order by x", [1]),
+    "intersect_all_multicol": ("select x, y from ma intersect all "
+                               "select x, y from mb order by x", [1, 2]),
+    "except_order_by_expression": ("select x, y from oa except "
+                                   "select x, y from ob order by x + y desc",
+                                   [3, 2, 1]),
+    # INTERSECT binds tighter than EXCEPT
+    "precedence": ("select x from ba except select x from bb intersect "
+                   "select x from sa order by x", [3]),
+}
+
+
+@pytest.fixture(scope="module")
+def bag_contexts():
+    jctx = JaxContext(capacity_mode="exact")
+    tctx = SessionContext(device="cpu")
+    for name, table in BAGS.items():
+        jctx.register_arrow(name, table)
+        tctx.register_host(name, *_port_columns(table))
+    return jctx, tctx
+
+
+@pytest.mark.parametrize("name", sorted(SETOPS))
+def test_intersect_except_match_jax(bag_contexts, name):
+    jctx, tctx = bag_contexts
+    sql, want = SETOPS[name]
+    assert _same_sql(jctx, tctx, sql) == len(want)
+    x, valid = tctx.sql(sql).to_numpy()["x"]
+    assert [int(v) if ok else None for v, ok in zip(x, valid)] == want
+    if "_all" in name:
+        assert any(l.startswith("WindowExec") for l in _labels(tctx, sql))
+
+
 THETA = {
     "chunked": "select i, kk from t, s where z > x and z - x < 5 "
                "order by i, kk",
