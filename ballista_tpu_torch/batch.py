@@ -7,25 +7,38 @@ The JAX package's contract is kept, so the exec nodes map one to one:
 - `num_rows` is a 0-d int32 tensor on the batch's device; rows
   [num_rows, capacity) are padding and always invalid. Keeping the count on
   the device lets a whole plan run without a host synchronisation.
-- Live rows are densely packed at the front.
+- Live rows are densely packed at the front, unless the batch is sparse
+  (`Batch.live`, see there).
 
 The host half is `HostColumn`: the numpy (values, validity, dictionary,
 bounds) tuple that ingest produces (`ballista_tpu/batch.py
 ingest_column_host`). Strings are int32 codes into a sorted dictionary, so
 code order is lexicographic order; decimals are scaled int64; dates are
-int32 days since the epoch.
+int32 days since the epoch. `ingest_column` makes one from a numpy array
+or a Python list and needs no pyarrow; the arrow and pandas converters
+import their library inside the function that uses it.
 """
 
 from __future__ import annotations
 
+import datetime
+import decimal as pydecimal
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .schema import DataType, Schema, TypeKind
+from .schema import (BOOL, DATE32, FLOAT32, FLOAT64, INT32, INT64, STRING,
+                     DataType, Field, Schema, TypeKind)
 
 LANE = 128
+
+# Most distinct strings a sorted dictionary may hold. The reference
+# switches to RAW (unsorted, code == row index) dictionaries above this;
+# the port has none, and refuses such a column.
+RAW_DICT_MAX = 1 << 21
+# rows sampled to guess a string column's distinct values (_sorted_distinct)
+_SAMPLE_ROWS = 1 << 16
 
 
 def round_capacity(n: int) -> int:
@@ -45,8 +58,19 @@ class Column(NamedTuple):
 
 
 class Batch(NamedTuple):
+    """Fixed-capacity batch.
+
+    Dense form (live is None): rows 0..num_rows-1 are the live rows.
+    Sparse form (live set): the live rows lie where `live` is True and
+    num_rows == live.sum(). A sparse batch exists only between a producer
+    that leaves out its output compaction (a filter; an inner, semi or
+    anti join on a unique build) and a consumer that reads liveness
+    through `row_mask` alone (aggregate, sort, filter, join input);
+    `exec.plan.plan_sparse_flow` marks the producers, so no other operator
+    sees one."""
     columns: Tuple[Column, ...]
     num_rows: torch.Tensor  # () int32, on the batch's device
+    live: Optional[torch.Tensor] = None  # (capacity,) bool; None if dense
 
     @property
     def capacity(self) -> int:
@@ -57,10 +81,43 @@ class Batch(NamedTuple):
         return self.num_rows.device
 
 
+    def replace_columns(self, columns) -> "Batch":
+        return Batch(tuple(columns), self.num_rows, self.live)
+
+
+_ARANGES: dict = {}     # (capacity, device) -> int32 arange
+_ARANGES_MAX_BYTES = 256 << 20
+
+
+def row_index(capacity: int, device) -> torch.Tensor:
+    """int32 arange(capacity) on `device`, made once per (capacity,
+    device): every operator of a plan asks for the same few. Read only.
+    The cache holds `_ARANGES_MAX_BYTES` at most: the oldest go first, and
+    an arange larger than that is made anew each time."""
+    key = (capacity, str(device))
+    idx = _ARANGES.get(key)
+    if idx is None:
+        idx = torch.arange(capacity, dtype=torch.int32, device=device)
+        size = 4 * capacity
+        if size <= _ARANGES_MAX_BYTES:
+            held = sum(4 * c for c, _ in _ARANGES)
+            while held + size > _ARANGES_MAX_BYTES:
+                held -= 4 * next(iter(_ARANGES))[0]
+                _ARANGES.pop(next(iter(_ARANGES)))
+            _ARANGES[key] = idx
+    return idx
+
+
+def drop_row_indices() -> None:
+    """Free the cached aranges (`SessionContext.evict_device`)."""
+    _ARANGES.clear()
+
+
 def row_mask(batch: Batch) -> torch.Tensor:
     """Boolean (capacity,) mask of live rows."""
-    idx = torch.arange(batch.capacity, dtype=torch.int32, device=batch.device)
-    return idx < batch.num_rows
+    if batch.live is not None:
+        return batch.live
+    return row_index(batch.capacity, batch.device) < batch.num_rows
 
 
 def make_column(values: np.ndarray, validity: np.ndarray, dtype: DataType,
@@ -99,3 +156,360 @@ def to_numpy(batch: Batch, schema: Schema) -> dict:
         else:
             out[f.name] = (data, valid)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Host ingest: numpy arrays and Python lists -> HostColumn
+# ---------------------------------------------------------------------------
+
+_BOUNDED = (TypeKind.INT32, TypeKind.INT64, TypeKind.DATE32, TypeKind.DECIMAL)
+
+
+def as_array(values) -> np.ndarray:
+    """A numpy array of the column; a list that holds None (or mixed
+    Python objects) becomes an object array."""
+    if isinstance(values, np.ndarray):
+        return values
+    if isinstance(values, torch.Tensor):
+        return values.cpu().numpy()
+    values = list(values)
+    if any(v is None for v in values) or any(
+            isinstance(v, (pydecimal.Decimal, datetime.date)) for v in values):
+        arr = np.empty(len(values), dtype=object)
+        arr[:] = values
+        return arr
+    return np.asarray(values) if values else np.zeros(0, dtype=np.float64)
+
+
+def _not_none(arr: np.ndarray) -> np.ndarray:
+    return ~np.equal(arr, None).astype(bool) if arr.dtype == object \
+        else np.ones(len(arr), dtype=bool)
+
+
+def column_dtype(values) -> DataType:
+    """The engine type a numpy array or Python list ingests as: what
+    pyarrow would infer for it, narrowed to the engine's types (small
+    integers widen to int32, unsigned 32/64-bit to int64)."""
+    arr = as_array(values)
+    k = arr.dtype.kind
+    if k == "b":
+        return BOOL
+    if k in "iu":
+        return INT32 if arr.dtype.itemsize < (4 if k == "u" else 8) else INT64
+    if k == "f":
+        return FLOAT32 if arr.dtype.itemsize <= 4 else FLOAT64
+    if k == "M":
+        return DATE32
+    if k in "US":
+        return STRING
+    if k == "O":
+        some = [v for v in arr[:1024] if v is not None] or \
+            [v for v in arr if v is not None]
+        if not some or all(isinstance(v, str) for v in some):
+            return STRING
+        v = some[0]
+        if isinstance(v, (bool, np.bool_)):
+            return BOOL
+        if isinstance(v, (int, np.integer)):
+            return INT64
+        if isinstance(v, (float, np.floating)):
+            return FLOAT64
+        if isinstance(v, (datetime.date, np.datetime64)):
+            return DATE32
+        if isinstance(v, pydecimal.Decimal):
+            raise TypeError("a column of Decimal objects needs "
+                            "dtype=decimal(precision, scale)")
+    raise TypeError(f"unsupported column dtype {arr.dtype} "
+                    f"({type(arr[0]).__name__ if len(arr) else 'empty'})")
+
+
+def _fixed_width_strings(arr: np.ndarray, validity: np.ndarray) -> np.ndarray:
+    """`arr` as a fixed-width numpy string array ('U', or 'S' when it
+    came so), with "" in the NULL rows."""
+    if not len(arr):
+        return np.zeros(0, dtype="U1")
+    if arr.dtype.kind == "O":
+        if not validity.all():
+            arr = np.where(validity, arr, "")
+        return arr.astype(str)
+    if arr.dtype.kind not in "US":
+        raise TypeError(f"string column from dtype {arr.dtype}")
+    return arr
+
+
+def _sorted_distinct(strs: np.ndarray):
+    """(sorted distinct values as a 'U' array, int64 inverse) of a
+    fixed-width string array, in code-point order.
+
+    np.unique sorts fixed-width items in C. ASCII strings of up to 8
+    bytes are first packed into big-endian uint64s, whose numeric order is
+    the strings' order: an integer sort is several times faster than a
+    sort of 4-byte-per-character items. A long column of few distinct
+    values takes them from a sample and a binary search (below)."""
+    n = len(strs)
+    if n and strs.dtype.kind == "U" and strs.dtype.itemsize:
+        # ASCII text as bytes, cut to the longest string: the code points
+        # are read through a uint32 view (astype("S") converts string by
+        # string, ten times slower)
+        points = np.ascontiguousarray(strs).view(np.uint32).reshape(n, -1)
+        if bool((points < 128).all()):
+            used = int(np.flatnonzero(points.any(axis=0)).max(initial=0)) + 1
+            strs = np.ascontiguousarray(
+                points[:, :used].astype(np.uint8)).view(f"S{used}").ravel()
+    width = strs.dtype.itemsize
+    keys = strs
+    if n and strs.dtype.kind == "S" and width <= 8:
+        packed = np.zeros((n, 8), dtype=np.uint8)
+        packed[:, :width] = strs.view(np.uint8).reshape(n, -1)
+        keys = packed.view(">u8").ravel().astype(np.uint64)
+    uniq = inv = None
+    if n >= _SAMPLE_ROWS * 16:
+        # a column of few distinct values: the distinct values of an
+        # evenly spaced sample, if every row is one of them, are the
+        # column's, and a binary search replaces the sort of all rows
+        cand = np.unique(keys[::n // _SAMPLE_ROWS])
+        if len(cand) <= _SAMPLE_ROWS // 4:
+            pos = np.searchsorted(cand, keys).clip(max=len(cand) - 1)
+            if bool((cand[pos] == keys).all()):
+                uniq, inv = cand, pos
+    if uniq is None:
+        uniq, inv = np.unique(keys, return_inverse=True)
+    if keys is not strs:
+        raw = uniq.astype(">u8").view(np.uint8).reshape(-1, 8)
+        uniq = np.ascontiguousarray(raw[:, :width]).view(strs.dtype).ravel()
+    if uniq.dtype.kind == "S":
+        uniq = np.char.decode(uniq, "utf-8") if len(uniq) \
+            else uniq.astype(str)
+    return uniq, inv.reshape(-1)
+
+
+def _ingest_strings(arr, validity, dictionary) -> HostColumn:
+    strs = _fixed_width_strings(arr, validity)
+    n = len(strs)
+    codes = np.zeros(n, dtype=np.int32)
+    if dictionary is not None:
+        # encode against a given (global, sorted) dictionary; a value it
+        # does not hold keeps code 0
+        dict_np = np.asarray(dictionary, dtype=object)
+        d = dict_np.astype(str)
+        if strs.dtype.kind == "S":
+            strs = np.char.decode(strs, "utf-8") if n else strs.astype(str)
+        if len(d) and n:
+            pos = np.searchsorted(d, strs).clip(max=len(d) - 1)
+            found = validity & (d[pos] == strs)
+            codes = np.where(found, pos, 0).astype(np.int32)
+        return HostColumn(codes, validity, dict_np, None)
+    all_valid = bool(validity.all())
+    uniq, inv = _sorted_distinct(strs if all_valid else strs[validity])
+    if len(uniq) > RAW_DICT_MAX:
+        raise NotImplementedError(
+            f"{len(uniq)} distinct strings exceed the sorted dictionary's "
+            f"limit of {RAW_DICT_MAX}: raw (unsorted, high-cardinality) "
+            "string dictionaries are not ported")
+    if all_valid:
+        codes = inv.astype(np.int32)
+    else:
+        codes[validity] = inv
+    return HostColumn(codes, validity, uniq.astype(object), None)
+
+
+def ingest_column(values, dtype: Optional[DataType] = None, validity=None,
+                  dictionary=None) -> HostColumn:
+    """One column, as a numpy array or a Python list, to the host tuple
+    the engine keeps: what the reference's `ingest_column_host` makes of
+    the same column as an arrow array, without pyarrow.
+
+    NULLs come from `validity` (False = NULL) and from None in an object
+    array or a list; their data is zeroed. A float NaN is a value, a
+    datetime64 NaT is NULL. Strings become int32 codes into the sorted
+    dictionary of the distinct non-NULL values (or into `dictionary`,
+    when given). Integers, dates (datetime64 -> days) and decimals get
+    (min, max) bounds of their valid values. A decimal column is declared
+    by `dtype=decimal(p, s)`: integer values are taken as already scaled
+    by 10^s, Decimal objects are scaled here."""
+    arr = as_array(values)
+    if dtype is None:
+        dtype = column_dtype(arr)
+    n = len(arr)
+    valid = _not_none(arr)
+    if arr.dtype.kind == "M":
+        valid &= ~np.isnat(arr)
+    if validity is not None:
+        valid &= np.asarray(validity, dtype=bool)
+    kind = dtype.kind
+    if kind is TypeKind.STRING:
+        return _ingest_strings(arr, valid, dictionary)
+    if arr.dtype.kind == "O":
+        filled = np.where(valid, arr, _object_zero(arr, valid))
+        if kind is TypeKind.DECIMAL:
+            out = np.array([int(pydecimal.Decimal(v).scaleb(dtype.scale))
+                            for v in filled.tolist()], dtype=np.int64)
+        elif kind is TypeKind.DATE32:
+            out = filled.astype("datetime64[D]").astype(np.int32)
+        else:
+            out = filled.astype(dtype.np_dtype)
+    elif arr.dtype.kind == "M":
+        out = np.where(valid, arr, np.datetime64(0, "D")) \
+            .astype("datetime64[D]").astype(np.int32)
+    elif kind is TypeKind.DECIMAL and arr.dtype.kind not in "iu":
+        raise TypeError("a decimal column takes scaled integers or Decimal "
+                        f"objects, not {arr.dtype}")
+    else:
+        if arr.dtype == np.uint64 and n and int(arr.max()) > np.iinfo(
+                np.int64).max:
+            raise ValueError("uint64 values above 2^63 - 1 do not fit int64")
+        out = arr.astype(dtype.np_dtype)
+    if not valid.all():
+        out = np.where(valid, out, np.zeros((), dtype=out.dtype))
+    bounds = None
+    if kind in _BOUNDED and n:
+        vv = out if valid.all() else out[valid]
+        if len(vv):
+            bounds = (int(vv.min()), int(vv.max()))
+    return HostColumn(np.ascontiguousarray(out), valid, None, bounds)
+
+
+def _object_zero(arr: np.ndarray, valid: np.ndarray):
+    """A stand-in for the NULLs of an object array, of the valid values'
+    type, so that one astype converts the whole column."""
+    idx = np.flatnonzero(valid)
+    if not len(idx):
+        return 0
+    v = arr[idx[0]]
+    return v if isinstance(v, (datetime.date, np.datetime64,
+                               pydecimal.Decimal)) else type(v)(0)
+
+
+# ---------------------------------------------------------------------------
+# Arrow / pandas interop (each imports its library where it is used)
+# ---------------------------------------------------------------------------
+
+def schema_from_arrow(arrow_schema) -> Schema:
+    import pyarrow as pa
+
+    fields = []
+    for f in arrow_schema:
+        t = f.type
+        if pa.types.is_boolean(t):
+            dt = BOOL
+        elif pa.types.is_int32(t) or pa.types.is_int16(t) or pa.types.is_int8(t):
+            dt = INT32
+        elif pa.types.is_int64(t):
+            dt = INT64
+        elif pa.types.is_float32(t):
+            dt = FLOAT32
+        elif pa.types.is_float64(t):
+            dt = FLOAT64
+        elif pa.types.is_date32(t):
+            dt = DATE32
+        elif pa.types.is_decimal(t):
+            dt = DataType(TypeKind.DECIMAL, t.precision, t.scale)
+        elif pa.types.is_string(t) or pa.types.is_large_string(t):
+            dt = STRING
+        else:
+            raise TypeError(f"unsupported arrow type {t} for column {f.name}")
+        fields.append(Field(f.name, dt, f.nullable))
+    return Schema(tuple(fields))
+
+
+def ingest_arrow_column(arr, dtype: DataType, dictionary=None) -> HostColumn:
+    """An arrow Array or ChunkedArray of engine type `dtype` (from
+    `schema_from_arrow`) as a HostColumn: arrow -> numpy -> ingest_column."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    if isinstance(arr, pa.ChunkedArray):
+        if arr.num_chunks and pa.types.is_string(arr.type):
+            arr = arr.cast(pa.large_string())   # offsets past 2 GiB
+        arr = arr.combine_chunks() if arr.num_chunks \
+            else pa.array([], type=arr.type)
+    n = len(arr)
+    validity = (np.asarray(pc.is_valid(arr)) if arr.null_count
+                else np.ones(n, dtype=bool))
+    kind = dtype.kind
+    if kind is TypeKind.STRING:
+        filled = arr.fill_null("") if arr.null_count else arr
+        values = np.asarray(filled, dtype=object)
+    elif kind is TypeKind.DECIMAL:
+        # decimal128 -> scaled int64: the low limb of the 128-bit
+        # mantissa (|v| < 2^63 holds for precision <= 18)
+        limbs = np.frombuffer(arr.buffers()[1], dtype=np.int64)
+        values = np.ascontiguousarray(
+            limbs.reshape(-1, 2)[arr.offset:arr.offset + n, 0])
+    elif kind is TypeKind.DATE32:
+        values = np.asarray(arr.cast(pa.int32()).fill_null(0), dtype=np.int32)
+    else:
+        if arr.null_count:
+            arr = arr.fill_null(False if kind is TypeKind.BOOL else 0)
+        values = np.asarray(arr)
+    return ingest_column(values, dtype, validity, dictionary)
+
+
+def to_pandas(batch: Batch, schema: Schema):
+    """Live rows as a pandas DataFrame (decimals as float64, NULL dates
+    as NaT)."""
+    import pandas as pd
+
+    cols = {}
+    raw = to_numpy(batch, schema)
+    for f in schema.fields:
+        data, valid = raw[f.name]
+        if f.dtype.kind is TypeKind.DECIMAL:
+            vals = data.astype(np.float64) / (10 ** f.dtype.scale)
+            cols[f.name] = pd.Series(np.where(valid, vals, np.nan))
+        elif f.dtype.kind is TypeKind.STRING:
+            cols[f.name] = pd.Series(data, dtype=object)
+        elif f.dtype.kind is TypeKind.DATE32:
+            s = pd.Series(data.astype("datetime64[D]"))
+            s[~valid] = pd.NaT
+            cols[f.name] = s
+        elif f.dtype.kind in (TypeKind.FLOAT32, TypeKind.FLOAT64):
+            cols[f.name] = pd.Series(np.where(valid, data, np.nan))
+        else:
+            s = pd.Series(data)
+            if not valid.all():
+                s = s.astype("object")
+                s[~valid] = None
+            cols[f.name] = s
+    return pd.DataFrame(cols)
+
+
+def schema_to_arrow(schema: Schema):
+    """Engine Schema -> pyarrow schema."""
+    import pyarrow as pa
+
+    from .schema import to_arrow_type
+    fields = []
+    for f in schema.fields:
+        if f.dtype.kind is TypeKind.DECIMAL:
+            t = pa.decimal128(max(f.dtype.precision, f.dtype.scale + 1, 1),
+                              f.dtype.scale)
+        else:
+            t = to_arrow_type(f.dtype)
+        fields.append(pa.field(f.name, t, f.nullable))
+    return pa.schema(fields)
+
+
+def to_arrow(batch: Batch, schema: Schema):
+    """Live rows as an exact pyarrow Table (decimals stay decimal128)."""
+    import pyarrow as pa
+
+    arrow_schema = schema_to_arrow(schema)
+    raw = to_numpy(batch, schema)
+    arrays = []
+    for f, af in zip(schema.fields, arrow_schema):
+        data, valid = raw[f.name]
+        mask = ~valid
+        if f.dtype.kind is TypeKind.DECIMAL:
+            s = f.dtype.scale
+            vals = [None if not v else pydecimal.Decimal(int(x)).scaleb(-s)
+                    for x, v in zip(data.tolist(), valid.tolist())]
+            arrays.append(pa.array(vals, type=af.type))
+        elif f.dtype.kind is TypeKind.STRING:
+            arrays.append(pa.array(data, type=pa.string()))
+        elif f.dtype.kind is TypeKind.DATE32:
+            arrays.append(pa.array(data.astype(np.int32), type=pa.date32(),
+                                   mask=mask))
+        else:
+            arrays.append(pa.array(data, type=af.type, mask=mask))
+    return pa.Table.from_arrays(arrays, schema=arrow_schema)

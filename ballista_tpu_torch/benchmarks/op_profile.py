@@ -3,10 +3,15 @@
     python -m ballista_tpu_torch.benchmarks.op_profile --sf 1 --queries 3 5
     python -m ballista_tpu_torch.benchmarks.op_profile --queries \
         --analytic window_running moments_sorted
+    python -m ballista_tpu_torch.benchmarks.op_profile --queries \
+        --h2o 4 6 9 taxi --h2o-n 1e7
 
 `--analytic` takes names of `benchmarks.queries.ANALYTIC_QUERIES` (window
 functions, statistical aggregates, bag set operations); a bare `--queries`
-leaves the TPC-H queries out. For each query, over tables generated at
+leaves the TPC-H queries out. `--h2o` takes h2o groupby question numbers
+and `taxi`, over `benchmarks.h2o.groupby_table` and
+`benchmarks.nyctaxi.synthetic_tripdata` at `--h2o-n` rows, registered
+from numpy arrays. For each query, over tables generated at
 `--sf` (seed 19940101) and uploaded before timing:
 - `collect()` and `run_plan` wall times (host clock around work that ends
   in a synchronize; median of `--reps`). `run_plan` runs the plan built
@@ -40,6 +45,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..client import SessionContext
 from ..datagen import register_tpch
 from ..exec.plan import ExecNode, Run, run_plan
+from . import h2o, nyctaxi
 from .queries import ANALYTIC_QUERIES, TPCH_QUERIES
 
 
@@ -148,16 +154,28 @@ def main(argv=None):
     ap.add_argument("--queries", type=int, nargs="*", default=[3, 5])
     ap.add_argument("--analytic", nargs="*", default=[],
                     choices=sorted(ANALYTIC_QUERIES), metavar="NAME")
+    ap.add_argument("--h2o", nargs="*", default=[], metavar="Q",
+                    help="h2o groupby question numbers and 'taxi'")
+    ap.add_argument("--h2o-n", type=float, default=1e7)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default="build/op_profile.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("op_profile: needs a CUDA device")
     ctx = SessionContext(device="cuda")
-    register_tpch(ctx, args.sf)
+    if args.queries or args.analytic:
+        register_tpch(ctx, args.sf)
     result = {"device": torch.cuda.get_device_name(0), "sf": args.sf}
     queries = [(f"q{q}", TPCH_QUERIES[q]) for q in args.queries] \
         + [(name, ANALYTIC_QUERIES[name]) for name in args.analytic]
+    n = int(args.h2o_n)
+    if [q for q in args.h2o if q != "taxi"]:
+        ctx.register_numpy("x", h2o.groupby_table(n))
+    if "taxi" in args.h2o:
+        ctx.register_numpy("tripdata", nyctaxi.synthetic_tripdata(n))
+    queries += [("taxi", nyctaxi.QUERIES["fare_amt_by_passenger"])
+                if q == "taxi" else
+                (f"h2o_q{q}", h2o.GROUPBY_QUERIES[int(q)]) for q in args.h2o]
     for q, sql in queries:
         r = profile_query(ctx, sql, args.reps)
         result[q] = r

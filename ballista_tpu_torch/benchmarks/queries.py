@@ -755,3 +755,60 @@ ANALYTIC_QUERIES = {
         select o_custkey from orders except all
         select c_nationkey from customer""",
 }
+
+
+def _frame_api(col, lit, agg):
+    """The DataFrame API's constructors: the port's unless a caller hands
+    in another package's (the parity tests do)."""
+    if col is None:
+        from ..client import col, lit
+        from ..exec.aggregate import AggExpr as agg
+    return col, lit, agg
+
+
+def q1_frame(ctx, col=None, lit=None, agg=None):
+    """TPC-H Q1 as DataFrame calls on `ctx` (same answer as
+    TPCH_QUERIES[1])."""
+    import datetime
+    col, lit, A = _frame_api(col, lit, agg)
+    disc = col("l_extendedprice") * (lit(1) - col("l_discount"))
+    return (ctx.table("lineitem")
+            .filter(col("l_shipdate") <= lit(datetime.date(1998, 9, 2)))
+            .aggregate(
+                [col("l_returnflag"), col("l_linestatus")],
+                [A("sum", col("l_quantity"), "sum_qty"),
+                 A("sum", col("l_extendedprice"), "sum_base_price"),
+                 A("sum", disc, "sum_disc_price"),
+                 A("sum", disc * (lit(1) + col("l_tax")), "sum_charge"),
+                 A("avg", col("l_quantity"), "avg_qty"),
+                 A("avg", col("l_extendedprice"), "avg_price"),
+                 A("avg", col("l_discount"), "avg_disc"),
+                 A("count_star", alias="count_order")])
+            .sort(col("l_returnflag"), col("l_linestatus")))
+
+
+def q3_frame(ctx, col=None, lit=None, agg=None):
+    """TPC-H Q3 as DataFrame calls on `ctx` (same answer as
+    TPCH_QUERIES[3]); the left frame of a join is its build side and
+    holds each key once."""
+    import datetime
+    col, lit, A = _frame_api(col, lit, agg)
+    day = datetime.date(1995, 3, 15)
+    cust = ctx.table("customer") \
+        .filter(col("c_mktsegment").eq(lit("BUILDING"))) \
+        .select_columns("c_custkey")
+    orders = ctx.table("orders").filter(col("o_orderdate") < lit(day)) \
+        .select_columns("o_orderkey", "o_custkey", "o_orderdate",
+                        "o_shippriority")
+    items = ctx.table("lineitem").filter(col("l_shipdate") > lit(day)) \
+        .select_columns("l_orderkey", "l_extendedprice", "l_discount")
+    return (cust.join(orders, [("c_custkey", "o_custkey")])
+            .join(items, [("o_orderkey", "l_orderkey")])
+            .aggregate(
+                [col("l_orderkey"), col("o_orderdate"), col("o_shippriority")],
+                [A("sum", col("l_extendedprice") * (lit(1) - col("l_discount")),
+                   "revenue")])
+            .select(col("l_orderkey"), col("revenue"), col("o_orderdate"),
+                    col("o_shippriority"))
+            .sort((col("revenue"), False), col("o_orderdate"))
+            .limit(10))

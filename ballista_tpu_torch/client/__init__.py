@@ -1,2 +1,2 @@
 from .context import SessionContext
-from .dataframe import DataFrame
+from .dataframe import DataFrame, col, lit

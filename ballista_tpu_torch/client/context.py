@@ -2,8 +2,11 @@
 ballista_tpu/client/context.py).
 
 Local mode only: one device, one partition per table. Tables are
-registered from host columns (`HostColumn`s, e.g. from `datagen`) and
-uploaded to the device column by column, on first use.
+registered from numpy arrays (`register_numpy`, which needs no pyarrow),
+from arrow tables, pandas frames, csv, parquet and json files (converted
+onto it), or from ready `HostColumn`s (`register_host`, e.g. from
+`datagen`); they are ingested on the host at registration and uploaded
+to the context's device column by column, on first use.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from .. import batch as B
 from ..exec.plan import run_plan
 from ..planner import logical as L
 from ..planner.physical import PhysicalOptions, create_physical_plan
-from ..schema import Field, Schema
+from ..schema import STRING, Field, Schema
 from .dataframe import DataFrame
 
 
@@ -57,6 +60,11 @@ class TableProvider:
                   if self.host[f.name].bounds is not None}
         return Schema(self.fields, dicts, bounds)
 
+    def evict_device(self) -> None:
+        """Drop the device columns; the host columns stay, and a column
+        is uploaded again when a query next reads it."""
+        self._cols.clear()
+
     def column_batch(self, names) -> B.Batch:
         """Device batch of exactly `names`, in order."""
         dtypes = {f.name: f.dtype for f in self.fields}
@@ -69,6 +77,18 @@ class TableProvider:
         return B.Batch(tuple(self._cols[c] for c in names),
                        torch.tensor(self.num_rows, dtype=torch.int32,
                                     device=self.device))
+
+
+def _is_masked_pair(value) -> bool:
+    """A `(values, validity)` column of `register_numpy`: a 2-tuple whose
+    second half is a bool array or list as long as the first. Any other
+    tuple is a column's values, as a list would be."""
+    if not (isinstance(value, tuple) and len(value) == 2
+            and isinstance(value[1], (np.ndarray, list))):
+        return False
+    mask = np.asarray(value[1])
+    return (mask.dtype == np.bool_ and mask.ndim == 1
+            and np.ndim(value[0]) == 1 and len(value[0]) == len(mask))
 
 
 class SessionContext:
@@ -87,13 +107,106 @@ class SessionContext:
         # CREATE VIEW: name -> (SelectStmt, column aliases), expanded by
         # the SQL planner wherever the name is scanned
         self.views: Dict[str, tuple] = {}
-        self.warnings = []
+        # planning warnings accumulated per session (WarningCollector,
+        # core/src/warning_collector.rs)
+        self.warnings: list = []
+        self.config = None  # optional BallistaConfig (set_config)
 
+    def set_config(self, config) -> None:
+        """Keep a BallistaConfig on this session. The reference also
+        takes its capacity mode and plugin directory from it; the port
+        has no capacity mode (a table's capacity is its lane-rounded row
+        count) and no plugin loader yet, so a configured plugin
+        directory raises."""
+        from ..config import BALLISTA_PLUGIN_DIR
+        if config.get(BALLISTA_PLUGIN_DIR):
+            raise NotImplementedError("load_plugins is not ported")
+        self.config = config
+
+    def evict_device(self) -> None:
+        """Free device memory: drop every table's device columns (the
+        host columns stay; a column is uploaded again on next use)."""
+        for tp in self.tables.values():
+            tp.evict_device()
+        B.drop_row_indices()
+
+    # -- registration (BallistaContext::register_* parity) --
     def register_host(self, name: str, fields: Sequence[Field],
                       columns: Dict[str, B.HostColumn],
                       primary_key=None) -> None:
         self.tables[name] = TableProvider(name, fields, columns, self.device,
                                           primary_key)
+
+    def register_numpy(self, name: str, columns: dict, fields=None,
+                       primary_key=None) -> None:
+        """Register a table from host arrays: `columns` maps each column
+        name to a numpy array or Python list (None = NULL), or to a
+        `(values, validity)` pair whose second half is a bool array or
+        list of the same length. `fields` (a sequence of `Field`)
+        declares the types where they cannot be read off the arrays
+        (decimals: `decimal(p, s)` over scaled integers) and the column
+        order; without it every column has the type `batch.column_dtype`
+        infers. The columns are ingested on the host
+        (`batch.ingest_column`) and reach the context's device on first
+        use. Ready `HostColumn`s go to `register_host`."""
+        declared = {f.name: f for f in fields or ()}
+        order = [f.name for f in fields] if fields else list(columns)
+        out_fields, host = [], {}
+        for cname in order:
+            value, validity = columns[cname], None
+            if _is_masked_pair(value):
+                value, validity = value
+            value = B.as_array(value)
+            f = declared.get(cname) or Field(cname, B.column_dtype(value))
+            out_fields.append(f)
+            host[cname] = B.ingest_column(value, f.dtype, validity)
+        self.register_host(name, out_fields, host, primary_key)
+
+    def register_arrow(self, name: str, table, primary_key=None) -> None:
+        fields = B.schema_from_arrow(table.schema).fields
+        self.register_host(
+            name, fields,
+            {f.name: B.ingest_arrow_column(table.column(i), f.dtype)
+             for i, f in enumerate(fields)}, primary_key)
+
+    def register_pandas(self, name: str, df, primary_key=None) -> None:
+        import pyarrow as pa
+        self.register_arrow(name, pa.Table.from_pandas(df, preserve_index=False),
+                            primary_key)
+
+    def register_csv(self, name: str, path: str, schema=None,
+                     primary_key=None, **kwargs) -> None:
+        import pyarrow.csv as pacsv
+        opts = {}
+        if schema is not None:
+            opts["convert_options"] = pacsv.ConvertOptions(column_types=schema)
+        self.register_arrow(name, pacsv.read_csv(path, **opts), primary_key)
+
+    def register_parquet(self, name: str, path: str, primary_key=None) -> None:
+        import pyarrow.parquet as pq
+        self.register_arrow(name, pq.read_table(path), primary_key)
+
+    def register_json(self, name: str, path: str, primary_key=None) -> None:
+        """Newline-delimited JSON (BallistaContext::read_json parity)."""
+        import pyarrow.json as pajson
+        self.register_arrow(name, pajson.read_json(path), primary_key)
+
+    # read_* variants return a DataFrame over an anonymous registration
+    # (BallistaContext::read_csv/parquet/json, context.rs:143+)
+    def read_csv(self, path: str, schema=None, **kwargs) -> DataFrame:
+        name = f"__read_{len(self.tables)}"
+        self.register_csv(name, path, schema=schema, **kwargs)
+        return self.table(name)
+
+    def read_parquet(self, path: str) -> DataFrame:
+        name = f"__read_{len(self.tables)}"
+        self.register_parquet(name, path)
+        return self.table(name)
+
+    def read_json(self, path: str) -> DataFrame:
+        name = f"__read_{len(self.tables)}"
+        self.register_json(name, path)
+        return self.table(name)
 
     def register_udf(self, name: str, fn, out_dtype,
                      propagate_nulls: bool = True) -> None:
@@ -101,6 +214,19 @@ class SessionContext:
         tensors) -> data tensor (`exprs.register_udf`)."""
         from ..exprs import register_udf
         register_udf(name, fn, out_dtype, propagate_nulls)
+
+    def list_functions(self, kind=None):
+        """All SQL functions, built-ins + registered UDFs
+        (ballista-cli ListFunctions, command.rs:36)."""
+        from ..functions import list_functions
+        return list_functions(kind)
+
+    def warn(self, message: str) -> None:
+        self.warnings.append(message)
+
+    def take_warnings(self):
+        out, self.warnings = self.warnings, []
+        return out
 
     def unique_keys(self, name: str):
         """Unique column sets for join build-side selection and
@@ -121,30 +247,129 @@ class SessionContext:
                         tp._inferred_unique.append((f.name,))
         return tp._inferred_unique
 
+    def table(self, name: str) -> DataFrame:
+        tp = self.tables[name]
+        return DataFrame(self, L.TableScan(
+            name, tp.schema,
+            unique_cols=tuple(tuple(k) for k in self.unique_keys(name))))
+
     def sql(self, query: str) -> DataFrame:
-        """Plan a SQL script of SELECT, CREATE VIEW and DROP VIEW
-        statements (the TPC-H Q15 shape); returns the last SELECT. Each
-        SELECT is planned when it is read, so a view dropped after it has
-        already been expanded into its plan."""
-        from ..sql.parser import (CreateView, DropView, SelectStmt,
-                                  SetOpStmt, UnionStmt, parse_statements)
+        """Run a SQL script: SELECTs, CREATE / DROP VIEW (the TPC-H Q15
+        shape), CREATE TABLE AS, CREATE EXTERNAL TABLE, EXPLAIN, SHOW
+        TABLES and SHOW COLUMNS (BallistaContext::sql intercepts DDL the
+        same way, context.rs:362). Returns the last statement that yields
+        rows as a DataFrame. Each SELECT is planned when it is read, so a
+        view dropped after it has already been expanded into its plan."""
+        from ..sql.parser import (CreateExternalTable, CreateTableAs,
+                                  CreateView, DropView, ExplainStmt,
+                                  ShowColumns, ShowTables, parse_statements)
         from ..sql.planner import SqlPlanner
 
         last = None
         for stmt in parse_statements(query):
             if isinstance(stmt, CreateView):
                 self.views[stmt.name] = (stmt.query, stmt.columns)
-                continue
-            if isinstance(stmt, DropView):
+            elif isinstance(stmt, DropView):
                 self.views.pop(stmt.name, None)
-                continue
-            if not isinstance(stmt, (SelectStmt, UnionStmt, SetOpStmt)):
-                raise NotImplementedError(
-                    f"{type(stmt).__name__} statements are not ported yet")
-            last = DataFrame(self, SqlPlanner(self).plan_select(stmt))
+            elif isinstance(stmt, CreateExternalTable):
+                self._create_external_table(stmt)
+            elif isinstance(stmt, CreateTableAs):
+                self._create_table_as(stmt.name, DataFrame(
+                    self, SqlPlanner(self).plan_select(stmt.query)))
+            elif isinstance(stmt, ExplainStmt):
+                last = self._explain(stmt.query)
+            elif isinstance(stmt, ShowTables):
+                last = self._show_tables()
+            elif isinstance(stmt, ShowColumns):
+                last = self._show_columns(stmt.name)
+            else:
+                last = DataFrame(self, SqlPlanner(self).plan_select(stmt))
         if last is None:
             raise ValueError("no SELECT statement in script")
         return last
+
+    # -- DDL / catalog statements intercepted like BallistaContext::sql --
+    def _create_external_table(self, stmt):
+        if stmt.fmt == "csv":
+            import pyarrow.csv as pacsv
+
+            from ..schema import to_arrow_type
+            kwargs = {}
+            if stmt.columns:
+                kwargs["convert_options"] = pacsv.ConvertOptions(
+                    column_types={n: to_arrow_type(t)
+                                  for n, t in stmt.columns})
+                if not stmt.header:
+                    kwargs["read_options"] = pacsv.ReadOptions(
+                        column_names=[n for n, _ in stmt.columns])
+            self.register_arrow(stmt.name,
+                                pacsv.read_csv(stmt.location, **kwargs))
+        elif stmt.fmt == "parquet":
+            self.register_parquet(stmt.name, stmt.location)
+        elif stmt.fmt in ("json", "ndjson"):
+            self.register_json(stmt.name, stmt.location)
+        else:
+            raise NotImplementedError(f"STORED AS {stmt.fmt}")
+
+    def _create_table_as(self, name: str, df: DataFrame) -> None:
+        """Run the SELECT, bring its rows to the host and register them
+        (ingested anew: fresh dictionaries and bounds)."""
+        batch, schema = df.collect()
+        self.register_numpy(name, B.to_numpy(batch, schema),
+                            fields=schema.fields)
+
+    def _catalog_df(self, name: str, columns: dict) -> DataFrame:
+        """A catalog result (lists of str per column) as a table."""
+        self.register_numpy(name, columns,
+                            fields=[Field(c, STRING) for c in columns])
+        return self.table(name)
+
+    def _explain(self, query_stmt) -> DataFrame:
+        """EXPLAIN <select>: one row per plan tier (DataFusion's
+        (plan_type, plan) shape the reference inherits)."""
+        from ..sql.planner import SqlPlanner
+        plan = SqlPlanner(self).plan_select(query_stmt)
+        rows = [("logical_plan", plan.display())]
+        try:
+            rows.append(("physical_plan", self.physical_plan(plan).display()))
+        except Exception as e:  # noqa: BLE001 - logical tier still useful
+            rows.append(("physical_plan", f"<not available: {e}>"))
+        return self._catalog_df("__explain__", {
+            "plan_type": [r[0] for r in rows], "plan": [r[1] for r in rows]})
+
+    def _show_tables(self) -> DataFrame:
+        """SHOW TABLES (information_schema.tables shape, config.rs
+        with_information_schema parity)."""
+        rows = [("ballista", "public", n, "BASE TABLE")
+                for n in self.tables if not n.startswith("__")]
+        rows += [("ballista", "public", n, "VIEW") for n in self.views]
+        cols = [list(c) for c in zip(*rows)] or [[], [], [], []]
+        return self._catalog_df("__show_tables__", {
+            "table_catalog": cols[0], "table_schema": cols[1],
+            "table_name": cols[2], "table_type": cols[3]})
+
+    def _show_columns(self, name: str) -> DataFrame:
+        tp = self.tables.get(name)
+        if tp is None:
+            raise KeyError(f"table {name!r} not found")
+        return self._catalog_df("__show_columns__", {
+            "table_name": [name] * len(tp.fields),
+            "column_name": [f.name for f in tp.fields],
+            "data_type": [str(f.dtype) for f in tp.fields],
+            "is_nullable": ["YES" if f.nullable else "NO"
+                            for f in tp.fields]})
+
+    def _info_columns(self) -> DataFrame:
+        """information_schema.columns: one row per column of every table."""
+        rows = [("ballista", "public", tn, f.name, str(f.dtype),
+                 "YES" if f.nullable else "NO")
+                for tn, tp in self.tables.items() if not tn.startswith("__")
+                for f in tp.fields]
+        cols = [list(c) for c in zip(*rows)] or [[] for _ in range(6)]
+        return self._catalog_df("__info_columns__", {
+            "table_catalog": cols[0], "table_schema": cols[1],
+            "table_name": cols[2], "column_name": cols[3],
+            "data_type": cols[4], "is_nullable": cols[5]})
 
     def bind_inputs(self, input_ids) -> dict:
         """Bind plan input ids to device batches. Column-scoped ids

@@ -33,6 +33,7 @@ _EXPR_ATTRS = (
     "specs",                      # WindowExec
 )
 _VALUE_ATTRS = (
+    "emit_sparse",                # FilterExec, HashJoinExec
     "input_id",                   # InputLeaf
     "device",                     # OneRowExec
     "mode", "table_size", "_group_names",         # HashAggregateExec

@@ -156,9 +156,17 @@ class OneRowExec(ExecNode):
         return "OneRowExec"
 
 
+def _sparse(columns, keep: torch.Tensor) -> Batch:
+    """The rows of `columns` where `keep`, left where they are: a sparse
+    batch (its row count stays on the device)."""
+    return Batch(tuple(columns), keep.sum().to(torch.int32), keep)
+
+
 class FilterExec(ExecNode):
     """WHERE without an aggregate or join above to fuse it into: the kept
-    rows are compacted to the front."""
+    rows are compacted to the front, or, with `emit_sparse` (set by
+    `plan_sparse_flow` where the parent reads liveness through `row_mask`
+    alone), left in place under the keep mask as `Batch.live`."""
 
     def __init__(self, child: ExecNode, predicate: Expr):
         self.children = (child,)
@@ -166,13 +174,17 @@ class FilterExec(ExecNode):
         self.schema = child.schema
         self.capacity = child.capacity
         self._bound = bind_expr(predicate, child.schema)
+        self.emit_sparse = False
 
     def evaluate(self, run):
         b = run.eval(self.children[0])
+        if self.emit_sparse:
+            return _sparse(b.columns, _live_where(b, self._bound))
         return filter_batch(b, self._bound.fn(b))
 
     def _label(self):
-        return f"FilterExec({self.predicate})"
+        return (f"FilterExec({self.predicate})"
+                + (" sparse" if self.emit_sparse else ""))
 
 
 class ProjectExec(ExecNode):
@@ -205,7 +217,7 @@ class ProjectExec(ExecNode):
         for bound in self._bounds:
             c = bound.fn(b)
             cols.append(Column(c.data, c.validity & live))
-        return Batch(tuple(cols), b.num_rows)
+        return b.replace_columns(cols)
 
     def _label(self):
         return f"ProjectExec({', '.join(map(str, self.exprs))})"
@@ -517,9 +529,11 @@ class HashJoinExec(ExecNode):
 
     A unique build (each key at most once among live build rows) keeps
     the probe's capacity: inner, semi and anti compact the kept rows to
-    the front in probe order; left_outer keeps the probe batch's rows in
-    place, so its probe side must come unfiltered (the planner keeps a
-    FilterExec there). A duplicate-key build takes the expanding path
+    the front in probe order, or with `emit_sparse` (`plan_sparse_flow`)
+    leave them in place under the keep mask as `Batch.live`; left_outer
+    keeps the probe batch's rows in place, so its probe side must come
+    unfiltered (the planner keeps a FilterExec there; where that filter
+    hands over a sparse batch, the joined rows are compacted). A duplicate-key build takes the expanding path
     (ops.expand_join, inner or left_outer): pairs in probe-row order, then
     build-row order, in a batch of `out_capacity` rows; a larger total
     raises the run's overflow flag, and the client retries with a larger
@@ -548,6 +562,7 @@ class HashJoinExec(ExecNode):
                            if probe_pre_filter is not None else None)
         # semi/anti only test existence: a duplicate build key is harmless
         self.unique_build = unique_build or join_type in ("semi", "anti")
+        self.emit_sparse = False
         if self.unique_build:
             self.capacity = probe.capacity
         else:
@@ -635,6 +650,8 @@ class HashJoinExec(ExecNode):
         matched = match >= 0
         if self.join_type in ("semi", "anti"):
             keep = (matched if self.join_type == "semi" else ~matched) & plive
+            if self.emit_sparse:
+                return _sparse(probe_b.columns, keep)
             return compact_batch(probe_b, keep)
 
         # build KEY columns need no gather: the equality join makes their
@@ -650,14 +667,18 @@ class HashJoinExec(ExecNode):
                                        match.clamp(min=0), valid_and=matched))
         build_cols = tuple(synth[i] if i in synth else next(gathered)
                            for i in range(len(build_b.columns)))
-        joined = Batch(build_cols + probe_b.columns, probe_b.num_rows)
+        joined = Batch(build_cols + probe_b.columns, probe_b.num_rows,
+                       probe_b.live)
         if self.join_type == "left_outer":
             # every probe row survives in place; build columns are
-            # already NULL where it found no match
+            # already NULL where it found no match. The probe is dense
+            # here (`plan_sparse_flow`), so the output is too
             return joined
         if self.join_type == "full_outer":
             return self._append_unmatched_build(joined, build_b,
                                                 blive & ~build_matched)
+        if self.emit_sparse:
+            return _sparse(joined.columns, matched & plive)
         return compact_batch(joined, matched & plive)
 
     def _append_unmatched_build(self, joined: Batch, build_b: Batch,
@@ -698,7 +719,8 @@ class HashJoinExec(ExecNode):
 
     def _label(self):
         mode = "unique" if self.unique_build else "expanding"
-        return f"HashJoinExec[{self.join_type},{mode}](on={list(self.on)})"
+        return (f"HashJoinExec[{self.join_type},{mode}](on={list(self.on)})"
+                + (" sparse" if self.emit_sparse else ""))
 
 
 def _final_agg(a: AggExpr, in_schema: Schema) -> BoundAgg:
@@ -921,7 +943,7 @@ class DictRemapExec(ExecNode):
         for idx, lut in self._luts.items():
             c = cols[idx]
             cols[idx] = Column(gather_lut(lut, c), c.validity)
-        return Batch(tuple(cols), b.num_rows)
+        return b.replace_columns(cols)
 
     def _label(self):
         return f"DictRemapExec(cols={sorted(self._luts)})"
@@ -980,7 +1002,7 @@ class SortExec(ExecNode):
         # materialize key columns alongside, sort, drop keys
         ncols = len(b.columns)
         key_cols = tuple(kb.fn(b) for kb, _, _ in self._key_bounds)
-        tmp = Batch(b.columns + key_cols, b.num_rows)
+        tmp = Batch(b.columns + key_cols, b.num_rows, b.live)
         specs = [SortKeySpec(ncols + i, asc, nf)
                  for i, (_, asc, nf) in enumerate(self._key_bounds)]
         out = sort_batch(tmp, specs)
@@ -1016,6 +1038,48 @@ class LimitExec(ExecNode):
     def _label(self):
         off = f", offset={self.offset}" if self.offset else ""
         return f"LimitExec({self.n}{off})"
+
+
+def plan_sparse_flow(root: ExecNode) -> ExecNode:
+    """Static routing of sparse batches: a filter, or an inner, semi or
+    anti join on a unique build, whose parent reads liveness through
+    `row_mask` alone leaves out its output compaction (a stable sort of
+    the keep mask and a gather of every column) and hands its keep mask
+    over as `Batch.live`. Such parents are the aggregate, the sort, the
+    filter and both inputs of a hash join; a projection and a dictionary
+    remap work row by row and pass the mask on. Everything else (limit,
+    coalesce, cross and nested-loop join, window, the root's caller)
+    needs dense input, so its children keep compacting. So does the probe
+    of a left or full outer join on a unique build: its output is the
+    probe's rows in place and is no sparse producer, so the probe's own
+    filter packs the probe columns alone (the reference hands the probe's
+    mask on through that join instead). Run before
+    `cse_tree`, which keeps a subtree wanted sparse by one parent and
+    dense by another apart (`emit_sparse` is part of its node key)."""
+    consumers = (HashAggregateExec, SortExec, FilterExec, HashJoinExec)
+    transparent = (ProjectExec, DictRemapExec)
+
+    def walk(node: ExecNode, parent_accepts: bool) -> None:
+        if parent_accepts:
+            if isinstance(node, FilterExec):
+                node.emit_sparse = True
+            elif (isinstance(node, HashJoinExec) and node.unique_build
+                  and node.join_type in ("inner", "semi", "anti")):
+                node.emit_sparse = True
+        if isinstance(node, consumers):
+            child_accepts = True
+        elif isinstance(node, transparent):
+            child_accepts = parent_accepts
+        else:
+            child_accepts = False
+        for i, c in enumerate(node.children):
+            walk(c, child_accepts and not (
+                i == 1 and isinstance(node, HashJoinExec)
+                and node.unique_build
+                and node.join_type in ("left_outer", "full_outer")))
+
+    walk(root, False)
+    return root
 
 
 def run_plan(root: ExecNode, inputs: Dict[str, Batch]):

@@ -763,17 +763,43 @@ def _bool_lut(c: Bound, lut: np.ndarray) -> Bound:
     return Bound(BOOL, c.nullable, fn)
 
 
+# host tables derived from a dictionary, kept per (dictionary object,
+# what was derived): a query is bound again on every collect, and a LIKE
+# or a substring over a 200,000-entry dictionary is a Python loop over
+# it. An entry holds its dictionary, so the id in the key cannot be
+# reused by another array while the entry lives. Oldest entries go first.
+_DICT_CACHE: dict = {}
+_DICT_CACHE_MAX = 64
+
+
+def dict_cached(dictionary: np.ndarray, what: tuple, make):
+    """`make()`, computed once per (`dictionary` object, `what`). The
+    value is shared between binds: treat it as read-only."""
+    key = (id(dictionary), what)
+    hit = _DICT_CACHE.get(key)
+    if hit is not None and hit[0] is dictionary:
+        return hit[1]
+    value = make()
+    if len(_DICT_CACHE) >= _DICT_CACHE_MAX:
+        _DICT_CACHE.pop(next(iter(_DICT_CACHE)))
+    _DICT_CACHE[key] = (dictionary, value)
+    return value
+
+
 def like_lut(dictionary: Optional[np.ndarray], pattern: str) -> np.ndarray:
     """SQL LIKE over every dictionary entry, as a bool array: `%` matches
     any run of characters, `_` any one character, and the whole entry must
     match (pyarrow.compute.match_like's semantics, without pyarrow)."""
     if dictionary is None or not len(dictionary):
         return np.zeros(0, dtype=bool)
-    rx = re.compile("".join(".*" if ch == "%" else "." if ch == "_"
-                            else re.escape(ch) for ch in pattern), re.S)
-    return np.fromiter((rx.fullmatch(s) is not None
-                        for s in dictionary.astype(str)),
-                       dtype=bool, count=len(dictionary))
+
+    def make():
+        rx = re.compile("".join(".*" if ch == "%" else "." if ch == "_"
+                                else re.escape(ch) for ch in pattern), re.S)
+        return np.fromiter((rx.fullmatch(s) is not None
+                            for s in dictionary.astype(str)),
+                           dtype=bool, count=len(dictionary))
+    return dict_cached(dictionary, ("like", pattern), make)
 
 
 def _bind_in_list(e: InList, schema: Schema) -> Bound:
@@ -926,19 +952,32 @@ def _days_from_civil(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return era * 146097 + doe - 719468
 
 
-def _dict_lut_bound(c: Bound, values: list, code_bound: bool) -> Bound:
-    """A string function as a host map over c's dictionary: `values[i]` is
-    the result for code i. The results form a new sorted dictionary (whose
-    size is the code bound, where `code_bound`); the device gathers the
-    code map."""
+def _dict_fn_bound(c: Bound, what: tuple, xform, code_bound: bool) -> Bound:
+    """The string function `xform` (named by `what`) over c's dictionary,
+    its tables made once per dictionary (`dict_cached`)."""
+    return _dict_lut_bound(c, dict_cached(
+        c.dictionary, what, lambda: _dict_tables(
+            [xform(s) for s in c.dictionary.astype(str)])), code_bound)
+
+
+def _dict_tables(values: list):
+    """(new sorted dictionary, int32 code map) of per-code results."""
     vals = np.array(values, dtype=str) if values else np.zeros(0, dtype=str)
     new_dict, lut = np.unique(vals, return_inverse=True)
-    lut = lut.astype(np.int32).reshape(-1)
+    return new_dict.astype(object), lut.astype(np.int32).reshape(-1)
+
+
+def _dict_lut_bound(c: Bound, tables, code_bound: bool) -> Bound:
+    """A string function as a host map over c's dictionary: `tables` is
+    `_dict_tables` of the per-code results. They form a new sorted
+    dictionary (whose size is the code bound, where `code_bound`); the
+    device gathers the code map."""
+    new_dict, lut = tables
 
     def fn(batch):
         col = c.fn(batch)
         return Column(gather_lut(lut, col), col.validity)
-    return Bound(STRING, c.nullable, fn, dictionary=new_dict.astype(object),
+    return Bound(STRING, c.nullable, fn, dictionary=new_dict,
                  code_bound=max(len(new_dict), 1) if code_bound else None)
 
 
@@ -956,13 +995,22 @@ def _string_arg(e: ScalarFn, schema: Schema) -> Bound:
     return c
 
 
+# the built-in scalar functions: what `_bind_scalar_fn` takes besides the
+# registered UDFs (`functions.list_functions` lists these)
+SCALAR_FN_NAMES = (
+    "extract_year", "extract_month", "extract_day", "date_trunc",
+    "floor", "ceil", "ceiling", "round", "sqrt", "abs", "substring",
+    "upper", "lower", "trim", "ltrim", "rtrim", "reverse", "replace",
+    "length", "char_length", "character_length", "octet_length",
+    "concat", "coalesce")
+
+
 def _bind_scalar_fn(e: ScalarFn, schema: Schema) -> Bound:
-    """Registered UDFs, extract_year/month/day, date_trunc, floor, ceil,
-    round, sqrt, abs, substring, upper, lower, trim, ltrim, rtrim,
-    reverse, replace, length (and char_length, character_length,
-    octet_length), concat and coalesce; any other name raises
-    NotImplementedError naming it."""
+    """Registered UDFs and the functions of SCALAR_FN_NAMES; any other
+    name raises NotImplementedError naming it."""
     name = e.name.lower()
+    if name not in _UDF_REGISTRY and name not in SCALAR_FN_NAMES:
+        raise NotImplementedError(f"scalar function {e.name}")
     if name in _UDF_REGISTRY:
         fn_impl, out_dtype, prop = _UDF_REGISTRY[name]
         parts = [bind_expr(a, schema) for a in e.args]
@@ -1063,26 +1111,29 @@ def _bind_scalar_fn(e: ScalarFn, schema: Schema) -> Bound:
         start = e.args[1].value - 1   # SQL positions are 1-based
         length = e.args[2].value
         stop = None if length < 0 else start + length
-        return _dict_lut_bound(c, [s[start:stop]
-                                   for s in c.dictionary.astype(str)],
-                               code_bound=False)
+        return _dict_fn_bound(c, ("substring", start, stop),
+                              lambda s: s[start:stop], code_bound=False)
     if name in _DICT_STR_FNS or (
             name == "replace" and len(e.args) == 3
             and all(isinstance(a, Lit) for a in e.args[1:])):
         c = _string_arg(e, schema)
         if name == "replace":
             old, new = e.args[1].value, e.args[2].value
+            what = ("replace", old, new)
             xform = lambda s: s.replace(old, new)  # noqa: E731
         else:
-            xform = _DICT_STR_FNS[name]
-        return _dict_lut_bound(c, [xform(s) for s in
-                                   c.dictionary.astype(str)], code_bound=True)
+            what, xform = (name,), _DICT_STR_FNS[name]
+        return _dict_fn_bound(c, what, xform, code_bound=True)
     if name in ("length", "char_length", "character_length",
                 "octet_length"):
         c = _string_arg(e, schema)
-        enc = ((len(s.encode()) if name == "octet_length" else len(s))
-               for s in c.dictionary.astype(str))
-        lens = np.fromiter(enc, dtype=np.int32, count=len(c.dictionary))
+        octets = name == "octet_length"
+        lens = dict_cached(
+            c.dictionary, ("octet_length" if octets else "length",),
+            lambda: np.fromiter(
+                ((len(s.encode()) if octets else len(s))
+                 for s in c.dictionary.astype(str)),
+                dtype=np.int32, count=len(c.dictionary)))
 
         def fn(batch):
             col = c.fn(batch)
@@ -1143,7 +1194,8 @@ def _bind_concat(e: ScalarFn, schema: Schema) -> Bound:
             a1, a2 = cols[0].fn(batch), cols[1].fn(batch)
             return Column(a1.data.to(torch.int64) * m + a2.data,
                           a1.validity & a2.validity)
-    return _dict_lut_bound(Bound(STRING, True, code), vals, code_bound=True)
+    return _dict_lut_bound(Bound(STRING, True, code), _dict_tables(vals),
+                           code_bound=True)
 
 
 def propagate_bounds(exprs, names, in_schema: Schema) -> dict:

@@ -22,7 +22,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..batch import Column
+from ..batch import Column, row_index
 from .masked_sums import masked_slot_sums_rows
 
 # slot counts up to this use the masked layout
@@ -37,6 +37,39 @@ def _slot_index(row_slot: torch.Tensor, T: int) -> torch.Tensor:
                        T).to(torch.int64)
 
 
+# cells a laned reduction may spread its T + 1 slots over
+_LANE_CELLS = 1 << 20
+
+
+def _slot_reduce(index: torch.Tensor, values: torch.Tensor, T: int,
+                 how: str, init=0) -> torch.Tensor:
+    """`values` reduced into T cells by `index` (int64 in [0, T]; T is the
+    spill cell, whose rows are dropped), each cell starting from `init`:
+    (T,) sums (`how` = "sum"), minima ("amin") or maxima ("amax"). Each
+    cell takes only its own rows, so a float sum's rounding is that of its
+    own values. The card reduces with atomics, and rows that share a cell
+    queue up behind each other (neighbouring rows do, on the sorted layout
+    and on a layout of few slots): each cell is spread over up to 128
+    lanes by row position, so a warp's rows go to different addresses, and
+    the lanes are reduced afterwards. Where the cells are too many for
+    two lanes each they are reduced into as they are."""
+    lanes = 1
+    while lanes < 128 and (T + 1) * lanes * 2 <= _LANE_CELLS:
+        lanes *= 2
+    if lanes > 1:
+        pos = row_index(values.shape[0], values.device)
+        index = index * lanes + (pos & (lanes - 1))
+    out = values.new_full(((T + 1) * lanes,), init)
+    if how == "sum":
+        out.index_add_(0, index, values)
+    else:
+        out.scatter_reduce_(0, index, values, how)
+    if lanes == 1:
+        return out[:T]
+    out = out.view(T + 1, lanes)
+    return (out.sum(1) if how == "sum" else getattr(out, how)(1))[:T]
+
+
 class MaskedLayout(NamedTuple):
     row_slot: torch.Tensor   # (n,) int32 in [0, T); dead rows -> T
     live: torch.Tensor       # (n,) bool
@@ -48,11 +81,10 @@ class MaskedLayout(NamedTuple):
         if values.dtype.is_floating_point:
             v = torch.where(active, values, torch.zeros((), dtype=values.dtype,
                                                         device=values.device))
-            out = torch.zeros(self.T + 1, dtype=values.dtype,
-                              device=values.device)
-            out.index_add_(0, _slot_index(self.row_slot, self.T), v)
+            out = _slot_reduce(_slot_index(self.row_slot, self.T), v, self.T,
+                               "sum")
             cnt = self.count(values, validity)[0]
-            return out[:self.T], cnt > 0
+            return out, cnt > 0
         data = values if values.dtype in (torch.int32, torch.int64) \
             else values.to(torch.int64)
         s = masked_slot_sums_rows(self.row_slot, [(data, active),
@@ -79,13 +111,11 @@ class MaskedLayout(NamedTuple):
             sent = info.max if is_min else info.min
         sent_t = torch.full((), sent, dtype=values.dtype, device=values.device)
         v = torch.where(active, values, sent_t)
-        out = torch.full((self.T + 1,), sent, dtype=values.dtype,
-                         device=values.device)
-        out.scatter_reduce_(0, _slot_index(self.row_slot, self.T), v,
-                            "amin" if is_min else "amax")
+        out = _slot_reduce(_slot_index(self.row_slot, self.T), v, self.T,
+                           "amin" if is_min else "amax", sent)
         cnt = self.count(values, validity)[0]
         ok = cnt > 0
-        return torch.where(ok, out[:self.T], torch.zeros_like(sent_t)), ok
+        return torch.where(ok, out, torch.zeros_like(sent_t)), ok
 
     def min(self, values, validity):
         return self._extreme(values, validity, True)
@@ -185,14 +215,23 @@ class SortedLayout(NamedTuple):
         return torch.arange(self.T, device=self.run_end.device) < self.n_groups
 
     def _per_run(self, values):
-        """Per-run sums of `values` (zero on dead rows): differences of the
-        running sum at run ends. Runs are adjacent, so the previous run's
-        end is this run's start - 1. int64 wraps mod 2^64, which is exact
-        for the signed total."""
+        """Per-run sums of `values` (zero on dead rows). Integers:
+        differences of the running sum at run ends. Runs are adjacent, so
+        the previous run's end is this run's start - 1. int64 wraps mod
+        2^64, which is exact for the signed total."""
+        valid = self._valid()
+        if values.dtype.is_floating_point:
+            # a float difference of running sums carries the rounding of
+            # the whole prefix (eps x the running total: at 10^7 rows it
+            # passes 1e-9 of a one-row group's value), so float runs are
+            # summed each into its own cell; rows past the last run that
+            # fits (dead rows, groups beyond T) go to the spill cell
+            out = _slot_reduce(self.run_id.clamp(max=self.T), values, self.T,
+                               "sum")
+            return torch.where(valid, out, torch.zeros_like(out)), valid
         csum = torch.cumsum(values, 0, dtype=values.dtype)
         end = csum.index_select(0, self.run_end)
         prev = torch.cat([end.new_zeros(1), end[:-1]])
-        valid = self._valid()
         return torch.where(valid, end - prev, torch.zeros_like(end)), valid
 
     def _count_ok(self, ok):
@@ -218,14 +257,12 @@ class SortedLayout(NamedTuple):
         else:
             info = torch.iinfo(values.dtype)
             sent = info.max if is_min else info.min
-        out = torch.full((self.T + 1,), sent, dtype=values.dtype,
-                         device=values.device)
-        out.scatter_reduce_(0, self.run_id.clamp(max=self.T),
-                            torch.where(ok, values, sent),
-                            "amin" if is_min else "amax")
+        out = _slot_reduce(self.run_id.clamp(max=self.T),
+                           torch.where(ok, values, sent), self.T,
+                           "amin" if is_min else "amax", sent)
         cnt, valid = self._count_ok(ok)
         valid = valid & (cnt > 0)
-        return torch.where(valid, out[:self.T], torch.zeros_like(out[:1])), valid
+        return torch.where(valid, out, torch.zeros_like(out[:1])), valid
 
     def min(self, values, validity):
         return self._extreme(values, validity, True)

@@ -7,6 +7,8 @@ under each side fused into the join's live masks, except where an outer
 join needs them as FilterExecs; a filtered cross join becomes a
 NestedLoopJoinExec when its product is too large to materialize), Union,
 Sort, Limit, Window and OneRow. The lowered tree goes through
+`exec.plan.plan_sparse_flow`, which marks the filters and joins that may
+hand their keep mask on instead of compacting, and then through
 `exec.cse.cse_tree`, which shares structurally identical subtrees.
 """
 
@@ -22,7 +24,8 @@ from ..exec.cse import cse_tree
 from ..exec.plan import (CoalesceExec, CrossJoinExec, DictRemapExec, ExecNode,
                          FilterExec, HashAggregateExec, HashJoinExec,
                          InputLeaf, LimitExec, NestedLoopJoinExec, OneRowExec,
-                         ProjectExec, SortExec, _next_pow2, _static_one_row)
+                         ProjectExec, SortExec, _next_pow2, _static_one_row,
+                         plan_sparse_flow)
 from ..exec.window import WindowExec
 from ..exprs import BinOp, Col
 from ..schema import TypeKind
@@ -200,4 +203,4 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
             return NestedLoopJoinExec(b, pr, predicate, opts)
         return FilterExec(CrossJoinExec(b, pr), predicate)
 
-    return cse_tree(lower(plan))
+    return cse_tree(plan_sparse_flow(lower(plan)))

@@ -95,6 +95,19 @@ DATE32 = DataType(TypeKind.DATE32)
 STRING = DataType(TypeKind.STRING)
 
 
+def to_arrow_type(dt: DataType):
+    """DataType -> pyarrow type (external-table DDL and Arrow egress)."""
+    import pyarrow as pa
+    if dt.kind is TypeKind.DECIMAL:
+        return pa.decimal128(dt.precision, dt.scale)
+    return {
+        TypeKind.BOOL: pa.bool_(), TypeKind.INT32: pa.int32(),
+        TypeKind.INT64: pa.int64(), TypeKind.FLOAT32: pa.float32(),
+        TypeKind.FLOAT64: pa.float64(), TypeKind.DATE32: pa.date32(),
+        TypeKind.STRING: pa.string(),
+    }[dt.kind]
+
+
 def decimal(precision: int, scale: int) -> DataType:
     if precision > 18:
         raise ValueError(f"decimal precision {precision} > 18 not supported (int64 storage)")

@@ -204,6 +204,8 @@ WINDOW_FNS = ("row_number", "rank", "dense_rank", "lag", "lead",
               "first_value", "last_value", "ntile", "percent_rank",
               "cume_dist", "nth_value")
 
+BASIC_AGG_NAMES = ("sum", "avg", "min", "max", "count")
+
 # name -> AggExpr kind for the statistics aggregates (DataFusion surface)
 MOMENT_AGG_NAMES = {
     "stddev": "stddev_samp", "stddev_samp": "stddev_samp",
@@ -763,7 +765,7 @@ class Parser:
                     self.expect("op", ")")
                     return ScalarFn("substring",
                                     (e, Lit(start), Lit(length if length is not None else -1)))
-                if low in ("sum", "avg", "min", "max", "count"):
+                if low in BASIC_AGG_NAMES:
                     distinct = bool(self.accept("kw", "distinct"))
                     if self.accept("op", "*"):
                         self.expect("op", ")")

@@ -305,8 +305,17 @@ class SqlPlanner:
             return Relation(rel_id, names, plan, ref.alias, uniq)
         name = ref.name
         if name.lower().startswith("information_schema."):
-            raise NotImplementedError(
-                "information_schema tables are not ported yet")
+            # virtual catalog tables (config.rs with_information_schema)
+            kind = name.split(".", 1)[1].lower()
+            if kind == "tables":
+                df = self.ctx._show_tables()
+            elif kind == "columns":
+                df = self.ctx._info_columns()
+            else:
+                raise KeyError(f"unknown catalog table {name!r}")
+            plan = df.plan
+            names = [f.name for f in plan.schema().fields]
+            return Relation(rel_id, names, plan, ref.alias or kind, [])
         if name in self._ctes:
             # pop while planning: a self-reference resolves to the base
             # table/KeyError instead of infinite recursion (WITH RECURSIVE

@@ -70,6 +70,25 @@ Phases:
    INTERSECT ALL and EXCEPT ALL of o_custkey against c_nationkey, exact;
    Q21 planned once with `converge` and re-run with `run_plan`, beside
    `collect()`, and its evaluate calls with and without shared subtrees.
+11. the client slice, no pyarrow and no pandas, every answer against numpy
+   on the same host arrays: the h2o db-benchmark groupby task at N = 10^7,
+   K = 100 (G1_1e7_1e2_0_0: nine columns registered from numpy arrays with
+   `register_numpy`, ingest seconds per column; the 10 questions through
+   `ctx.sql(text).collect()`, warm median of 3, the aggregate's layout,
+   kernel launches and overflow retries per question; counts and integer
+   sums exact, f64 sums, averages, stddev and corr at rtol 1e-9, the
+   median at rtol 1e-12, q8 exact as a multiset; q10's ~10^7 groups must
+   come through the overflow retries); the join task at N = 10^6 (J1_1e6:
+   row counts, matched rows, sum(v1) and sum(v2) of the 5 questions); the
+   taxi query over 10^7 synthetic trips; TPC-H Q1 and Q3 at SF1 written
+   as DataFrame calls, equal to answers/sf1 (Q1 must launch the kernel at
+   T = 12); for Q3, Q5, Q7, Q8, Q9, Q18 and Q21 the nodes `plan_sparse_flow`
+   marked and the warm `run_plan` of the converged plan; EXPLAIN, SHOW
+   TABLES and CREATE TABLE AS on the SF1 context, with a SELECT over the
+   new table against numpy and its kernel call held against the plain
+   version.
+Phases 7 and 8 also hold the kernel against its plain version on the
+calls Q4, Q15 and Q22 (phase 7) and Q11 and Q16 (phase 8) made.
 The line before the last is a JSON object describing the kernel (its
 launches summed over every query's first run, per entry point under
 `entry_points`); the last line is
@@ -88,8 +107,11 @@ import time
 import numpy as np
 import torch
 
-from ballista_tpu_torch.batch import Batch, Column, round_capacity, to_numpy
-from ballista_tpu_torch.benchmarks import ANALYTIC_QUERIES, TPCH_QUERIES
+from ballista_tpu_torch.batch import (Batch, Column, round_capacity,
+                                      to_numpy)
+from ballista_tpu_torch.benchmarks import (ANALYTIC_QUERIES, TPCH_QUERIES,
+                                           h2o, nyctaxi)
+from ballista_tpu_torch.benchmarks.queries import q1_frame, q3_frame
 from ballista_tpu_torch.benchmarks.timing import cuda_ms, host_ms
 from ballista_tpu_torch.client import SessionContext
 from ballista_tpu_torch.datagen import TPCH_TABLES, generate_tpch
@@ -780,7 +802,28 @@ def phase_rest(ctx):
         call = next(c for c in calls if c[2] == T)
         max_err = max(max_err, held_err(
             hold_call(7, f"Q{q}'s own kernel inputs", *call)))
+    max_err = max(max_err, hold_small_calls(7, kernel_calls, (4, 15, 22)))
     return total_launches, max_err
+
+
+def hold_small_calls(phase, kernel_calls, queries):
+    """The kernel against its plain version on every distinct call shape
+    these queries made: calls over 10^4 to 10^6 rows, whose device work is
+    short beside the host's time per call (printed with each)."""
+    max_err = 0
+    for q in queries:
+        launches, calls = kernel_calls[q]
+        if launches[0] < 1:
+            raise AssertionError(
+                f"Q{q} ran without launching masked_slot_sums_rows")
+        seen = set()
+        for slot, rows, T in calls:
+            shape = (slot.shape[0], T, len(rows))
+            if shape not in seen:
+                seen.add(shape)
+                max_err = max(max_err, held_err(hold_call(
+                    phase, f"Q{q}'s own kernel inputs", slot, rows, T)))
+    return max_err
 
 
 REST = (2, 8, 9, 11, 14, 16, 17, 19, 20)
@@ -805,6 +848,7 @@ def phase_rest_part(ctx):
         call = next(c for c in calls if c[2] == 1)
         max_err = max(max_err, held_err(
             hold_call(8, f"Q{q}'s own kernel inputs", *call)))
+    max_err = max(max_err, hold_small_calls(8, kernel_calls, (11, 16)))
     # host work of the LIKE queries: planning (which binds the LIKE) and
     # the lookup table alone over p_name's dictionary
     p_name = ctx.tables["part"].host["p_name"].dictionary
@@ -1395,6 +1439,527 @@ def phase_analytic(ctx):
     return launches, err
 
 
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the client slice
+# ---------------------------------------------------------------------------
+
+H2O_N, H2O_K, H2O_SEED = 10 ** 7, 100, 42
+H2O_JOIN_N = 10 ** 6
+TAXI_N = 10 ** 7
+SUM_RTOL = 1e-9     # f64 sums and averages: the card adds in no fixed order
+
+
+def _register_numpy_timed(ctx, name, table, label):
+    """`ctx.register_numpy` of a dict of numpy arrays, with the seconds
+    each column spent in `batch.ingest_column` read off from inside that
+    one call."""
+    import ballista_tpu_torch.batch as batch_mod
+    ingest, took = batch_mod.ingest_column, []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        hc = ingest(*args, **kwargs)
+        took.append(time.perf_counter() - t0)
+        return hc
+
+    batch_mod.ingest_column = timed
+    t0 = time.perf_counter()
+    try:
+        ctx.register_numpy(name, table)
+    finally:
+        batch_mod.ingest_column = ingest
+    total = time.perf_counter() - t0
+    tp = ctx.tables[name]
+    if len(took) != len(table):
+        raise AssertionError(f"{name}: {len(took)} columns ingested of "
+                             f"{len(table)}")
+    for (cname, values), f, s in zip(table.items(), tp.fields, took):
+        d = tp.host[cname].dictionary
+        log(f"phase 11: {label}: ingest {name}.{cname} ({values.dtype}, "
+            f"{len(values)} rows) as {f.dtype!r}: {s:.3f} s"
+            + (f", {len(d)} dictionary entries" if d is not None else ""))
+    log(f"phase 11: {label}: register_numpy({name!r}) {total:.3f} s in all")
+
+
+def _raw_columns(batch, schema):
+    """The live rows on the host as stored: name -> (values, validity),
+    strings as their codes (a 10^7-row string column is not decoded)."""
+    n = int(batch.num_rows)
+    return {f.name: (c.data[:n].cpu().numpy(), c.validity[:n].cpu().numpy())
+            for f, c in zip(schema.fields, batch.columns)}
+
+
+def _id_numbers(raw, schema, name):
+    """An h2o key column of a result as the numbers the generator drew:
+    "id<k>" strings through their dictionary, integers as they are."""
+    values, valid = raw[name]
+    if not valid.all():
+        raise AssertionError(f"NULL in key {name}")
+    d = schema.dictionary(name)
+    if d is None:
+        return values.astype(np.int64)
+    lut = np.array([int(s[2:]) for s in d], dtype=np.int64)
+    return lut[values]
+
+
+def _combined(keys, widths):
+    out = np.zeros(len(keys[0]), dtype=np.int64)
+    for k, w in zip(keys, widths):
+        out = out * w + k
+    return out
+
+
+def _layouts(ctx, sql):
+    """The layout of every aggregate in the query's physical plan."""
+    out, stack = [], [ctx.physical_plan(ctx.sql(sql).plan)]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, plan_mod.HashAggregateExec):
+            out.append("masked" if node._masked else "sorted")
+        stack.extend(node.children)
+    return out or ["no aggregate"]
+
+
+def _timed_question(ctx, label, sql):
+    """First run and warm median of 3 of ctx.sql(sql).collect(): returns
+    (batch, schema, kernel launches on the first run)."""
+    n_warn = len(ctx.warnings)
+    times = []
+    for i in range(4):
+        if i == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        batch, schema = ctx.sql(sql).collect()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = read_counts()
+            retries = ctx.warnings[n_warn:]
+    log(f"phase 11: {label}: {int(batch.num_rows)} rows; first run "
+        f"{times[0]:.4f} s, warm median "
+        f"{statistics.median(times[1:]) * 1e3:.3f} ms; aggregate layout "
+        f"{_layouts(ctx, sql)}; masked_slot_sums_rows launches {launches[0]}; "
+        f"overflow retries per run {len(retries)}"
+        + (f" ({retries[-1]})" if retries else ""))
+    return batch, schema, launches, len(retries)
+
+
+# a correlation is a quotient of sums that cancel: where it comes out
+# below this, its error is held relative to this and not to itself
+CORR_FLOOR = 1e-6
+
+
+def _held(label, got, want, rtol=None, floor=0.0):
+    """`got` against numpy's `want`: exactly, or within `rtol` of the
+    larger of |want| and `floor`."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {got.shape} vs numpy {want.shape}")
+    if rtol is None:
+        if not np.array_equal(got, want):
+            bad = np.nonzero(got != want)[0]
+            raise AssertionError(
+                f"{label}: {len(bad)} of {len(want)} differ from numpy, first "
+                f"at {bad[0]}: {got[bad[0]]} vs {want[bad[0]]}")
+        return "exact"
+    # relative to numpy's value; where that is 0, the difference itself
+    scale = np.maximum(np.abs(want), floor)
+    scale = np.where(scale == 0, 1.0, scale)
+    err = float(np.max(np.abs(got - want) / scale)) if got.size else 0.0
+    if not err <= rtol:
+        raise AssertionError(f"{label}: max relative error {err:.3e} > {rtol}")
+    return f"max relative error {err:.3e} within {rtol}"
+
+
+def _group_stats(gid, n_groups):
+    """Helpers over group ids 0..G-1 (every group present): counts, and a
+    function giving the rows' order by (group, value) with run starts."""
+    counts = np.bincount(gid, minlength=n_groups)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+
+    def sorted_by(values):
+        return np.lexsort((values, gid))
+    return counts, starts, sorted_by
+
+
+def h2o_groupby_expected(q, t, ids):
+    """Question q over the generated table in numpy: (key names, key
+    widths, combined group key per row, {output column: (per-group values
+    in the order of the sorted combined keys, rtol or None)}). `ids` holds
+    the numbers behind the "id<k>" strings."""
+    nk = max(H2O_N // H2O_K, 1)
+    width = {"id1": H2O_K + 1, "id2": H2O_K + 1, "id3": nk + 1,
+             "id4": H2O_K + 1, "id5": H2O_K + 1, "id6": nk + 1}
+    names = {1: ["id1"], 2: ["id1", "id2"], 3: ["id3"], 4: ["id4"],
+             5: ["id6"], 6: ["id4", "id5"], 7: ["id3"], 9: ["id2", "id4"],
+             10: ["id1", "id2", "id3", "id4", "id5", "id6"]}[q]
+    widths = [width[n] for n in names]
+    key = _combined([ids[n] for n in names], widths)
+    groups, gid = np.unique(key, return_inverse=True)
+    gid = gid.reshape(-1)
+    G = len(groups)
+    counts, starts, sorted_by = _group_stats(gid, G)
+    v1, v2, v3 = t["v1"], t["v2"], t["v3"]
+
+    def isum(v):         # integer sums stay below 2^53: exact in f64
+        return np.bincount(gid, v, minlength=G).astype(np.int64)
+
+    def fsum(v):
+        return np.bincount(gid, v, minlength=G)
+
+    if q in (1, 2):
+        out = {"v1": (isum(v1), None)}
+    elif q == 3:
+        out = {"v1": (isum(v1), None), "v3": (fsum(v3) / counts, SUM_RTOL)}
+    elif q == 4:
+        out = {c: (fsum(v) / counts, SUM_RTOL)
+               for c, v in (("v1", v1), ("v2", v2), ("v3", v3))}
+    elif q == 5:
+        out = {"v1": (isum(v1), None), "v2": (isum(v2), None),
+               "v3": (fsum(v3), SUM_RTOL)}
+    elif q == 6:
+        sv = v3[sorted_by(v3)]
+        pos = starts + (counts - 1) / 2.0
+        lo, hi = np.floor(pos).astype(np.int64), np.ceil(pos).astype(np.int64)
+        median = sv[lo] + (sv[hi] - sv[lo]) * (pos - lo)
+        d = v3 - (fsum(v3) / counts)[gid]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            sd = np.sqrt(fsum(d * d) / (counts - 1))
+        out = {"median_v3": (median, PERCENTILE_RTOL),
+               "stddev_v3": (np.where(counts > 1, sd, np.nan), MOMENT_RTOL)}
+    elif q == 7:
+        order = np.argsort(gid, kind="stable")
+        out = {"range_v1_v2": (np.maximum.reduceat(v1[order], starts)
+                               - np.minimum.reduceat(v2[order], starts),
+                               None)}
+    elif q == 9:
+        x, y = v1.astype(np.float64), v2.astype(np.float64)
+        dx, dy = x - (fsum(x) / counts)[gid], y - (fsum(y) / counts)[gid]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            corr = fsum(dx * dy) / np.sqrt(fsum(dx * dx) * fsum(dy * dy))
+        out = {"corr": (corr, MOMENT_RTOL)}
+    else:
+        out = {"v3": (fsum(v3), SUM_RTOL), "cnt": (counts, None)}
+    return names, widths, groups, out
+
+
+def phase_h2o_groupby():
+    t0 = time.perf_counter()
+    table = h2o.groupby_table(H2O_N, H2O_K, H2O_SEED)
+    # the numbers behind the id strings: the generator's first three draws
+    rng = np.random.default_rng(H2O_SEED)
+    nk = max(H2O_N // H2O_K, 1)
+    ids = {"id1": rng.integers(1, H2O_K + 1, H2O_N),
+           "id2": rng.integers(1, H2O_K + 1, H2O_N),
+           "id3": rng.integers(1, nk + 1, H2O_N)}
+    for name, (hi, w) in (("id1", (H2O_K, 8)), ("id2", (H2O_K, 8)),
+                          ("id3", (nk, 12))):
+        if not np.array_equal(h2o.id_strings(ids[name], hi, w), table[name]):
+            raise AssertionError(f"h2o {name}: strings differ from the draws")
+    ids.update({n: table[n] for n in ("id4", "id5", "id6")})
+    nbytes = sum(v.nbytes for v in table.values())
+    log(f"phase 11: h2o groupby G1_1e7_1e2_0_0: generated {H2O_N} rows x "
+        f"{len(table)} columns ({nbytes / 1e9:.2f} GB as numpy arrays) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ctx = SessionContext(device="cuda")
+    _register_numpy_timed(ctx, "x", table, "h2o groupby")
+    t0 = time.perf_counter()
+    batch = ctx.bind_inputs(["x"])["x"]
+    torch.cuda.synchronize()
+    on_card = sum(c.data.numel() * c.data.element_size() + c.validity.numel()
+                  for c in batch.columns)
+    log(f"phase 11: h2o groupby: upload {time.perf_counter() - t0:.2f} s, "
+        f"{on_card / 1e9:.3f} GB on the card")
+    del batch
+
+    total = np.zeros(2, dtype=np.int64)
+    for q in sorted(h2o.GROUPBY_QUERIES):
+        batch, schema, launches, retries = _timed_question(
+            ctx, f"h2o groupby q{q}", h2o.GROUPBY_QUERIES[q])
+        total += launches
+        raw = _raw_columns(batch, schema)
+        del batch
+        t0 = time.perf_counter()
+        if q == 8:
+            # the two largest v3 per id6, exact as a multiset of (id6, v3)
+            order = np.lexsort((-table["v3"], table["id6"]))
+            sid = table["id6"][order]
+            first = np.r_[True, sid[1:] != sid[:-1]]
+            start = np.maximum.accumulate(np.where(first, np.arange(H2O_N), 0))
+            top = order[np.arange(H2O_N) - start < 2]
+            want = np.lexsort((table["v3"][top], table["id6"][top]))
+            mine = np.lexsort((raw["v3"][0], raw["id6"][0]))
+            notes = [
+                "id6 " + _held("h2o q8 id6", raw["id6"][0][mine],
+                               table["id6"][top][want]),
+                "v3 " + _held("h2o q8 v3", raw["v3"][0][mine],
+                              table["v3"][top][want])]
+        else:
+            names, widths, groups, want = h2o_groupby_expected(q, table, ids)
+            key = _combined([_id_numbers(raw, schema, n) for n in names],
+                            widths)
+            order = np.argsort(key, kind="stable")
+            notes = ["groups " + _held(f"h2o q{q} groups", key[order], groups)]
+            for col, (values, rtol) in want.items():
+                got, valid = raw[col]
+                # a one-row group has no stddev and no corr: NULL there
+                with np.errstate(invalid="ignore"):
+                    defined = ~np.isnan(values.astype(np.float64))
+                _held(f"h2o q{q} {col} validity", valid[order], defined)
+                notes.append(f"{col} " + _held(
+                    f"h2o q{q} {col}", got[order][defined], values[defined],
+                    rtol, CORR_FLOOR if col == "corr" else 0.0))
+        log(f"phase 11: h2o groupby q{q} equals numpy ({'; '.join(notes)}); "
+            f"check took {time.perf_counter() - t0:.2f} s")
+        if q == 10:
+            table_size = ctx.options.max_group_table
+            if len(raw["cnt"][0]) <= 4 * table_size or retries < 2:
+                raise AssertionError(
+                    f"h2o q10: {len(raw['cnt'][0])} groups after {retries} "
+                    f"overflow retries: expected more than {4 * table_size} "
+                    "groups through at least two retries")
+            log(f"phase 11: h2o groupby q10 converged on {len(raw['cnt'][0])} "
+                f"groups after {retries} overflow retries (max_group_table "
+                f"{table_size} -> {4 * table_size} -> {16 * table_size})")
+    ctx.evict_device()
+    return total
+
+
+def _lookup(build_keys, probe_keys):
+    """(index into the build side per probe row, whether it matched)."""
+    order = np.argsort(build_keys, kind="stable")
+    sk = build_keys[order]
+    pos = np.searchsorted(sk, probe_keys).clip(max=len(sk) - 1)
+    return order[pos], sk[pos] == probe_keys
+
+
+def phase_h2o_join():
+    t0 = time.perf_counter()
+    tables = h2o.join_tables(H2O_JOIN_N, H2O_SEED)
+    log(f"phase 11: h2o join J1_1e6: generated x, small, medium, large "
+        f"({[len(t['v2' if 'v2' in t else 'v1']) for t in tables.values()]} "
+        f"rows) in {time.perf_counter() - t0:.2f} s")
+    ctx = SessionContext(device="cuda")
+    for name, table in tables.items():
+        _register_numpy_timed(ctx, name, table, "h2o join")
+    x = tables["x"]
+    plan = {1: ("small", "id1", True), 2: ("medium", "id2", True),
+            3: ("medium", "id2", False), 4: ("medium", "id5", False),
+            5: ("large", "id3", False)}
+    total = np.zeros(2, dtype=np.int64)
+    for q in sorted(h2o.JOIN_QUERIES):
+        batch, schema, launches, _ = _timed_question(
+            ctx, f"h2o join q{q}", h2o.JOIN_QUERIES[q])
+        total += launches
+        raw = _raw_columns(batch, schema)
+        del batch
+        other, key, inner = plan[q]
+        right = tables[other]
+        # every build key is unique: one output row per x row (left join)
+        # or per matched x row (inner join)
+        if len(np.unique(right[key])) != len(right[key]):
+            raise AssertionError(f"h2o join q{q}: {other}.{key} repeats")
+        idx, found = _lookup(right[key], x[key])
+        keep = found if inner else np.ones(len(found), dtype=bool)
+        v1, v1_ok = raw["v1"]
+        v2, v2_ok = raw["v2"]
+        notes = [
+            "rows " + _held(f"h2o join q{q} rows", len(v1), int(keep.sum())),
+            "matched " + _held(f"h2o join q{q} matched", int(v2_ok.sum()),
+                               int(found.sum())),
+            "sum(v1) " + _held(f"h2o join q{q} sum(v1)", v1[v1_ok].sum(),
+                               x["v1"][keep].sum(), SUM_RTOL),
+            "sum(v2) " + _held(f"h2o join q{q} sum(v2)", v2[v2_ok].sum(),
+                               right["v2"][idx[found]].sum(), SUM_RTOL)]
+        if not v1_ok.all():
+            raise AssertionError(f"h2o join q{q}: NULL in v1")
+        log(f"phase 11: h2o join q{q} equals numpy ({'; '.join(notes)})")
+    ctx.evict_device()
+    return total
+
+
+def phase_taxi():
+    t0 = time.perf_counter()
+    table = nyctaxi.synthetic_tripdata(TAXI_N, H2O_SEED)
+    log(f"phase 11: taxi: generated {TAXI_N} trips x {len(table)} columns in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ctx = SessionContext(device="cuda")
+    _register_numpy_timed(ctx, "tripdata", table, "taxi")
+    sql = nyctaxi.QUERIES["fare_amt_by_passenger"]
+    batch, schema, launches, _ = _timed_question(ctx, "taxi "
+                                                 "fare_amt_by_passenger", sql)
+    raw = _raw_columns(batch, schema)
+    names = [f.name for f in schema.fields]
+    order = np.argsort(raw[names[0]][0])
+    pc, fare = table["passenger_count"], table["fare_amount"]
+    groups = np.unique(pc)
+    by_group = np.argsort(pc, kind="stable")
+    starts = np.searchsorted(pc[by_group], groups)
+    notes = [
+        "groups " + _held("taxi groups", raw[names[0]][0][order], groups),
+        "min " + _held("taxi min", raw[names[1]][0][order],
+                       np.minimum.reduceat(fare[by_group], starts)),
+        "max " + _held("taxi max", raw[names[2]][0][order],
+                       np.maximum.reduceat(fare[by_group], starts)),
+        "sum " + _held("taxi sum", raw[names[3]][0][order],
+                       np.bincount(pc, fare)[groups], SUM_RTOL)]
+    log(f"phase 11: taxi query equals numpy ({'; '.join(notes)})")
+    ctx.evict_device()
+    return launches
+
+
+def phase_frames(ctx):
+    """TPC-H Q1 and Q3 at SF1 written as DataFrame calls."""
+    total = np.zeros(2, dtype=np.int64)
+    for q, frame in ((1, q1_frame), (3, q3_frame)):
+        df = frame(ctx)
+        times = []
+        for i in range(4):
+            if i == 0:
+                reset_counts()
+            with spy_rows() as calls:
+                t0 = time.perf_counter()
+                batch, schema = df.collect()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            if i == 0:
+                launches, shapes = read_counts(), call_shapes(calls)
+        total += launches
+        check_answers(to_numpy(batch, schema), schema, q)
+        log(f"phase 11: Q{q} by DataFrame calls equals answers/sf1/answers/"
+            f"q{q}.out exactly; first run {times[0]:.4f} s, warm median "
+            f"{statistics.median(times[1:]) * 1e3:.3f} ms; "
+            f"masked_slot_sums_rows launches {launches[0]}, calls at (A, n), "
+            f"T = {shapes}")
+        if q == 1 and shapes != [((Q1_A, Q1_N), Q1_T)]:
+            raise AssertionError(f"Q1 by DataFrame: kernel calls {shapes}, "
+                                 f"expected one at T = {Q1_T}")
+    return total
+
+
+SPARSE_QUERIES = (3, 5, 7, 8, 9, 18, 21)
+
+
+def phase_sparse_flow(ctx):
+    """The nodes `plan_sparse_flow` marked in the join queries' converged
+    plans, and the warm `run_plan` of each (their answers are held by
+    phases 6 to 8, which run with the pass in)."""
+    for q in SPARSE_QUERIES:
+        plan, inputs, _ = ctx.sql(TPCH_QUERIES[q]).converge()
+        nodes, stack = {}, [plan]
+        while stack:
+            node = stack.pop()
+            nodes[id(node)] = node
+            stack.extend(node.children)
+        marked = [type(n).__name__ + (f"[{n.join_type}]"
+                                      if hasattr(n, "join_type") else "")
+                  for n in nodes.values() if getattr(n, "emit_sparse", False)]
+        may = [n for n in nodes.values()
+               if isinstance(n, plan_mod.FilterExec)
+               or (isinstance(n, plan_mod.HashJoinExec) and n.unique_build
+                   and n.join_type in ("inner", "semi", "anti"))]
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            out, overflow = plan_mod.run_plan(plan, inputs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if out.live is not None or (overflow is not None and bool(overflow)):
+            raise AssertionError(f"Q{q}: sparse or overflowed root output")
+        log(f"phase 11: Q{q} sparse flow: {len(marked)} of {len(may)} filters "
+            f"and unique inner/semi/anti joins hand on their keep mask "
+            f"({len(nodes)} nodes): {sorted(marked)}; run_plan on the converged "
+            f"plan, warm median of 5: {statistics.median(times[1:]) * 1e3:.3f} "
+            "ms")
+
+
+def phase_statements(ctx):
+    """EXPLAIN, SHOW TABLES and CREATE TABLE AS on the SF1 context.
+    Returns (kernel launches, max |kernel - plain| on the new table's
+    aggregate call)."""
+    got = ctx.sql("explain " + TPCH_QUERIES[3]).to_numpy()
+    if list(got["plan_type"][0]) != ["logical_plan", "physical_plan"] \
+            or "not available" in got["plan"][0][1] \
+            or "HashJoinExec" not in got["plan"][0][1]:
+        raise AssertionError(f"EXPLAIN of Q3: {got}")
+    log("phase 11: EXPLAIN of Q3: logical_plan of "
+        f"{len(got['plan'][0][0].splitlines())} lines, physical_plan of "
+        f"{len(got['plan'][0][1].splitlines())} lines")
+    shown = ctx.sql("show tables").to_numpy()
+    if sorted(shown["table_name"][0]) != sorted(TPCH_TABLES) \
+            or set(shown["table_type"][0]) != {"BASE TABLE"}:
+        raise AssertionError(f"SHOW TABLES: {shown}")
+    log(f"phase 11: SHOW TABLES lists {sorted(shown['table_name'][0])}")
+
+    # Q3's customer-orders subquery as a new table, then a grouped SELECT
+    # over it (o_orderpriority has five values: the masked layout)
+    t0 = time.perf_counter()
+    ctx.sql("""create table building_orders as
+               select o_orderkey, o_orderdate, o_orderpriority, o_totalprice
+               from customer, orders
+               where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+                 and o_orderdate < date '1995-03-15';
+               select 1""")
+    made = ctx.tables["building_orders"]
+    log(f"phase 11: CREATE TABLE AS: building_orders, {made.num_rows} rows, "
+        f"{[(f.name, repr(f.dtype)) for f in made.fields]} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    reset_counts()
+    with spy_rows() as calls:
+        got = ctx.sql("""select o_orderpriority, count(*) as n,
+                                sum(o_totalprice) as total,
+                                min(o_orderdate) as first_day,
+                                max(o_orderkey) as last_key
+                         from building_orders group by o_orderpriority
+                         order by o_orderpriority""").to_numpy()
+    launches = read_counts()
+    seg = _host(ctx, "customer", "c_mktsegment")
+    building = np.zeros(_raw(ctx, "customer", "c_custkey").max() + 1,
+                        dtype=bool)
+    building[_raw(ctx, "customer", "c_custkey")[seg == "BUILDING"]] = True
+    odate = _raw(ctx, "orders", "o_orderdate")
+    keep = building[_raw(ctx, "orders", "o_custkey")] \
+        & (odate < parse_date("1995-03-15"))
+    if made.num_rows != int(keep.sum()):
+        raise AssertionError(f"building_orders has {made.num_rows} rows, "
+                             f"numpy {int(keep.sum())}")
+    prio = _host(ctx, "orders", "o_orderpriority")[keep]
+    want = []
+    for p in np.unique(prio):
+        m = prio == p
+        want.append((str(p), int(m.sum()),
+                     int(_raw(ctx, "orders", "o_totalprice")[keep][m].sum()),
+                     int(odate[keep][m].min()),
+                     int(_raw(ctx, "orders", "o_orderkey")[keep][m].max())))
+    mine = [tuple(v.item() if hasattr(v, "item") else v for v in row)
+            for row in zip(*(got[c][0] for c in got))]
+    if mine != want:
+        raise AssertionError(f"SELECT over building_orders: {mine} != numpy "
+                             f"{want}")
+    if launches[0] < 1 or not calls:
+        raise AssertionError("the SELECT over building_orders ran without "
+                             "launching masked_slot_sums_rows")
+    log(f"phase 11: SELECT over building_orders equals the numpy computation "
+        f"exactly ({len(want)} groups); masked_slot_sums_rows launches "
+        f"{launches[0]}, calls at (A, n), T = {call_shapes(calls)}")
+    err = held_err(hold_call(11, "the SELECT over building_orders", *calls[0]))
+    return launches, err
+
+
+def phase_client(ctx):
+    """Phase 11. Returns (kernel launches over the first runs, max |kernel
+    - plain| on the call it holds)."""
+    launches = phase_frames(ctx)
+    phase_sparse_flow(ctx)
+    more, err = phase_statements(ctx)
+    ctx.evict_device()
+    launches = launches + more + phase_h2o_groupby() + phase_h2o_join() \
+        + phase_taxi()
+    return launches, err
+
+
 def main():
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -1428,16 +1993,17 @@ def main():
     part_launches, part_err = phase_rest_part(ctx)
     phase_setops(ctx)
     analytic_launches, analytic_err = phase_analytic(ctx)
+    client_launches, client_err = phase_client(ctx)
 
     # one record for the kernel file; its times and bound are those of
     # Q1's own call through the entry the queries use. `entry_points`
     # gives each wrapper's own numbers on that call; launches are those of
-    # the 22 queries' and the analytic slice's first runs, counted per
-    # wrapper.
+    # the 22 queries', the analytic slice's and the client slice's first
+    # runs, counted per wrapper.
     launches = (launches + join_launches + rest_launches + part_launches
-                + analytic_launches)
+                + analytic_launches + client_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
-                part_err, analytic_err)
+                part_err, analytic_err, client_err)
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]

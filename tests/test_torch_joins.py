@@ -11,16 +11,16 @@ import pyarrow as pa
 import pytest
 import torch
 
-from ballista_tpu.batch import ingest_column_host, schema_from_arrow, to_numpy
+from ballista_tpu.batch import to_numpy
 from ballista_tpu.client import SessionContext as JaxContext
 from ballista_tpu.datagen.tpch import TPCH_TABLES as REF_TABLES, generate_table
-from ballista_tpu_torch.batch import to_numpy as port_to_numpy
+from ballista_tpu_torch.batch import (ingest_arrow_column, schema_from_arrow,
+                                      to_numpy as port_to_numpy)
 from ballista_tpu_torch.benchmarks import TPCH_QUERIES
 from ballista_tpu_torch.client import SessionContext
-from ballista_tpu_torch.datagen import (TPCH_TABLES, from_ingested,
-                                        generate_tpch, register_tpch)
+from ballista_tpu_torch.datagen import (TPCH_TABLES, generate_tpch,
+                                        register_tpch)
 from ballista_tpu_torch.planner.physical import PhysicalOptions
-from ballista_tpu_torch.schema import DataType, Field, TypeKind
 
 torch.set_num_threads(2)
 
@@ -106,16 +106,11 @@ QUERIES = {
 
 
 def _port_columns(arrow):
-    """Port host columns made by the JAX package's own ingest."""
-    fields, cols = [], {}
-    for f in schema_from_arrow(arrow.schema).fields:
-        values, validity, dictionary, _, bounds = ingest_column_host(
-            arrow[f.name], f, arrow.num_rows)
-        cols[f.name] = from_ingested(values, validity, dictionary, bounds)
-        fields.append(Field(f.name, DataType(TypeKind(f.dtype.kind.value),
-                                             f.dtype.precision, f.dtype.scale),
-                            f.nullable))
-    return fields, cols
+    """Port fields and host columns of an arrow table, by the port's own
+    arrow ingest (what `register_arrow` registers)."""
+    fields = schema_from_arrow(arrow.schema).fields
+    return fields, {f.name: ingest_arrow_column(arrow[f.name], f.dtype)
+                    for f in fields}
 
 
 @pytest.fixture(scope="module")

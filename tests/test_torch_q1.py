@@ -12,14 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from ballista_tpu.batch import ingest_column_host, schema_from_arrow, to_numpy
+from ballista_tpu.batch import to_numpy
 from ballista_tpu.client import SessionContext as JaxContext
 from ballista_tpu.datagen.tpch import TPCH_TABLES as REF_TABLES, generate_table
 from ballista_tpu_torch.benchmarks import TPCH_QUERIES
 from ballista_tpu_torch.client import SessionContext
-from ballista_tpu_torch.datagen import from_ingested
 from ballista_tpu_torch.ops.masked_sums import masked_slot_sums
-from ballista_tpu_torch.schema import DataType, Field, TypeKind
 
 torch.set_num_threads(2)
 
@@ -61,16 +59,8 @@ def contexts(lineitem):
     jctx.register_arrow("lineitem", lineitem,
                         primary_key=REF_TABLES["lineitem"][1])
     tctx = SessionContext(device="cpu")
-    fields, cols = [], {}
-    for f in schema_from_arrow(lineitem.schema).fields:
-        values, validity, dictionary, _, bounds = ingest_column_host(
-            lineitem[f.name], f, lineitem.num_rows)
-        cols[f.name] = from_ingested(values, validity, dictionary, bounds)
-        fields.append(Field(f.name, DataType(TypeKind(f.dtype.kind.value),
-                                             f.dtype.precision, f.dtype.scale),
-                            f.nullable))
-    tctx.register_host("lineitem", fields, cols,
-                       primary_key=REF_TABLES["lineitem"][1])
+    tctx.register_arrow("lineitem", lineitem,
+                        primary_key=REF_TABLES["lineitem"][1])
     return jctx, tctx
 
 
@@ -208,8 +198,9 @@ def test_plan_shape(contexts):
 
 
 def test_unported_sql_raises(contexts):
-    """A window function, which used to raise, equals the JAX answer; the
-    catalog tables are what still raises."""
+    """A window function and the catalog tables, which used to raise,
+    equal the JAX answers; an unknown catalog table raises KeyError in
+    both."""
     jctx, tctx = contexts
     sql = ("select l_orderkey, l_linenumber, row_number() over "
            "(order by l_orderkey, l_linenumber) as r from lineitem")
@@ -220,8 +211,18 @@ def test_unported_sql_raises(contexts):
         np.testing.assert_array_equal(got[name][1], want[name][1], err_msg=name)
         np.testing.assert_array_equal(got[name][0], want[name][0], err_msg=name)
     assert sorted(got["r"][0]) == list(range(1, len(got["r"][0]) + 1))
-    with pytest.raises(NotImplementedError, match="information_schema"):
-        tctx.sql("select * from information_schema.tables").collect()
+    for sql in ("select * from information_schema.tables",
+                "select column_name, data_type from information_schema.columns"
+                " where table_name = 'lineitem' order by column_name"):
+        jbatch, jschema = jctx.sql(sql).collect()
+        want, got = to_numpy(jbatch, jschema), tctx.sql(sql).to_numpy()
+        assert list(got) == list(want)
+        for name in want:
+            np.testing.assert_array_equal(got[name][0], want[name][0],
+                                          err_msg=name)
+    for ctx in (jctx, tctx):
+        with pytest.raises(KeyError, match="unknown catalog table"):
+            ctx.sql("select * from information_schema.nothing").collect()
 
 
 def test_cuda_context_raises_without_cuda():
@@ -248,6 +249,62 @@ def test_q1_runs_without_jax_pyarrow_pandas():
         out = ctx.sql(TPCH_QUERIES[1]).to_numpy()
         assert list(out["l_returnflag"][0]) == ["A", "N", "N", "R"], out
         assert int(out["count_order"][0].sum()) > 0
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_every_module_runs_without_jax_pyarrow_pandas():
+    """In a fresh interpreter where jax, jaxlib, ballista_tpu, pyarrow and
+    pandas cannot be imported: every module of the port imports, a table
+    with strings and NULLs registers from numpy arrays, and a DataFrame
+    query, EXPLAIN, SHOW TABLES and an h2o question at N = 1000 run."""
+    code = textwrap.dedent("""
+        import sys
+        for m in ("jax", "jaxlib", "ballista_tpu", "pyarrow", "pandas"):
+            sys.modules[m] = None
+        import importlib, pkgutil
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)
+        import ballista_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            ballista_tpu_torch.__path__, "ballista_tpu_torch.")]
+        assert len(names) > 30, names
+        for name in names:
+            importlib.import_module(name)
+        from ballista_tpu_torch.benchmarks import h2o
+        from ballista_tpu_torch.client import SessionContext, col, lit
+        from ballista_tpu_torch.exec.aggregate import AggExpr
+        ctx = SessionContext(device="cpu")
+        ctx.register_numpy("t", {
+            "tag": ["x", None, "y", "x", "y", None],
+            "a": np.arange(6), "b": [1.5, None, 2.5, 4.0, None, 8.0]})
+        out = (ctx.table("t").filter(col("a") > lit(0))
+               .aggregate([col("tag")], [AggExpr("sum", col("a"), "sa"),
+                                         AggExpr("count", col("b"), "nb")])
+               .sort(col("tag")).to_numpy())
+        assert list(out["tag"][0]) == ["x", "y", None], out
+        assert list(out["sa"][0]) == [3, 6, 6] and list(out["nb"][0]) == [1, 1, 1]
+        plan = ctx.sql("explain select tag, sum(a) from t group by tag").to_numpy()
+        assert list(plan["plan_type"][0]) == ["logical_plan", "physical_plan"]
+        assert "not available" not in plan["plan"][0][1]
+        assert list(ctx.sql("show tables").to_numpy()["table_name"][0]) == ["t"]
+        ctx.register_numpy("x", h2o.groupby_table(1000))
+        q1 = ctx.sql(h2o.GROUPBY_QUERIES[1]).to_numpy()
+        assert int(q1["v1"][0].sum()) == int(h2o.groupby_table(1000)["v1"].sum())
+        for fn in (lambda: ctx.table("t").to_pandas(),
+                   lambda: ctx.table("t").to_arrow()):
+            try:
+                fn()
+            except ImportError:
+                pass
+            else:
+                raise AssertionError("pandas / pyarrow were importable")
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

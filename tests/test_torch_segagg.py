@@ -95,3 +95,56 @@ def test_count_star(nullables):
     tc, tv = TS.MaskedLayout(tslot, torch.from_numpy(live), tT).count_star()
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("T", [1, 7, 100, 5000, (1 << 19) + 3])
+def test_slot_reduce_takes_each_slot_by_itself(T):
+    """Float sums by slot, spread over lanes where the slots are few:
+    equal to numpy's per-slot sums (rtol 1e-13: another order of adding),
+    the spill cell's rows dropped, and a one-row slot's sum is that row's value
+    to the bit, whatever its neighbours hold."""
+    rng = np.random.default_rng(T)
+    n = 20_000
+    index = np.sort(rng.integers(0, T + 1, n))
+    values = rng.uniform(0, 100, n)
+    lonely = min(3, T)
+    values = np.where(index == lonely, 0.0, values)
+    values[np.searchsorted(index, lonely)] = 0.017118 * (index == lonely).any()
+    idx, vals = torch.from_numpy(index), torch.from_numpy(values)
+    got = TS._slot_reduce(idx, vals, T, "sum").numpy()
+    want = np.bincount(index, values, minlength=T + 1)[:T]      # no spill
+    assert got.shape == (T,)
+    np.testing.assert_allclose(got, want, rtol=1e-13, atol=0)
+    if lonely < T and (index == lonely).any():
+        assert got[lonely] == 0.017118
+    # minima and maxima the same way, exactly, for floats and integers
+    ints = torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n))
+    for v, lo, hi in ((vals, float("inf"), float("-inf")),
+                      (ints, torch.iinfo(torch.int64).max,
+                       torch.iinfo(torch.int64).min)):
+        want_min = np.full(T + 1, lo, dtype=v.numpy().dtype)
+        want_max = np.full(T + 1, hi, dtype=v.numpy().dtype)
+        np.minimum.at(want_min, index, v.numpy())
+        np.maximum.at(want_max, index, v.numpy())
+        np.testing.assert_array_equal(
+            TS._slot_reduce(idx, v, T, "amin", lo).numpy(), want_min[:T])
+        np.testing.assert_array_equal(
+            TS._slot_reduce(idx, v, T, "amax", hi).numpy(), want_max[:T])
+
+
+def test_sorted_layout_float_sum_is_exact_for_one_row_groups():
+    """The fault the h2o questions found: a float sum on the sorted layout
+    was a difference of one running sum over all rows, so a one-row group
+    carried the rounding of the whole prefix."""
+    rng = np.random.default_rng(3)
+    n = 4096
+    keys = torch.arange(n, dtype=torch.int64)            # every row a group
+    values = torch.from_numpy(rng.uniform(0, 100, n))
+    live = torch.ones(n, dtype=torch.bool)
+    layout = TS.layout_from_sorted_keys([keys], live, n)
+    s, valid = layout.sum(values, live)
+    assert bool(valid.all())
+    assert torch.equal(s, values)
+    ints = torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n))
+    s, _ = layout.sum(ints, live)
+    assert torch.equal(s, ints)      # integers: exact prefix differences

@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from ballista_tpu import batch as JB
 from ballista_tpu import exprs as JE
 from ballista_tpu import schema as JS
-from ballista_tpu.batch import ingest_column_host, schema_from_arrow, to_numpy
+from ballista_tpu.batch import to_numpy
 from ballista_tpu.client import SessionContext as JaxContext
 from ballista_tpu.exec import plan as JP
 from ballista_tpu.ops.merge_join import merge_full_unique as jax_full_unique
@@ -28,13 +28,12 @@ from ballista_tpu.planner import logical as JL
 from ballista_tpu_torch import batch as TB
 from ballista_tpu_torch import exprs as TE
 from ballista_tpu_torch import schema as TS
-from ballista_tpu_torch.batch import to_numpy as port_to_numpy
+from ballista_tpu_torch.batch import (ingest_arrow_column, schema_from_arrow,
+                                      to_numpy as port_to_numpy)
 from ballista_tpu_torch.client import SessionContext
-from ballista_tpu_torch.datagen import from_ingested
 from ballista_tpu_torch.exec import plan as TP
 from ballista_tpu_torch.ops.merge_join import merge_full_unique
 from ballista_tpu_torch.planner import logical as TL
-from ballista_tpu_torch.schema import DataType, Field, TypeKind
 
 torch.set_num_threads(2)
 
@@ -66,16 +65,11 @@ TABLES = {
 
 
 def _port_columns(arrow):
-    """Port host columns made by the JAX package's own ingest."""
-    fields, cols = [], {}
-    for f in schema_from_arrow(arrow.schema).fields:
-        values, validity, dictionary, _, bounds = ingest_column_host(
-            arrow[f.name], f, arrow.num_rows)
-        cols[f.name] = from_ingested(values, validity, dictionary, bounds)
-        fields.append(Field(f.name, DataType(TypeKind(f.dtype.kind.value),
-                                             f.dtype.precision, f.dtype.scale),
-                            f.nullable))
-    return fields, cols
+    """Port fields and host columns of an arrow table, by the port's own
+    arrow ingest (what `register_arrow` registers)."""
+    fields = schema_from_arrow(arrow.schema).fields
+    return fields, {f.name: ingest_arrow_column(arrow[f.name], f.dtype)
+                    for f in fields}
 
 
 @pytest.fixture(scope="module")
