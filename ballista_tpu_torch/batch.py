@@ -120,18 +120,61 @@ def row_mask(batch: Batch) -> torch.Tensor:
     return row_index(batch.capacity, batch.device) < batch.num_rows
 
 
+def padded_upload(host: np.ndarray, capacity: int, device) -> torch.Tensor:
+    """A 1-D host array on `device`, zero-padded to `capacity` there: only
+    its own rows cross to the device."""
+    if len(host) > capacity:
+        raise ValueError(f"{len(host)} rows exceed capacity {capacity}")
+    if not host.flags.writeable:
+        host = host.copy()
+    src = torch.from_numpy(np.ascontiguousarray(host))
+    out = torch.zeros(capacity, dtype=src.dtype, device=device)
+    out[:len(host)].copy_(src)
+    return out
+
+
 def make_column(values: np.ndarray, validity: np.ndarray, dtype: DataType,
                 capacity: int, device) -> Column:
     """Upload one host column, zero-padded to `capacity`."""
-    n = len(values)
-    if n > capacity:
-        raise ValueError(f"{n} rows exceed capacity {capacity}")
-    data = np.zeros(capacity, dtype=dtype.np_dtype)
-    data[:n] = values
-    valid = np.zeros(capacity, dtype=bool)
-    valid[:n] = validity
-    return Column(torch.from_numpy(data).to(device),
-                  torch.from_numpy(valid).to(device))
+    return Column(padded_upload(np.asarray(values, dtype=dtype.np_dtype),
+                                capacity, device),
+                  padded_upload(np.asarray(validity, dtype=bool), capacity,
+                                device))
+
+
+def upload_parts(parts, capacity: int, device) -> Batch:
+    """A batch from host pieces: `parts` holds, per column, (data arrays,
+    validity arrays, numpy dtype); each column's pieces are concatenated
+    in order and uploaded, zero-padded to `capacity` on the device. Every
+    column must have the same number of rows, at most `capacity`; they are
+    the batch's live rows. (The serial runtime's `_assemble` and table
+    shards.)"""
+    totals = {sum(len(d) for d in datas) for datas, _, _ in parts}
+    if len(totals) > 1:
+        raise ValueError(f"columns differ in length: {sorted(totals)}")
+    total = totals.pop() if totals else 0
+
+    def joined(pieces, dtype):
+        if len(pieces) == 1:
+            return np.asarray(pieces[0], dtype=dtype)
+        return (np.concatenate(pieces).astype(dtype, copy=False) if pieces
+                else np.zeros(0, dtype=dtype))
+
+    cols = tuple(Column(padded_upload(joined(datas, dtype), capacity, device),
+                        padded_upload(joined(valids, bool), capacity, device))
+                 for datas, valids, dtype in parts)
+    return Batch(cols, torch.tensor(total, dtype=torch.int32, device=device))
+
+
+def host_range_batch(columns, dtypes, lo: int, hi: int, capacity: int,
+                     device) -> Batch:
+    """Rows [lo, hi) of a table's HostColumns (one DataType each) as a
+    batch of `capacity` rows. String codes stay codes into the table-wide
+    dictionary, so every row range of a table shares one code space (a
+    join or GROUP BY across ranges agrees); the table-wide dictionary and
+    bounds stay in the table's schema."""
+    return upload_parts([([c.values[lo:hi]], [c.validity[lo:hi]], dt.np_dtype)
+                         for c, dt in zip(columns, dtypes)], capacity, device)
 
 
 def to_numpy(batch: Batch, schema: Schema) -> dict:

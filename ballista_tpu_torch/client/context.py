@@ -1,27 +1,41 @@
 """SessionContext — the user entry point (port of
 ballista_tpu/client/context.py).
 
-Local mode only: one device, one partition per table. Tables are
-registered from numpy arrays (`register_numpy`, which needs no pyarrow),
-from arrow tables, pandas frames, csv, parquet and json files (converted
-onto it), or from ready `HostColumn`s (`register_host`, e.g. from
-`datagen`); they are ingested on the host at registration and uploaded
-to the context's device column by column, on first use.
+One device. Tables are registered from numpy arrays (`register_numpy`,
+which needs no pyarrow), from arrow tables, pandas frames, csv, parquet and
+json files (converted onto it), or from ready `HostColumn`s
+(`register_host`, e.g. from `datagen`); they are ingested on the host at
+registration and uploaded to the context's device column by column, on
+first use. A directory of parquet part files registers as a dataset that is
+read range by range (`register_parquet_dataset`).
+
+A query runs in-core (the whole plan at once over whole columns) unless
+the session asks for the serial runtime (`serial_partitions=N`: one stage
+x partition at a time, the shuffle on the host), or `collect` routes it
+there: a plan whose estimated peak outgrows the device's budget
+(`exec/memory.py`; BALLISTA_HBM_BYTES, BALLISTA_ROUTE_FACTOR), a plan the
+out-of-memory memo names, and a plan whose in-core run raised
+torch.cuda.OutOfMemoryError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import glob
+import logging
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import batch as B
+from ..exec import memory
 from ..exec.plan import run_plan
 from ..planner import logical as L
 from ..planner.physical import PhysicalOptions, create_physical_plan
-from ..schema import STRING, Field, Schema
+from ..schema import STRING, Field, Schema, TypeKind
 from .dataframe import DataFrame
 
 
@@ -66,17 +80,155 @@ class TableProvider:
         self._cols.clear()
 
     def column_batch(self, names) -> B.Batch:
-        """Device batch of exactly `names`, in order."""
+        """Device batch of exactly `names`, in order, kept on the device
+        for later queries."""
         dtypes = {f.name: f.dtype for f in self.fields}
         for name in names:
             if name not in self._cols:
-                h = self.host[name]
+                h = self._host_column(name)
                 self._cols[name] = B.make_column(h.values, h.validity,
                                                  dtypes[name], self.capacity,
                                                  self.device)
         return B.Batch(tuple(self._cols[c] for c in names),
                        torch.tensor(self.num_rows, dtype=torch.int32,
                                     device=self.device))
+
+    def _host_column(self, name: str) -> B.HostColumn:
+        return self.host[name]
+
+    def range_batch(self, names, lo: int, hi: int, capacity: int,
+                    device) -> B.Batch:
+        """Rows [lo, hi) of `names` as a batch of `capacity` rows on
+        `device`, uploaded from the host columns and kept nowhere (the
+        serial runtime's table shard)."""
+        dtypes = {f.name: f.dtype for f in self.fields}
+        return B.host_range_batch([self.host[n] for n in names],
+                                  [dtypes[n] for n in names], lo, hi,
+                                  capacity, device)
+
+
+class ParquetDatasetProvider(TableProvider):
+    """A directory of parquet part files that is never read whole (the
+    reference's out-of-core scan plane, `datagen --chunks` layout).
+
+    Row counts and types come from parquet metadata. A column's
+    dictionary and bounds (what binding needs) are read one part file at a
+    time, on first use (`ensure_meta`). The serial runtime reads one row
+    range at a time (`range_table`), encoding strings against the
+    table-wide dictionaries. A query that runs in-core reads whole columns
+    through `arrow_table`, the escape hatch, which materializes the table
+    (and logs that it did). pyarrow is imported where it is used."""
+
+    def __init__(self, name: str, directory: str, device: torch.device,
+                 primary_key=None):
+        import pyarrow.parquet as pq
+        files = sorted(glob.glob(os.path.join(directory, "*.parquet")))
+        if not files:
+            raise FileNotFoundError(f"no parquet part files in {directory}")
+        super().__init__(name, (), {}, device, primary_key)
+        self.files = files
+        self._file_rows = [pq.ParquetFile(f).metadata.num_rows for f in files]
+        self._arrow_schema = pq.ParquetFile(files[0]).schema_arrow
+        self.fields = B.schema_from_arrow(self._arrow_schema).fields
+        self.num_rows = sum(self._file_rows)
+        # column -> (table-wide dictionary or None, bounds or None)
+        self._meta: Dict[str, tuple] = {}
+        self._materialized = None
+
+    @property
+    def schema(self) -> Schema:
+        """The fields, with the dictionaries and bounds read so far."""
+        dicts = {n: d for n, (d, _) in self._meta.items() if d is not None}
+        bounds = {n: b for n, (_, b) in self._meta.items() if b is not None}
+        return Schema(self.fields, dicts, bounds)
+
+    def ensure_meta(self, names) -> None:
+        """Read the dictionary and bounds of each column in `names` that
+        has none yet, one part file at a time."""
+        import pyarrow.parquet as pq
+        dtypes = {f.name: f.dtype for f in self.fields}
+        todo = [n for n in dict.fromkeys(names) if n not in self._meta]
+        if not todo:
+            return
+        parts = {n: [] for n in todo}
+        for f in self.files:
+            t = pq.read_table(f, columns=todo)
+            for n in todo:
+                parts[n].append(B.ingest_arrow_column(t.column(n), dtypes[n]))
+        for n, cols in parts.items():
+            dictionary = None
+            if dtypes[n].kind is TypeKind.STRING:
+                # the union of the part files' sorted dictionaries
+                dictionary = np.unique(np.concatenate(
+                    [np.zeros(0, dtype=str)]
+                    + [c.dictionary.astype(str) for c in cols])).astype(object)
+            spans = [c.bounds for c in cols if c.bounds is not None]
+            bounds = ((min(b[0] for b in spans), max(b[1] for b in spans))
+                      if spans else None)
+            self._meta[n] = (dictionary, bounds)
+
+    def dataset_dictionaries(self, columns=None) -> dict:
+        """The table-wide sorted dictionary of each string column in
+        `columns` (all, when None), read part file by part file."""
+        names = [f.name for f in self.fields
+                 if f.dtype.kind is TypeKind.STRING
+                 and (columns is None or f.name in columns)]
+        self.ensure_meta(names)
+        return {n: self._meta[n][0] for n in names}
+
+    def range_table(self, lo: int, hi: int, columns=None):
+        """Global row range [lo, hi) as an arrow table, reading only the
+        part files that overlap it."""
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        pieces, start = [], 0
+        for f, n in zip(self.files, self._file_rows):
+            end = start + n
+            if end > lo and start < hi:
+                t = pq.read_table(f, columns=list(columns) if columns
+                                  else None)
+                pieces.append(t.slice(max(lo - start, 0),
+                                      min(hi, end) - max(lo, start)))
+            start = end
+            if start >= hi:
+                break
+        if not pieces:
+            sch = self._arrow_schema if columns is None else pa.schema(
+                [self._arrow_schema.field(c) for c in columns])
+            return sch.empty_table()
+        return pa.concat_tables(pieces)
+
+    @property
+    def arrow_table(self):
+        """The whole table, read once: the escape hatch for a query that
+        runs in-core; the serial runtime reads ranges instead."""
+        if self._materialized is None:
+            import pyarrow as pa
+            import pyarrow.parquet as pq
+            logging.getLogger("ballista_tpu_torch.context").warning(
+                "materializing the parquet dataset %s (%d rows); the serial "
+                "runtime would read it range by range", self.name,
+                self.num_rows)
+            self._materialized = pa.concat_tables(
+                pq.read_table(f) for f in self.files)
+        return self._materialized
+
+    def _encode(self, table, name: str) -> B.HostColumn:
+        dtypes = {f.name: f.dtype for f in self.fields}
+        self.ensure_meta([name])
+        return B.ingest_arrow_column(table.column(name), dtypes[name],
+                                     dictionary=self._meta[name][0])
+
+    def _host_column(self, name: str) -> B.HostColumn:
+        return self._encode(self.arrow_table, name)
+
+    def range_batch(self, names, lo: int, hi: int, capacity: int,
+                    device) -> B.Batch:
+        dtypes = {f.name: f.dtype for f in self.fields}
+        t = self.range_table(lo, hi, names)
+        return B.host_range_batch([self._encode(t, n) for n in names],
+                                  [dtypes[n] for n in names], 0, hi - lo,
+                                  capacity, device)
 
 
 def _is_masked_pair(value) -> bool:
@@ -97,12 +249,18 @@ class SessionContext:
     the CPU unasked (the CPU tests pass device="cpu")."""
 
     def __init__(self, device="cuda",
-                 options: Optional[PhysicalOptions] = None):
+                 options: Optional[PhysicalOptions] = None,
+                 serial_partitions: Optional[int] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SessionContext(device='cuda'): CUDA is not "
                                "available; pass device='cpu' to run on the CPU")
         self.options = options or PhysicalOptions()
+        # out-of-core: every query runs stage by stage, partition by
+        # partition, on this context's device (scheduler/serial.py)
+        self.serial_partitions = serial_partitions
+        # the StageMetrics of the last serial run, by stage id
+        self.serial_metrics: list = []
         self.tables: Dict[str, TableProvider] = {}
         # CREATE VIEW: name -> (SelectStmt, column aliases), expanded by
         # the SQL planner wherever the name is scanned
@@ -186,6 +344,13 @@ class SessionContext:
         import pyarrow.parquet as pq
         self.register_arrow(name, pq.read_table(path), primary_key)
 
+    def register_parquet_dataset(self, name: str, directory: str,
+                                 primary_key=None) -> None:
+        """A directory of parquet part files, read range by range and
+        never whole by the serial runtime (`ParquetDatasetProvider`)."""
+        self.tables[name] = ParquetDatasetProvider(name, directory,
+                                                   self.device, primary_key)
+
     def register_json(self, name: str, path: str, primary_key=None) -> None:
         """Newline-delimited JSON (BallistaContext::read_json parity)."""
         import pyarrow.json as pajson
@@ -239,7 +404,8 @@ class SessionContext:
         if tp._inferred_unique is None:
             tp._inferred_unique = []
             if tp.num_rows <= 1_000_000:
-                for f in tp.fields:
+                # a parquet dataset has no host columns to infer from
+                for f in (f for f in tp.fields if f.name in tp.host):
                     h = tp.host[f.name]
                     n_distinct = (len(np.unique(h.values[h.validity]))
                                   + int(not h.validity.all()))
@@ -389,9 +555,63 @@ class SessionContext:
                                     options or self.options, self.device)
 
     def collect(self, plan: L.LogicalPlan, max_retries: int = 5):
-        """Execute a logical plan: returns (Batch on the device, Schema)."""
-        exec_plan, _, out = self.converge(plan, max_retries)
-        return out, exec_plan.schema
+        """Execute a logical plan: returns (Batch on the device, Schema).
+
+        With `serial_partitions` set every plan runs on the serial runtime.
+        Otherwise a plan goes there when the memory model says it will not
+        fit (`exec.memory.route_serial`; a cheap gate first: when even 200
+        bytes per registered row fit the budget, no plan is priced), and
+        after its in-core run raised torch.cuda.OutOfMemoryError; both
+        leave a warning, and the second records the plan in the OOM memo.
+        Any other error is raised as it is."""
+        from ..scheduler.serial import execute_serial, fit_partitions
+        if self.serial_partitions:
+            return execute_serial(self, plan, self.serial_partitions,
+                                  max_retries=max_retries)
+        budget = memory.hbm_budget_bytes(self.device)
+        total_rows = sum(tp.num_rows for tp in self.tables.values())
+        if budget is not None and total_rows * 200 >= budget:
+            plan = rebind_scans(plan, self)
+            exec_plan = self.physical_plan(plan)
+            route_n = memory.route_serial(exec_plan, budget)
+            if route_n and not memory.oom_memo_lookup(
+                    memory.plan_fingerprint(exec_plan)):
+                # routed by the estimate: enough partitions for the stages
+                # (a memo's count was fitted when it was learned)
+                route_n = fit_partitions(self, plan, route_n, budget)
+            if route_n:
+                self.warn(f"plan routed out-of-core (serial@{route_n}): "
+                          "predicted working set exceeds device memory")
+                return execute_serial(self, plan, route_n,
+                                      max_retries=max_retries)
+        try:
+            exec_plan, _, out = self.converge(plan, max_retries)
+            return out, exec_plan.schema
+        except torch.cuda.OutOfMemoryError:
+            pass
+        # out of the except block: the traceback, whose frames hold the
+        # failed run's tensors, is gone, so the memory can be given back
+        return self._serial_after_oom(plan, budget, max_retries)
+
+    def _serial_after_oom(self, plan: L.LogicalPlan, budget: Optional[int],
+                          max_retries: int):
+        from ..scheduler.serial import execute_serial, fit_partitions
+        self.evict_device()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.warn("in-core execution exhausted device memory; falling back "
+                  "to the out-of-core serial runtime")
+        plan = rebind_scans(plan, self)
+        exec_plan = self.physical_plan(plan)
+        est = memory.estimate_plan_hbm(exec_plan)
+        # the OOM just proved the estimate low: twice the model's count
+        budget = budget or est
+        n_parts = fit_partitions(self, plan, min(
+            memory.plan_serial_partitions(est, budget) * 2, 64), budget)
+        # later sessions send this plan shape out-of-core at once
+        memory.oom_memo_record(memory.plan_fingerprint(exec_plan), n_parts)
+        return execute_serial(self, plan, n_parts, max_retries=max_retries)
 
     def converge(self, plan: L.LogicalPlan, max_retries: int = 5):
         """Plan and run until the output fits: returns (exec_plan, inputs,
@@ -404,6 +624,9 @@ class SessionContext:
         run and the plan is rebuilt with 4x the capacities. After
         `max_retries` runs that overflowed this raises: a clipped batch
         would be a wrong answer."""
+        # the scans' schemas taken anew: a parquet dataset reads its
+        # columns' metadata on first use
+        plan = rebind_scans(plan, self)
         opts = self.options
         for attempt in range(max_retries):
             exec_plan = self.physical_plan(plan, opts)
@@ -425,3 +648,28 @@ class SessionContext:
             f"join_out_factor {opts.join_out_factor / 4}); raise "
             "max_retries, PhysicalOptions.max_group_table or "
             "PhysicalOptions.join_out_factor")
+
+
+def rebind_scans(plan: L.LogicalPlan, ctx: SessionContext) -> L.LogicalPlan:
+    """The plan with every scan's table schema taken anew from its table,
+    after the table read the metadata (dictionaries, bounds) of the
+    columns the scan projects (a parquet dataset reads it on demand)."""
+    if isinstance(plan, L.TableScan):
+        tp = ctx.tables[plan.table_name]
+        if hasattr(tp, "ensure_meta"):
+            tp.ensure_meta(plan.projection
+                           or [f.name for f in tp.fields])
+        return dataclasses.replace(plan, table_schema=tp.schema)
+    if not plan.children():
+        return plan
+    new = {f.name: getattr(plan, f.name) for f in dataclasses.fields(plan)}
+    for key, val in new.items():
+        if isinstance(val, L.LogicalPlan):
+            new[key] = rebind_scans(val, ctx)
+        elif isinstance(val, (list, tuple)) and \
+                any(isinstance(v, L.LogicalPlan) for v in val):
+            # list-valued children (Union.inputs)
+            new[key] = type(val)(rebind_scans(v, ctx)
+                                 if isinstance(v, L.LogicalPlan) else v
+                                 for v in val)
+    return type(plan)(**new)

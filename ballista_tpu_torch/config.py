@@ -3,10 +3,10 @@
 Reference parity: `BallistaConfig` (`ballista/core/src/config.rs:30-213`):
 a kv map validated against a registry of `ConfigEntry`s with defaults,
 shipped with each job and applied to the engine. Same surface here; values
-map onto PhysicalOptions. (The port's own copy of ballista_tpu/config.py:
-the distributed planner is not ported, so `to_dist_options` is left out,
-and the capacity mode is kept as a setting that the port does not act on:
-its capacities are always the lane-rounded row count.)
+map onto PhysicalOptions and the serial runtime's DistOptions. (The
+port's own copy of ballista_tpu/config.py. The capacity mode is kept as a
+setting that the port does not act on: its capacities are always the
+lane-rounded row count.)
 """
 
 from __future__ import annotations
@@ -109,6 +109,15 @@ class BallistaConfig:
 
     def capacity_mode(self) -> str:
         return self.get(BALLISTA_CAPACITY_MODE)
+
+    def to_dist_options(self, n_partitions: Optional[int] = None):
+        from .scheduler.distributed_planner import DistOptions
+        return DistOptions(
+            n_partitions=n_partitions or self.shuffle_partitions(),
+            broadcast_threshold=self.get(BALLISTA_BROADCAST_THRESHOLD),
+            max_group_table=self.get(BALLISTA_MAX_GROUP_TABLE),
+            quota_headroom=self.get(BALLISTA_QUOTA_HEADROOM),
+        )
 
     def to_physical_options(self):
         from .planner.physical import PhysicalOptions

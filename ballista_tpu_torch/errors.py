@@ -8,9 +8,7 @@ TaskStatus messages so the scheduler can distinguish retryable failures
 The engine raises ordinary Python exceptions inside operators;
 `classify()` folds them into this taxonomy at the task boundary and
 `to_dict`/`from_dict` round-trip it through job stores and status wires.
-(The port's own copy of ballista_tpu/errors.py: host only. The
-distributed runtime's ShuffleOverflowError is not ported, so nothing
-classifies as "shuffle_overflow" here; the kind stays for the wire.)
+(The port's own copy of ballista_tpu/errors.py: host only.)
 """
 
 from __future__ import annotations
@@ -88,8 +86,11 @@ def classify(exc: BaseException) -> BallistaError:
     through; everything else maps by type."""
     if isinstance(exc, BallistaError):
         return exc
+    from .scheduler.runtime import ShuffleOverflowError
     name = type(exc).__name__
     msg = f"{name}: {exc}"
+    if isinstance(exc, ShuffleOverflowError):
+        return BallistaError("shuffle_overflow", msg)
     if isinstance(exc, NotImplementedError):
         return BallistaError("not_implemented", msg)
     if isinstance(exc, (OSError, IOError)):

@@ -40,6 +40,8 @@ _VALUE_ATTRS = (
     "on", "join_type", "unique_build", "out_capacity",   # HashJoinExec
     "chunk_b",                    # NestedLoopJoinExec (from opts)
     "n", "offset",                # LimitExec
+    "key_names", "n_parts", "quota",                 # ExchangeExec, GatherExec
+    "salt", "salt_mode", "salt_kind",                # ExchangeExec
 )
 
 

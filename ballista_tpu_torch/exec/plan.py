@@ -50,10 +50,20 @@ class Run:
     """One evaluation of a plan: its bound inputs, the overflow flags
     (0-d bool tensors) raised by nodes whose output outgrew its static
     capacity (`run_plan` reads them once, at the end), and the outputs of
-    the nodes that several parents share."""
+    the nodes that several parents share.
 
-    def __init__(self, inputs: Dict[str, Batch]):
+    The serial runtime runs a stage once per partition: `partition` is
+    that partition's id (PartitionPruneExec reads it; None outside the
+    serial runtime), and a run made with `trace=True` keeps each filter's,
+    aggregate's and join's output row count in `op_rows` as (label, 0-d
+    tensor), which the runtime sums into StageMetrics.operator_rows (the
+    reference's `_TraceCtx.record_rows`). An untraced run keeps none."""
+
+    def __init__(self, inputs: Dict[str, Batch],
+                 partition: Optional[int] = None, trace: bool = False):
         self.inputs = inputs
+        self.partition = partition
+        self.op_rows: Optional[List[tuple]] = [] if trace else None
         self.flags: List[torch.Tensor] = []
         self.evaluated = 0      # evaluate() calls made in this run
         # id(node) -> [output, parents that have not read it yet]
@@ -62,18 +72,23 @@ class Run:
     def flag_overflow(self, flag: torch.Tensor) -> None:
         self.flags.append(flag)
 
+    def _evaluate(self, node: "ExecNode") -> Batch:
+        self.evaluated += 1
+        out = node.evaluate(self)
+        if self.op_rows is not None and isinstance(node, _ROW_RECORDED):
+            self.op_rows.append((node._label(), out.num_rows))
+        return out
+
     def eval(self, node: "ExecNode") -> Batch:
         """`node`'s output in this run. A node with several parents
         (`n_parents`, set by exec.cse.cse_tree) is evaluated for the first
         of them, so it raises its overflow flag once, and its output is
         dropped when the last parent has read it."""
         if node.n_parents <= 1:
-            self.evaluated += 1
-            return node.evaluate(self)
+            return self._evaluate(node)
         entry = self._shared.get(id(node))
         if entry is None:
-            self.evaluated += 1
-            entry = self._shared[id(node)] = [node.evaluate(self),
+            entry = self._shared[id(node)] = [self._evaluate(node),
                                               node.n_parents]
         entry[1] -= 1
         if entry[1] == 0:
@@ -121,7 +136,10 @@ def _live_where(b: Batch, pred) -> torch.Tensor:
 
 
 class InputLeaf(ExecNode):
-    """Plan input: a table's columns, bound at run time."""
+    """Plan input: a table's columns, bound at run time. `one_row` marks a
+    stage input that holds exactly one live row, at position 0."""
+
+    one_row = False
 
     def __init__(self, input_id: str, schema: Schema, capacity: int):
         self.input_id = input_id
@@ -766,13 +784,15 @@ def _joined_schema(build: Schema, probe: Schema,
 
 def _static_one_row(node: ExecNode) -> bool:
     """Nodes that always produce exactly one live row, at position 0: a
-    no-key aggregate (one row even over an empty input) and OneRowExec,
-    seen through the positional wrappers above them."""
+    no-key aggregate (one row even over an empty input), OneRowExec and
+    the stage input that gathers such a row (`InputLeaf.one_row`, set by
+    the stage planner), seen through the positional wrappers above them."""
     while isinstance(node, (ProjectExec, DictRemapExec)):
         node = node.children[0]
     if isinstance(node, HashAggregateExec):
         return not node.group_exprs
-    return isinstance(node, OneRowExec)
+    return isinstance(node, OneRowExec) or (isinstance(node, InputLeaf)
+                                            and node.one_row)
 
 
 def _fit(b: Batch, capacity: int) -> Batch:
@@ -1038,6 +1058,12 @@ class LimitExec(ExecNode):
     def _label(self):
         off = f", offset={self.offset}" if self.offset else ""
         return f"LimitExec({self.n}{off})"
+
+
+# the operators whose output rows a traced Run records (the reference's
+# record_rows sites)
+_ROW_RECORDED = (FilterExec, HashAggregateExec, HashJoinExec, CrossJoinExec,
+                 NestedLoopJoinExec)
 
 
 def plan_sparse_flow(root: ExecNode) -> ExecNode:

@@ -1,0 +1,141 @@
+"""The device half of a hash-repartition shuffle (port of
+ballista_tpu/parallel/shuffle.py `SHUFFLE_SEED`, `shuffle_dest` and
+`exchange_send_layout`, which holds `_send_layout_packed`).
+
+A shuffle write (Ballista's ShuffleWriterExec hash path) groups a batch's
+live rows by destination partition into a send buffer of P x quota slots:
+slots [d * quota, d * quota + send_counts[d]) hold the rows bound for
+partition d, in batch order. The serial runtime takes the buffer's live
+slots alone (`exchange_send_rows`: a host shuffle has no fixed buffer to
+fill), copies them to the host and hands each partition its slices. The
+reference sorts packed operand limbs with the destination, a TPU device;
+here a stable sort of the destinations yields a permutation, a bincount
+the per-destination counts, and every column is gathered once through the
+slot -> row map.
+The in-program all_to_all and all_gather of the multi-device runtime
+(`hash_partition_exchange`, `all_gather_batch`) are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..batch import Batch, row_mask
+from ..ops.gather import gather_columns
+from ..ops.hash import MASK32, hash_columns
+
+SHUFFLE_SEED = 0x7F4A7C15
+
+
+def _key_hash(batch: Batch, key_indices: Sequence[int]) -> torch.Tensor:
+    keys = [batch.columns[i] for i in key_indices]
+    return hash_columns([k.data for k in keys], [k.validity for k in keys],
+                        seed=SHUFFLE_SEED)
+
+
+def shuffle_dest(batch: Batch, key_indices: Sequence[int], n_parts: int,
+                 salt: int = 1, salt_mode: str | None = None):
+    """(destination partition per row as int64, live mask); dead rows go
+    to n_parts.
+
+    With salt S > 1 a key's rows split over S destinations: 'spread' (the
+    probe side of a join) gives each row the sub-bucket of its position;
+    'replicate' (the build side) is `exchange_send_layout`'s, which copies
+    each row S times first. Both compute (h * S + sub) mod P, so probe
+    sub-bucket j meets build replica j exactly once."""
+    live = row_mask(batch)
+    h = _key_hash(batch, key_indices)
+    if salt > 1:
+        if salt_mode != "spread":
+            raise ValueError(f"shuffle_dest: salt {salt} needs salt_mode "
+                             f"'spread', got {salt_mode!r}")
+        sub = torch.arange(batch.capacity, dtype=torch.int64,
+                           device=h.device) % salt
+        h = (h * salt + sub) & MASK32
+    return torch.where(live, h % n_parts, n_parts), live
+
+
+def _by_destination(batch: Batch, key_indices: Sequence[int], n_parts: int,
+                    quota: int, salt: int, salt_mode: str | None):
+    """The rows of a shuffle write grouped by destination: (row of the
+    batch behind each position of the grouped order, per-destination
+    first positions, send_counts, overflow, counts). With 'replicate'
+    salting every row stands S times, replica j bound for (h * S + j) mod
+    P. A stable sort of the destinations keeps each one's rows in batch
+    order; dead rows go last (destination P)."""
+    P = n_parts
+    device = batch.device
+    rows = None          # replicated position -> batch row
+    if salt > 1 and salt_mode == "replicate":
+        j = torch.arange(batch.capacity * salt, dtype=torch.int64,
+                         device=device)
+        rows = j // salt
+        h = _key_hash(batch, key_indices).index_select(0, rows)
+        live = row_mask(batch).index_select(0, rows)
+        dest = torch.where(live, ((h * salt + j % salt) & MASK32) % P, P)
+    else:
+        dest, _ = shuffle_dest(batch, key_indices, P, salt, salt_mode)
+    order = torch.sort(dest, stable=True).indices
+    if rows is not None:
+        order = rows.index_select(0, order)
+    counts = torch.bincount(dest, minlength=P + 1)[:P]
+    offsets = torch.cumsum(counts, 0) - counts
+    overflow = (counts > quota).any()
+    return order, offsets, counts.clamp(max=quota), overflow, counts
+
+
+def exchange_send_layout(batch: Batch, key_indices: Sequence[int],
+                         n_parts: int, quota: int, salt: int = 1,
+                         salt_mode: str | None = None):
+    """Group the live rows by destination into a (P * quota)-slot batch
+    (the fixed send buffer of a mesh all_to_all).
+
+    Returns (send Batch, send_counts, overflow, counts): send_counts[d]
+    (int32, clamped to the quota) rows lie at slots [d * quota, ...);
+    `counts` are the pre-clamp per-destination row counts (the
+    shuffle-write stats an overflow retry sizes its quotas from) and
+    `overflow` is a 0-d bool tensor, true where a destination got more
+    rows than the quota (rows were dropped). The batch's num_rows is the
+    number of rows sent."""
+    P = n_parts
+    order, offsets, send_counts, overflow, counts = _by_destination(
+        batch, key_indices, P, quota, salt, salt_mode)
+    slot = torch.arange(P * quota, dtype=torch.int64, device=batch.device)
+    d_of, k_of = slot // quota, slot % quota
+    slot_live = k_of < send_counts.index_select(0, d_of)
+    src = order.index_select(0, (offsets.index_select(0, d_of) + k_of)
+                             .clamp(0, order.shape[0] - 1))
+    cols = gather_columns(batch.columns, src, valid_and=slot_live)
+    total = send_counts.sum().to(torch.int32)
+    return (Batch(tuple(cols), total), send_counts.to(torch.int32), overflow,
+            counts.to(torch.int32))
+
+
+def exchange_send_rows(batch: Batch, key_indices: Sequence[int],
+                       n_parts: int, quota: int, salt: int = 1,
+                       salt_mode: str | None = None):
+    """`exchange_send_layout` without the fixed buffer (the serial
+    runtime's send side, whose shuffle goes through the host): the same
+    send_counts, overflow and counts, and the send buffer's live slots
+    compacted to the front in slot order, so destination d's rows are
+    [sum(send_counts[:d]), sum(send_counts[:d + 1])). The batch keeps the
+    rows' count as its num_rows and at least the input's capacity (S
+    times it under 'replicate' salting)."""
+    order, offsets, send_counts, overflow, counts = _by_destination(
+        batch, key_indices, n_parts, quota, salt, salt_mode)
+    cap = order.shape[0]
+    total = send_counts.sum()
+    # position i of the output: the k-th row bound for destination d
+    d_of = torch.repeat_interleave(
+        torch.arange(n_parts, device=batch.device), send_counts)
+    k_of = torch.arange(d_of.shape[0], device=batch.device) - (
+        torch.cumsum(send_counts, 0) - send_counts).index_select(0, d_of)
+    src = order.index_select(0, offsets.index_select(0, d_of) + k_of)
+    pad = cap - src.shape[0]
+    src = torch.cat([src, src.new_zeros(pad)])
+    live = torch.arange(cap, device=batch.device) < total
+    cols = gather_columns(batch.columns, src, valid_and=live)
+    return (Batch(tuple(cols), total.to(torch.int32)),
+            send_counts.to(torch.int32), overflow, counts.to(torch.int32))

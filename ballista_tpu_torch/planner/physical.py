@@ -105,9 +105,21 @@ def _is_cross(p: L.LogicalPlan) -> bool:
     return isinstance(p, L.Join) and p.how == "cross"
 
 
+def filtered_cross(build: ExecNode, probe: ExecNode, predicate,
+                   opts) -> ExecNode:
+    """A predicate over a cross join of two lowered sides: a chunked
+    NestedLoopJoinExec where the product passes CrossJoinExec.MAX_CELLS
+    and neither side is statically one row, else a FilterExec over the
+    CrossJoinExec. `opts.join_out_factor` sizes the nested loop's output."""
+    if (build.capacity * probe.capacity > CrossJoinExec.MAX_CELLS
+            and not _static_one_row(build) and not _static_one_row(probe)):
+        return NestedLoopJoinExec(build, probe, predicate, opts)
+    return FilterExec(CrossJoinExec(build, probe), predicate)
+
+
 def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
-                         options: Optional[PhysicalOptions] = None,
-                         device="cpu") -> ExecNode:
+                         options: Optional[PhysicalOptions],
+                         device) -> ExecNode:
     """capacities: table_name -> row capacity of its (single) partition;
     `device` is where FROM-less rows are made (scans bring their own)."""
     from .optimizer import prune_columns, reduce_group_keys
@@ -194,13 +206,7 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
         raise NotImplementedError(type(p).__name__)
 
     def lower_filtered_cross(join: L.Join, predicate) -> ExecNode:
-        """A predicate over a cross join: a chunked NestedLoopJoinExec
-        where the product passes CrossJoinExec.MAX_CELLS and neither side
-        is statically one row, else a FilterExec over the CrossJoinExec."""
-        b, pr = lower(join.left), lower(join.right)
-        if (b.capacity * pr.capacity > CrossJoinExec.MAX_CELLS
-                and not _static_one_row(b) and not _static_one_row(pr)):
-            return NestedLoopJoinExec(b, pr, predicate, opts)
-        return FilterExec(CrossJoinExec(b, pr), predicate)
+        return filtered_cross(lower(join.left), lower(join.right), predicate,
+                              opts)
 
     return cse_tree(plan_sparse_flow(lower(plan)))

@@ -5,7 +5,9 @@ checks each answer exactly, and a full outer join on each path, UNION
 [ALL] and a chunked theta join against numpy; then the analytic slice at
 SF1 against numpy: statistical aggregates, percentiles, a partial -> final
 aggregate, window functions over lineitem and orders, INTERSECT/EXCEPT ALL,
-and a converged plan re-run without planning.
+and a converged plan re-run without planning; the client slice; and the
+22 queries at SF10 in-core, on the serial runtime, routed under a 10 GiB
+cap and through a real out-of-memory fallback.
 
     python3 chip_smoke.py
 
@@ -87,6 +89,23 @@ Phases:
    TABLES and CREATE TABLE AS on the SF1 context, with a SELECT over the
    new table against numpy and its kernel call held against the plain
    version.
+12. the out-of-core slice at TPC-H SF10 (`generate_tpch(10, 19940101)`,
+   the same host columns registered in every context): (a) the 22 queries
+   in-core on the whole card, first run and warm median of 3, each with
+   its peak allocated and reserved bytes and the memory model's estimate
+   (columns evicted before each query), Q1, Q5 and Q6 equal to numpy; (b)
+   the 22 on SessionContext(serial_partitions=8), a first and a timed
+   second run, each equal to (a) (f64 at rtol 1e-9), with stages,
+   partitions, bytes each way and peak; past 240 s the queries left run at
+   SF1 against answers/sf1; (c) plain collect() under a 10 GiB cap
+   (`set_per_process_memory_fraction`, BALLISTA_HBM_BYTES): each query's
+   route (in-core, routed serial@N, OOM fallback serial@N), every answer
+   equal to (a), at least one routed; (d) the query of (a) with the largest
+   peak, routing off (BALLISTA_ROUTE_FACTOR=0), under the cap (halved
+   below its peak if it fits): a real torch.cuda.OutOfMemoryError answered
+   by the serial runtime, the OOM memo written, then a second collect()
+   routed by the memo alone. The kernel is held against its plain version
+   on SF10 Q1's in-core call and on one serial shard's call.
 Phases 7 and 8 also hold the kernel against its plain version on the
 calls Q4, Q15 and Q22 (phase 7) and Q11 and Q16 (phase 8) made.
 The line before the last is a JSON object describing the kernel (its
@@ -114,11 +133,15 @@ from ballista_tpu_torch.benchmarks import (ANALYTIC_QUERIES, TPCH_QUERIES,
 from ballista_tpu_torch.benchmarks.queries import q1_frame, q3_frame
 from ballista_tpu_torch.benchmarks.timing import cuda_ms, host_ms
 from ballista_tpu_torch.client import SessionContext
+from ballista_tpu_torch.client.context import rebind_scans
 from ballista_tpu_torch.datagen import TPCH_TABLES, generate_tpch
+from ballista_tpu_torch.exec import memory
 from ballista_tpu_torch.exec import plan as plan_mod
 from ballista_tpu_torch.exprs import Col, like_lut, parse_date
 from ballista_tpu_torch.ops import masked_sums
 from ballista_tpu_torch.schema import TypeKind
+from ballista_tpu_torch.scheduler import serial as serial_mod
+from ballista_tpu_torch.scheduler.serial import estimate_serial_hbm
 
 SF = 1.0
 SEED = 19940101
@@ -516,6 +539,22 @@ def numpy_q1(cols):
     return out
 
 
+def check_q1(got, schema, cols):
+    """Q1's answer (host columns) against numpy_q1 on lineitem's host
+    columns, exactly."""
+    want = numpy_q1(cols)
+    keys = list(zip(got["l_returnflag"][0], got["l_linestatus"][0]))
+    if keys != sorted(want):
+        raise AssertionError(f"groups {keys} != {sorted(want)}")
+    for f in schema.fields[2:]:
+        if not got[f.name][1].all():
+            raise AssertionError(f"NULL in {f.name}")
+    for i, key in enumerate(keys):
+        row = [int(got[f.name][0][i]) for f in schema.fields[2:]]
+        if row != want[key]:
+            raise AssertionError(f"group {key}: {row} != numpy {want[key]}")
+
+
 def _render(value, valid, dtype, places, rounding=decimal.ROUND_HALF_EVEN):
     """One cell as the answer files print it (ballista_tpu.datagen.tbl
     renders through pandas: dates as timestamps, decimals quantized to the
@@ -606,17 +645,7 @@ def phase_q1():
         f"T = {shapes[0]}")
 
     got = df.to_numpy()
-    want = numpy_q1(cols)
-    keys = list(zip(got["l_returnflag"][0], got["l_linestatus"][0]))
-    if keys != sorted(want):
-        raise AssertionError(f"groups {keys} != {sorted(want)}")
-    for f in schema.fields[2:]:
-        if not got[f.name][1].all():
-            raise AssertionError(f"NULL in {f.name}")
-    for i, key in enumerate(keys):
-        row = [int(got[f.name][0][i]) for f in schema.fields[2:]]
-        if row != want[key]:
-            raise AssertionError(f"group {key}: {row} != numpy {want[key]}")
+    check_q1(got, schema, cols)
     log("phase 4: result equals the numpy computation exactly")
     check_answers(got, schema, 1)
     log("phase 4: result equals answers/sf1/answers/q1.out exactly")
@@ -684,6 +713,14 @@ def numpy_q5(tables):
     return out
 
 
+def check_q5(got, tables):
+    want = numpy_q5(tables)
+    mine = {k: int(v) for k, v in zip(got["n_name"][0], got["revenue"][0])}
+    if mine != want or list(got["revenue"][0]) != sorted(want.values(),
+                                                         reverse=True):
+        raise AssertionError(f"Q5 {mine} != numpy {want}")
+
+
 def run_query(ctx, q, phase, with_sql=False):
     """First run (with every masked_slot_sums_rows call of the aggregate
     operator recorded), answer check, warm median of 10. `with_sql` times
@@ -748,11 +785,7 @@ def phase_joins():
     if shapes != [((Q5_A, Q1_N), Q5_T)]:
         raise AssertionError(f"Q5's kernel calls {shapes} differ from "
                              f"({Q5_A}, {Q1_N}), {Q5_T}")
-    want = numpy_q5(tables)
-    mine = {k: int(v) for k, v in zip(got["n_name"][0], got["revenue"][0])}
-    if mine != want or list(got["revenue"][0]) != sorted(want.values(),
-                                                         reverse=True):
-        raise AssertionError(f"Q5 {mine} != numpy {want}")
+    check_q5(got, tables)
     log("phase 6: Q5 result equals the numpy computation exactly")
 
     held = hold_call(6, "Q5's own kernel inputs", *calls[0])
@@ -1960,6 +1993,376 @@ def phase_client(ctx):
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the out-of-core slice at SF10
+# ---------------------------------------------------------------------------
+
+SF10 = 10.0
+SERIAL_P = 8
+# the device cap of (c) and (d): the H100's smallest MIG slice, 1g.10gb
+CAP_BYTES = 10 * 2 ** 30
+# (b) runs every query at SF10 unless it passes this; then the rest of the
+# queries run at SF1 against answers/sf1
+SERIAL_BUDGET_S = 240
+SERIAL_SF10_FIRST = (1, 3, 5, 9, 13, 18, 21)
+F64_RTOL = 1e-9
+ROUTED = "plan routed out-of-core"
+FELL_BACK = "in-core execution exhausted device memory"
+GIB = 2 ** 30
+
+
+def numpy_q6(cols):
+    """Q6 over lineitem's host columns: the revenue at scale 4."""
+    ship = cols["l_shipdate"].values
+    disc = cols["l_discount"].values
+    m = ((ship >= parse_date("1994-01-01")) & (ship < parse_date("1995-01-01"))
+         & (disc >= 5) & (disc <= 7) & (cols["l_quantity"].values < 2400))
+    return int((cols["l_extendedprice"].values[m] * disc[m]).sum())
+
+
+def _same_answer(label, got, want):
+    """A host answer ({name: (values, validity)}) against the yardstick:
+    names, row count and validity equal, f64 at rtol F64_RTOL, everything
+    else exactly; row by row, or, where ties under a LIMIT leave the order
+    open, as sorted rows."""
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: columns {list(got)} != {list(want)}")
+    n = len(next(iter(want.values()))[0])
+    if len(next(iter(got.values()))[0]) != n:
+        raise AssertionError(f"{label}: {len(next(iter(got.values()))[0])} "
+                             f"rows, want {n}")
+
+    def rows(ans):
+        cols = [(v.tolist(), ok.tolist()) for v, ok in ans.values()]
+        return [tuple(v[i] if ok[i] else None for v, ok in cols)
+                for i in range(n)]
+
+    def close(a, b):
+        return all(x == y or (isinstance(x, float) and isinstance(y, float)
+                              and abs(x - y) <= F64_RTOL * abs(y))
+                   for x, y in zip(a, b))
+
+    g, w = rows(got), rows(want)
+    if all(close(a, b) for a, b in zip(g, w)):
+        return
+    g, w = sorted(g, key=_row_key), sorted(w, key=_row_key)
+    if not all(close(a, b) for a, b in zip(g, w)):
+        bad = next(i for i in range(n) if not close(g[i], w[i]))
+        raise AssertionError(f"{label}: row {bad} {g[bad]} != {w[bad]}")
+
+
+def _fresh(ctx=None):
+    """Device memory as a query starts: no cached columns, nothing held by
+    the allocator, the peak counters reset."""
+    if ctx is not None:
+        ctx.evict_device()
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peaks():
+    return torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+
+
+class spy_serial:
+    """Records each execute_serial call the contexts make while the block
+    runs: (partitions, the run's StageMetrics)."""
+
+    def __init__(self):
+        self.runs = []
+
+    def __enter__(self):
+        self.real = serial_mod.execute_serial
+
+        def spy(ctx, plan, n_partitions, *args, **kwargs):
+            out = self.real(ctx, plan, n_partitions, *args, **kwargs)
+            self.runs.append((n_partitions, list(ctx.serial_metrics)))
+            return out
+
+        serial_mod.execute_serial = spy
+        return self.runs
+
+    def __exit__(self, *exc):
+        serial_mod.execute_serial = self.real
+
+
+def _route_plan(ctx, q):
+    """The physical plan `collect()` prices for query q."""
+    return ctx.physical_plan(rebind_scans(ctx.sql(TPCH_QUERIES[q]).plan, ctx))
+
+
+def sf10_in_core(ctx, tables):
+    """(a): the 22 queries in-core on the whole card. Returns (answers,
+    {q: peak allocated}, kernel launches, Q1's kernel call)."""
+    answers, peaks, launches = {}, {}, np.zeros(2, dtype=np.int64)
+    lineitem = tables["lineitem"][1]
+    for q in range(1, 23):
+        _fresh(ctx)
+        n_warn = len(ctx.warnings)
+        reset_counts()
+        t0 = time.perf_counter()
+        batch, schema = ctx.sql(TPCH_QUERIES[q]).collect()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches += read_counts()
+        answers[q] = to_numpy(batch, schema)
+        del batch
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ctx.sql(TPCH_QUERIES[q]).collect()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        # the plan the last run answered with (a re-planned one where the
+        # first overflowed): one more run, inside the same peak window
+        converged, _, _ = ctx.converge(ctx.sql(TPCH_QUERIES[q]).plan)
+        alloc, reserved = _peaks()
+        peaks[q] = alloc
+        est = memory.estimate_plan_hbm(_route_plan(ctx, q))
+        est_conv = memory.estimate_plan_hbm(converged)
+        del converged
+        retries = len(ctx.warnings) - n_warn
+        if any(FELL_BACK in w for w in ctx.warnings[n_warn:]):
+            raise AssertionError(f"Q{q} fell back to serial on the whole card")
+        log(f"phase 12 (a): Q{q} in-core: {len(answers[q][schema.fields[0].name][0])} "
+            f"rows; first run {first_s:.4f} s, warm median "
+            f"{statistics.median(warm) * 1e3:.3f} ms ({[round(w, 6) for w in warm]}); "
+            f"peak allocated {alloc} B ({alloc / GIB:.3f} GiB), reserved "
+            f"{reserved} B ({reserved / GIB:.3f} GiB); estimate {est} B "
+            f"({est / GIB:.3f} GiB), estimate/peak {est / alloc:.3f}, "
+            f"of the converged plan {est_conv} B ({est_conv / alloc:.3f}); "
+            f"reserved/allocated {reserved / alloc:.3f}; overflow retries "
+            f"{retries} over 5 runs")
+        if q == 1:
+            check_q1(answers[1], schema, lineitem)
+        elif q == 5:
+            check_q5(answers[5], tables)
+        elif q == 6:
+            got = answers[6]["revenue"]
+            if not got[1].all() or int(got[0][0]) != numpy_q6(lineitem):
+                raise AssertionError(f"Q6 {got} != numpy {numpy_q6(lineitem)}")
+        if q in (1, 5, 6):
+            log(f"phase 12 (a): Q{q} equals the numpy computation exactly")
+    # the kernel on SF10 Q1's own call, held against its plain version
+    _fresh(ctx)
+    with spy_rows() as calls:
+        ctx.sql(TPCH_QUERIES[1]).collect()
+    return answers, peaks, launches, calls[0]
+
+
+def sf10_serial(tables, answers, sf1_ctx):
+    """(b): the 22 queries on SessionContext(serial_partitions=8), each
+    equal to (a). Past SERIAL_BUDGET_S the queries left run at SF1 against
+    answers/sf1. Returns (kernel launches, a serial shard's kernel call)."""
+    sctx = SessionContext(device="cuda", serial_partitions=SERIAL_P)
+    for name, (fields, cols) in tables.items():
+        sctx.register_host(name, fields, cols, primary_key=TPCH_TABLES[name][1])
+    sf1 = SessionContext(device="cuda", serial_partitions=SERIAL_P)
+    for name, tp in sf1_ctx.tables.items():
+        if name in TPCH_TABLES:
+            sf1.register_host(name, tp.fields, tp.host,
+                              primary_key=TPCH_TABLES[name][1])
+    launches = np.zeros(2, dtype=np.int64)
+    order = SERIAL_SF10_FIRST + tuple(q for q in range(1, 23)
+                                      if q not in SERIAL_SF10_FIRST)
+    t_start = time.perf_counter()
+    at_sf1 = []
+    for q in order:
+        over = time.perf_counter() - t_start > SERIAL_BUDGET_S
+        ctx = sf1 if over else sctx
+        if over:
+            at_sf1.append(q)
+        _fresh()
+        reset_counts()
+        with spy_serial() as runs:
+            t0 = time.perf_counter()
+            batch, schema = ctx.sql(TPCH_QUERIES[q]).collect()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        launches += read_counts()
+        got = to_numpy(batch, schema)
+        del batch
+        if over:
+            check_answers(got, schema, q)
+        else:
+            _same_answer(f"Q{q} serial", got, answers[q])
+        t0 = time.perf_counter()
+        ctx.sql(TPCH_QUERIES[q]).collect()
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        alloc, reserved = _peaks()
+        stages = [m for _, ms in runs for m in ms]
+        est = estimate_serial_hbm(ctx, ctx.sql(TPCH_QUERIES[q]).plan, SERIAL_P)
+        log(f"phase 12 (b): Q{q} serial@{SERIAL_P} at SF{1 if over else 10}: "
+            f"equals {'answers/sf1' if over else '(a)'}; first run "
+            f"{first_s:.4f} s, second {second_s:.4f} s; {len(runs)} serial "
+            f"runs, {len(stages)} stages, {sum(m.partitions for m in stages)} "
+            f"partitions run, host->device {sum(m.bytes_to_device for m in stages)} B, "
+            f"device->host {sum(m.bytes_to_host for m in stages)} B, overflow "
+            f"retries {max((m.retries for m in stages), default=0)}; peak "
+            f"allocated {alloc} B ({alloc / GIB:.3f} GiB), reserved {reserved} "
+            f"B; largest stage estimate {est} B, estimate/peak "
+            f"{est / alloc:.3f}")
+    log(f"phase 12 (b): {time.perf_counter() - t_start:.1f} s in all; "
+        f"queries run at SF1 past {SERIAL_BUDGET_S} s: {at_sf1 or 'none'}")
+    # the kernel on one serial shard's partial aggregate of Q1
+    _fresh()
+    with spy_rows() as calls:
+        sctx.sql(TPCH_QUERIES[1]).collect()
+    # the partial aggregates read a lineitem shard; the final one reads the
+    # P x quota exchanged states
+    shard = max((c for c in calls if c[2] == Q1_T), key=lambda c: c[0].shape[0])
+    return launches, shard
+
+
+def _route(n_warn, ctx, runs):
+    new = ctx.warnings[n_warn:]
+    if not runs:
+        return "in-core"
+    kind = ("OOM fallback" if any(FELL_BACK in w for w in new)
+            else "routed" if any(ROUTED in w for w in new) else "?")
+    return f"{kind} serial@{runs[-1][0]}"
+
+
+def _capped(cap):
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(min(cap / total, 1.0), 0)
+    os.environ["BALLISTA_HBM_BYTES"] = str(int(cap))
+
+
+def sf10_routing(ctx, answers):
+    """(c): plain collect() under a 10 GiB cap. Returns kernel launches."""
+    _fresh(ctx)
+    _capped(CAP_BYTES)
+    launches = np.zeros(2, dtype=np.int64)
+    routes = {}
+    for q in range(1, 23):
+        _fresh(ctx)
+        n_warn = len(ctx.warnings)
+        reset_counts()
+        with spy_serial() as runs:
+            t0 = time.perf_counter()
+            batch, schema = ctx.sql(TPCH_QUERIES[q]).collect()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        launches += read_counts()
+        _same_answer(f"Q{q} under the cap", to_numpy(batch, schema),
+                     answers[q])
+        del batch
+        alloc, reserved = _peaks()
+        routes[q] = _route(n_warn, ctx, runs)
+        if reserved > CAP_BYTES:
+            raise AssertionError(f"Q{q}: {reserved} B reserved past the cap")
+        log(f"phase 12 (c): Q{q} under a {CAP_BYTES / GIB:g} GiB cap: "
+            f"{routes[q]}, equals (a); {run_s:.4f} s; peak allocated {alloc} B "
+            f"({alloc / GIB:.3f} GiB), reserved {reserved} B")
+    routed = [q for q, r in routes.items() if r != "in-core"]
+    if not any(r.startswith("routed") for r in routes.values()):
+        raise AssertionError("no query was routed under the cap")
+    log(f"phase 12 (c): out-of-core under the cap: {routed}")
+    return launches
+
+
+def sf10_oom(ctx, answers, peaks):
+    """(d): the largest in-core query of (a) with routing off under the
+    cap: a real torch.cuda.OutOfMemoryError, the serial fallback, the memo
+    written, then a second collect() routed by the memo alone. Returns
+    kernel launches."""
+    import shutil
+    import tempfile
+    q = max(peaks, key=peaks.get)
+    cap = CAP_BYTES
+    if peaks[q] <= cap:
+        cap = peaks[q] // 2
+        log(f"phase 12 (d): no in-core peak passes {CAP_BYTES} B; the cap "
+            f"is halved below Q{q}'s peak {peaks[q]} B to {cap} B")
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    memo_dir = tempfile.mkdtemp(dir=build)
+    memo_path = os.path.join(memo_dir, "oom_memo.json")
+    real_path = memory._oom_memo_path
+    memory._oom_memo_path = lambda: memo_path
+    launches = np.zeros(2, dtype=np.int64)
+    try:
+        _fresh(ctx)
+        _capped(cap)
+        os.environ["BALLISTA_ROUTE_FACTOR"] = "0"
+        for attempt, want in (("first", FELL_BACK), ("second", ROUTED)):
+            _fresh(ctx)
+            n_warn = len(ctx.warnings)
+            reset_counts()
+            with spy_serial() as runs:
+                t0 = time.perf_counter()
+                batch, schema = ctx.sql(TPCH_QUERIES[q]).collect()
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+            launches += read_counts()
+            _same_answer(f"Q{q} {attempt} collect", to_numpy(batch, schema),
+                         answers[q])
+            del batch
+            new = ctx.warnings[n_warn:]
+            if not any(want in w for w in new) or (
+                    attempt == "second" and any(FELL_BACK in w for w in new)):
+                raise AssertionError(f"Q{q} {attempt} collect: warnings {new}")
+            with open(memo_path) as f:
+                memo = json.load(f)
+            alloc, reserved = _peaks()
+            log(f"phase 12 (d): Q{q} (peak {peaks[q]} B in (a)) under a {cap} B "
+                f"cap, {attempt} collect: {_route(n_warn, ctx, runs)}, equals "
+                f"(a); {run_s:.4f} s; warnings {new}; memo {memo}; peak "
+                f"allocated {alloc} B, reserved {reserved} B")
+            # the second collect: the estimate can never route, the memo can
+            os.environ["BALLISTA_ROUTE_FACTOR"] = "1e12"
+    finally:
+        memory._oom_memo_path = real_path
+        torch.cuda.set_per_process_memory_fraction(1.0, 0)
+        os.environ.pop("BALLISTA_HBM_BYTES", None)
+        os.environ.pop("BALLISTA_ROUTE_FACTOR", None)
+        _fresh(ctx)
+        shutil.rmtree(memo_dir, ignore_errors=True)
+    return launches
+
+
+def phase_sf10(sf1_ctx):
+    """Phase 12. Returns (kernel launches over its main paths, max |kernel
+    - plain| on the two calls it holds)."""
+    sf1_ctx.evict_device()
+    _fresh()
+    t0 = time.perf_counter()
+    tables = generate_tpch(SF10, SEED)
+    rows = {name: len(cols[f[0].name].values)
+            for name, (f, cols) in tables.items()}
+    log(f"phase 12: TPC-H SF10 generated in {time.perf_counter() - t0:.1f} s "
+        f"({rows})")
+    ctx = SessionContext(device="cuda")
+    for name, (fields, cols) in tables.items():
+        ctx.register_host(name, fields, cols, primary_key=TPCH_TABLES[name][1])
+    t0 = time.perf_counter()
+    answers, peaks, launches, q1_call = sf10_in_core(ctx, tables)
+    log(f"phase 12 (a): {time.perf_counter() - t0:.1f} s")
+    err = held_err(hold_call(12, "SF10 Q1's own kernel inputs, in-core",
+                             *q1_call))
+    del q1_call
+    _fresh(ctx)
+    t0 = time.perf_counter()
+    more, shard_call = sf10_serial(tables, answers, sf1_ctx)
+    launches = launches + more
+    err = max(err, held_err(hold_call(
+        12, "SF10 Q1's kernel inputs on one serial shard", *shard_call)))
+    del shard_call
+    log(f"phase 12 (b): with the kernel held, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = launches + sf10_routing(ctx, answers)
+    log(f"phase 12 (c): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = launches + sf10_oom(ctx, answers, peaks)
+    log(f"phase 12 (d): {time.perf_counter() - t0:.1f} s")
+    ctx.evict_device()
+    return launches, err
+
+
 def main():
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -1988,12 +2391,14 @@ def main():
     max_err = phase_kernel()
     launches, q1_call = phase_q1()
     q1_held = phase_q1_inputs(*q1_call)
+    del q1_call     # its tensors would count in phase 12's peaks
     join_launches, q5_held, ctx = phase_joins()
     rest_launches, rest_err = phase_rest(ctx)
     part_launches, part_err = phase_rest_part(ctx)
     phase_setops(ctx)
     analytic_launches, analytic_err = phase_analytic(ctx)
     client_launches, client_err = phase_client(ctx)
+    sf10_launches, sf10_err = phase_sf10(ctx)
 
     # one record for the kernel file; its times and bound are those of
     # Q1's own call through the entry the queries use. `entry_points`
@@ -2001,9 +2406,9 @@ def main():
     # the 22 queries', the analytic slice's and the client slice's first
     # runs, counted per wrapper.
     launches = (launches + join_launches + rest_launches + part_launches
-                + analytic_launches + client_launches)
+                + analytic_launches + client_launches + sf10_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
-                part_err, analytic_err, client_err)
+                part_err, analytic_err, client_err, sf10_err)
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]
