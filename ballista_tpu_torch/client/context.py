@@ -9,8 +9,11 @@ registration and uploaded to the context's device column by column, on
 first use. A directory of parquet part files registers as a dataset that is
 read range by range (`register_parquet_dataset`).
 
-A query runs in-core (the whole plan at once over whole columns) unless
-the session asks for the serial runtime (`serial_partitions=N`: one stage
+With `distributed=True` every query goes to the standalone cluster
+(`cluster()`: the scheduler's control plane and the partitioned runtime
+over the partitions of `mesh`). Otherwise a query runs in-core (the whole
+plan at once over whole columns) unless the session asks for the serial
+runtime (`serial_partitions=N`: one stage
 x partition at a time, the shuffle on the host), or `collect` routes it
 there: a plan whose estimated peak outgrows the device's budget
 (`exec/memory.py`; BALLISTA_HBM_BYTES, BALLISTA_ROUTE_FACTOR), a plan the
@@ -246,16 +249,33 @@ def _is_masked_pair(value) -> bool:
 class SessionContext:
     """One device, chosen explicitly. The default is "cuda", and that
     raises when no CUDA device is present: the port never carries on on
-    the CPU unasked (the CPU tests pass device="cpu")."""
+    the CPU unasked (the CPU tests pass device="cpu").
+
+    Local mode by default; `distributed=True` routes every collect through
+    the standalone cluster over `mesh` (`parallel.mesh.make_mesh`), by
+    default one partition per visible device of the context's type (every
+    CUDA device; the one CPU). A mesh whose devices are of another type
+    than `device` raises."""
 
     def __init__(self, device="cuda",
                  options: Optional[PhysicalOptions] = None,
-                 serial_partitions: Optional[int] = None):
+                 serial_partitions: Optional[int] = None,
+                 distributed: bool = False, mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SessionContext(device='cuda'): CUDA is not "
                                "available; pass device='cpu' to run on the CPU")
+        if mesh is not None:
+            other = {torch.device(d).type for d in mesh} - {self.device.type}
+            if other:
+                raise ValueError(f"SessionContext(device={device!r}): mesh "
+                                 f"devices of type {sorted(other)}")
         self.options = options or PhysicalOptions()
+        # distributed mode: the standalone cluster (scheduler control
+        # plane + partitioned runtime), made on first use by cluster()
+        self.distributed = distributed
+        self.mesh = mesh
+        self._cluster = None
         # out-of-core: every query runs stage by stage, partition by
         # partition, on this context's device (scheduler/serial.py)
         self.serial_partitions = serial_partitions
@@ -286,7 +306,16 @@ class SessionContext:
         host columns stay; a column is uploaded again on next use)."""
         for tp in self.tables.values():
             tp.evict_device()
+        if self._cluster is not None:
+            self._cluster.runtime.drop_tables()
         B.drop_row_indices()
+
+    def cluster(self):
+        """The standalone cluster of distributed mode (made on first use)."""
+        if self._cluster is None:
+            from ..scheduler.standalone import StandaloneCluster
+            self._cluster = StandaloneCluster(self, self.mesh)
+        return self._cluster
 
     # -- registration (BallistaContext::register_* parity) --
     def register_host(self, name: str, fields: Sequence[Field],
@@ -563,8 +592,12 @@ class SessionContext:
         bytes per registered row fit the budget, no plan is priced), and
         after its in-core run raised torch.cuda.OutOfMemoryError; both
         leave a warning, and the second records the plan in the OOM memo.
-        Any other error is raised as it is."""
+        Any other error is raised as it is. In distributed mode the plan
+        is a job of the standalone cluster (`cluster()`)."""
         from ..scheduler.serial import execute_serial, fit_partitions
+        if self.distributed:
+            cl = self.cluster()
+            return cl.wait(cl.submit_plan(plan))
         if self.serial_partitions:
             return execute_serial(self, plan, self.serial_partitions,
                                   max_retries=max_retries)

@@ -5,11 +5,15 @@ repartition at a producer stage's root), CoalescePartitionsExec ->
 GatherExec (every partition's rows to every partition), and the final
 merge stage's single output partition -> PartitionPruneExec. The stage
 planner (`scheduler/distributed_planner.py`) puts an ExchangeExec or a
-GatherExec at the root of every stage but the last; the serial runtime
-(`scheduler/serial.py`) strips them off, runs the stage body once per
-partition and does the exchange on the host. Evaluated inside a plan they
-would be the multi-device runtime's in-program collectives, which are not
-ported, so they raise.
+GatherExec at the root of every stage but the last, and nowhere else.
+
+The JAX package evaluates them inside one program over the mesh, as
+collectives. The port's runtimes run a stage's body once per partition and
+then apply the root across the P outputs: the partitioned runtime
+(`scheduler/runtime.py`) through `ExchangeExec.exchange` and
+`GatherExec.gather` (`parallel/shuffle.py`, on the devices), the serial
+runtime (`scheduler/serial.py`) on the host. Evaluated for one partition,
+below a stage root, they raise.
 
 The reference keeps the partition id and the per-operator row counts in
 class globals (`_PartitionCtx`, `_TraceCtx`); here they live on the
@@ -24,11 +28,13 @@ from typing import Sequence
 import torch
 
 from ..batch import Batch, Column
+from ..parallel.shuffle import all_gather_batch, hash_partition_exchange
 from .plan import ExecNode
 
-_MULTI_DEVICE = ("runs as an in-program collective of the multi-device "
-                 "runtime, which is not ported; the serial runtime strips it "
-                 "off the stage root")
+_AT_ROOT = ("runs at a stage root across the partitions' outputs, where the "
+            "multi-device runtime (DistributedRuntime.run_stage) and the "
+            "serial runtime apply it; evaluating it for one partition is "
+            "not implemented")
 
 
 class ExchangeExec(ExecNode):
@@ -58,7 +64,15 @@ class ExchangeExec(ExecNode):
         self._key_idx = [child.schema.index_of(k) for k in key_names]
 
     def evaluate(self, run):
-        raise NotImplementedError(f"ExchangeExec {_MULTI_DEVICE}")
+        raise NotImplementedError(f"ExchangeExec {_AT_ROOT}")
+
+    def exchange(self, batches: Sequence[Batch], devices=None):
+        """The P partitions' outputs of the stage body -> (received
+        batches, per-sender overflow flags, per-sender pre-clamp counts)
+        (`parallel.shuffle.hash_partition_exchange`)."""
+        return hash_partition_exchange(batches, self._key_idx, self.n_parts,
+                                       self.quota, devices, self.salt,
+                                       self.salt_mode)
 
     def _label(self):
         s = f", salt={self.salt}:{self.salt_mode}" if self.salt > 1 else ""
@@ -77,7 +91,12 @@ class GatherExec(ExecNode):
         self.capacity = n_parts * child.capacity
 
     def evaluate(self, run):
-        raise NotImplementedError(f"GatherExec {_MULTI_DEVICE}")
+        raise NotImplementedError(f"GatherExec {_AT_ROOT}")
+
+    def gather(self, batches: Sequence[Batch], devices=None):
+        """The P partitions' outputs of the stage body -> every partition's
+        rows on every partition (`parallel.shuffle.all_gather_batch`)."""
+        return all_gather_batch(batches, self.n_parts, devices)
 
     def _label(self):
         return f"GatherExec(P={self.n_parts})"
@@ -97,7 +116,7 @@ class PartitionPruneExec(ExecNode):
         b = run.eval(self.children[0])
         if run.partition is None:
             raise RuntimeError("PartitionPruneExec needs the partition id of "
-                               "the serial runtime's run (Run.partition)")
+                               "a runtime's run (Run.partition)")
         if run.partition == 0:
             return b
         return Batch(tuple(Column(c.data, torch.zeros_like(c.validity))

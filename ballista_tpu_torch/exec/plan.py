@@ -52,17 +52,21 @@ class Run:
     capacity (`run_plan` reads them once, at the end), and the outputs of
     the nodes that several parents share.
 
-    The serial runtime runs a stage once per partition: `partition` is
-    that partition's id (PartitionPruneExec reads it; None outside the
-    serial runtime), and a run made with `trace=True` keeps each filter's,
-    aggregate's and join's output row count in `op_rows` as (label, 0-d
-    tensor), which the runtime sums into StageMetrics.operator_rows (the
-    reference's `_TraceCtx.record_rows`). An untraced run keeps none."""
+    The serial and partitioned runtimes run a stage once per partition:
+    `partition` is that partition's id (PartitionPruneExec reads it; None
+    outside them) and `device` its device, where a node with no input
+    makes its rows (None: the node's own); a run made with `trace=True`
+    keeps each filter's, aggregate's and join's output row count in
+    `op_rows` as (label, 0-d tensor), which the runtime sums into
+    StageMetrics.operator_rows (the reference's `_TraceCtx.record_rows`).
+    An untraced run keeps none."""
 
     def __init__(self, inputs: Dict[str, Batch],
-                 partition: Optional[int] = None, trace: bool = False):
+                 partition: Optional[int] = None, trace: bool = False,
+                 device: Optional[torch.device] = None):
         self.inputs = inputs
         self.partition = partition
+        self.device = device
         self.op_rows: Optional[List[tuple]] = [] if trace else None
         self.flags: List[torch.Tensor] = []
         self.evaluated = 0      # evaluate() calls made in this run
@@ -165,10 +169,11 @@ class OneRowExec(ExecNode):
         self.schema = Schema((Field("__one", INT64, nullable=False),), {})
 
     def evaluate(self, run):
-        live = torch.arange(self.capacity, device=self.device) < 1
-        data = torch.zeros(self.capacity, dtype=torch.int64, device=self.device)
+        device = run.device if run.device is not None else self.device
+        live = torch.arange(self.capacity, device=device) < 1
+        data = torch.zeros(self.capacity, dtype=torch.int64, device=device)
         return Batch((Column(data, live),),
-                     torch.ones((), dtype=torch.int32, device=self.device))
+                     torch.ones((), dtype=torch.int32, device=device))
 
     def _label(self):
         return "OneRowExec"

@@ -1,1 +1,2 @@
-"""Repartitioning of batches by key hash (port of ballista_tpu/parallel)."""
+"""The partition mesh, partitioned batches and the shuffle (port of
+ballista_tpu/parallel)."""

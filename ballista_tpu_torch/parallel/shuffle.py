@@ -12,17 +12,24 @@ reference sorts packed operand limbs with the destination, a TPU device;
 here a stable sort of the destinations yields a permutation, a bincount
 the per-destination counts, and every column is gathered once through the
 slot -> row map.
-The in-program all_to_all and all_gather of the multi-device runtime
-(`hash_partition_exchange`, `all_gather_batch`) are not ported.
+
+The partitioned runtime's collectives (`hash_partition_exchange`, the
+reference's in-program all_to_all, and `all_gather_batch`, its all_gather)
+take the P partitions' batches as a list, each on its partition's device:
+receiver d reads chunk d of every sender's fixed send buffer, copied to its
+own device where the devices differ, and compacts the received slots to the
+reference's row order (sender-major, slot order within a sender: the
+stable sort on ~keep of `hash_partition_exchange`). Neither reads a count
+on the host.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
-from ..batch import Batch, row_mask
+from ..batch import Batch, Column, row_mask
 from ..ops.gather import gather_columns
 from ..ops.hash import MASK32, hash_columns
 
@@ -139,3 +146,92 @@ def exchange_send_rows(batch: Batch, key_indices: Sequence[int],
     cols = gather_columns(batch.columns, src, valid_and=live)
     return (Batch(tuple(cols), total.to(torch.int32)),
             send_counts.to(torch.int32), overflow, counts.to(torch.int32))
+
+
+def _compact_segments(columns, counts: torch.Tensor, seg: int) -> Batch:
+    """Columns of P segments of `seg` slots each, whose first counts[k]
+    slots of segment k are live, as a batch of P * seg rows with the live
+    slots first, in segment order and slot order within a segment, and
+    the dead slots after them in their order (the permutation the
+    reference's stable sort on ~keep makes)."""
+    device = counts.device
+    n = counts.shape[0] * seg
+    counts = counts.to(torch.int64)
+    j = torch.arange(n, dtype=torch.int64, device=device)
+    keep = (j % seg) < counts.index_select(0, j // seg)
+    kept = torch.cumsum(keep, 0)
+    total = counts.sum()
+    pos = torch.where(keep, kept - 1, total + j - kept)
+    perm = torch.empty_like(j).scatter_(0, pos, j)
+    cols = gather_columns(columns, perm, valid_and=j < total)
+    return Batch(tuple(cols), total.to(torch.int32))
+
+
+def _devices_of(batches, devices):
+    return (list(devices) if devices is not None
+            else [b.device for b in batches])
+
+
+def hash_partition_exchange(batches: Sequence[Batch],
+                            key_indices: Sequence[int], n_parts: int,
+                            quota: int, devices=None, salt: int = 1,
+                            salt_mode: str | None = None):
+    """Repartition the rows of P partition batches by key hash (the
+    reference's all_to_all over the mesh, ShuffleWriterExec's hash path).
+
+    Returns (received batches, overflow flags, counts): receiver d's batch
+    (capacity P * quota, on devices[d]) holds the rows every sender bound
+    for d, sender by sender, each sender's in its batch order; sender p's
+    overflow is a 0-d bool tensor (some destination got more than `quota`
+    rows, and rows were dropped) and counts[p] its pre-clamp (P,) int32
+    row counts per destination, both on the sender's device."""
+    P = n_parts
+    if len(batches) != P:
+        raise ValueError(f"hash_partition_exchange: {len(batches)} batches "
+                         f"for {P} partitions")
+    devices = _devices_of(batches, devices)
+    sends, send_counts, overflows, counts = [], [], [], []
+    for b in batches:
+        send, sc, ov, cnt = exchange_send_layout(b, key_indices, P, quota,
+                                                 salt, salt_mode)
+        sends.append(send)
+        send_counts.append(sc)
+        overflows.append(ov)
+        counts.append(cnt)
+    matrices = {}     # device -> (senders, destinations) send counts
+    out = []
+    for d, dev in enumerate(devices):
+        if str(dev) not in matrices:
+            matrices[str(dev)] = torch.stack([sc.to(dev)
+                                              for sc in send_counts])
+        lo, hi = d * quota, (d + 1) * quota
+        cols = [Column(torch.cat([s.columns[i].data[lo:hi].to(dev)
+                                  for s in sends]),
+                       torch.cat([s.columns[i].validity[lo:hi].to(dev)
+                                  for s in sends]))
+                for i in range(len(sends[0].columns))]
+        out.append(_compact_segments(cols, matrices[str(dev)][:, d], quota))
+    return out, overflows, counts
+
+
+def all_gather_batch(batches: Sequence[Batch], n_parts: int,
+                     devices=None) -> List[Batch]:
+    """Every partition's live rows onto every partition, in partition
+    order (the reference's all_gather; CoalescePartitionsExec and the
+    broadcast side of a join): capacity P x the partitions' capacity.
+    Partitions on one device share one batch."""
+    if len(batches) != n_parts:
+        raise ValueError(f"all_gather_batch: {len(batches)} batches for "
+                         f"{n_parts} partitions")
+    devices = _devices_of(batches, devices)
+    made = {}
+    for dev in devices:
+        if str(dev) in made:
+            continue
+        cols = [Column(torch.cat([b.columns[i].data.to(dev) for b in batches]),
+                       torch.cat([b.columns[i].validity.to(dev)
+                                  for b in batches]))
+                for i in range(len(batches[0].columns))]
+        nrows = torch.stack([b.num_rows.to(dev) for b in batches])
+        made[str(dev)] = _compact_segments(cols, nrows, batches[0].capacity)
+    return [made[str(dev)] for dev in devices]

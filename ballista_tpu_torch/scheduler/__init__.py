@@ -1,2 +1,2 @@
-"""Stage planning and the serial (out-of-core) runtime (port of
-ballista_tpu/scheduler)."""
+"""Stage planning, the partitioned and serial runtimes, and the
+scheduler's control plane (port of ballista_tpu/scheduler)."""

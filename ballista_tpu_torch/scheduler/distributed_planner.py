@@ -99,12 +99,18 @@ class DistributedPlanner:
     each finished stage actually sent, so the capacities after it fit the
     data instead of compounding (see `scheduler/serial.py`). `replay`, an
     earlier planner of the same plan, gives every join its broadcast or
-    shuffle choice and every exchange its quota, in lowering order, so a
-    re-planning keeps that planning's stages and overflow limits
-    (`self.broadcasts` and `self.quotas` record them)."""
+    shuffle choice, every one-row cross-join side its broadcast of the row
+    and every exchange its quota, in lowering order, so a re-planning keeps
+    that planning's stages and overflow limits (`self.broadcasts`,
+    `self.one_rows` and `self.quotas` record them). With
+    `replay_quotas=False` the re-planning keeps the stages alone and sizes
+    each quota from its sender's capacity anew: the partitioned runtime,
+    whose receive buffers are P x quota rows, re-plans so (see
+    `scheduler/runtime.py`)."""
 
     def __init__(self, ctx, options: DistOptions, leaf_capacity=None,
-                 replay: Optional["DistributedPlanner"] = None):
+                 replay: Optional["DistributedPlanner"] = None,
+                 replay_quotas: bool = True):
         self.ctx = ctx
         self.opts = options
         self._stages: List[Stage] = []
@@ -112,8 +118,10 @@ class DistributedPlanner:
         self._next_stage = 0
         self._leaf_capacity = leaf_capacity
         self._replay = replay
+        self._replay_quotas = replay_quotas
         self.broadcasts: List[bool] = []
         self.quotas: List[int] = []
+        self.one_rows: List[bool] = []
 
     # -- stage cutting --
     def _close_stage(self, root: ExecNode) -> int:
@@ -149,7 +157,7 @@ class DistributedPlanner:
         quota = max(self.opts.min_quota,
                     round_capacity(int(self.opts.quota_headroom
                                        * expected_rows / P)))
-        if self._replay is not None:
+        if self._replay is not None and self._replay_quotas:
             quota = self._replay.quotas[len(self.quotas)]
         self.quotas.append(quota)
         return self._cut(ExchangeExec(root, key_names, P, quota,
@@ -181,8 +189,15 @@ class DistributedPlanner:
         build = self._lower(join.left)
         bleaf = self._cut_gather(build)
         probe = self._lower(join.right)
-        if (_static_one_row(_unpruned(build)) and bleaf.capacity
-                * probe.capacity > CrossJoinExec.MAX_CELLS):
+        one_row = (_static_one_row(_unpruned(build)) and bleaf.capacity
+                   * probe.capacity > CrossJoinExec.MAX_CELLS)
+        if self._replay is not None:
+            # a re-planning with smaller capacities keeps the broadcast: the
+            # product it would form instead is up to MAX_CELLS rows per
+            # partition, and the aggregates above it are sized from that
+            one_row = self._replay.one_rows[len(self.one_rows)]
+        self.one_rows.append(one_row)
+        if one_row:
             bleaf.one_row = True
         return bleaf, probe
 

@@ -33,6 +33,7 @@ from ..batch import LANE, Batch, round_capacity, upload_parts
 from ..exec import memory
 from ..exec.distributed import ExchangeExec, GatherExec, PartitionPruneExec
 from ..exec.plan import Run, _static_one_row
+from ..parallel.partitioned import partition_rows
 from ..parallel.shuffle import exchange_send_rows
 from .distributed_planner import DistOptions, DistributedPlanner, Stage
 from .runtime import (CapacityOverflowError, ShuffleOverflowError,
@@ -99,9 +100,7 @@ class SerialRuntime:
     def _table_shard(self, name: str, columns, pid: int, cap: int) -> Batch:
         tp = self.ctx.tables[name]
         names = list(columns) if columns else [f.name for f in tp.fields]
-        n = tp.num_rows
-        per = -(-n // self.opts.n_partitions)
-        lo, hi = min(pid * per, n), min((pid + 1) * per, n)
+        lo, hi = partition_rows(tp.num_rows, self.opts.n_partitions, pid)
         return tp.range_batch(names, lo, hi, cap, self.device)
 
     # -- host-side exchange assembly (the ShuffleReaderExec analog) --

@@ -5,11 +5,14 @@ checks each answer exactly, and a full outer join on each path, UNION
 [ALL] and a chunked theta join against numpy; then the analytic slice at
 SF1 against numpy: statistical aggregates, percentiles, a partial -> final
 aggregate, window functions over lineitem and orders, INTERSECT/EXCEPT ALL,
-and a converged plan re-run without planning; the client slice; and the
+and a converged plan re-run without planning; the client slice; the
 22 queries at SF10 in-core, on the serial runtime, routed under a 10 GiB
-cap and through a real out-of-memory fallback.
+cap and through a real out-of-memory fallback; and the distributed slice:
+the 22 queries at SF1 over 8 partitions of the card through the scheduler
+and the partitioned runtime.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                     # every phase
+    python3 chip_smoke.py --distributed-only  # phases 1, 2 and 13 alone
 
 Phases:
 1. torch version, card name and power limit (exits 1 without CUDA);
@@ -106,6 +109,23 @@ Phases:
    by the serial runtime, the OOM memo written, then a second collect()
    routed by the memo alone. The kernel is held against its plain version
    on SF10 Q1's in-core call and on one serial shard's call.
+13. the distributed slice on phase 6's SF1 tables (with
+   `--distributed-only`, made in the call): (a) the 22 queries through
+   SessionContext(device="cuda", distributed=True, mesh=make_mesh(8,
+   devices=[cuda:0] * 8)), each exact against answers/sf1 and equal to the
+   in-core answer of phases 4-8 (f64 at rtol 1e-9), with its first run and
+   warm median of 3, jobs, stages, tasks and overflow escalations, each
+   stage's (run_s, output_rows), peak allocated and reserved bytes (the
+   partitioned tables evicted first) and the bytes of the partitioned
+   tables; the kernel held against its plain version on one partition's
+   partial aggregate of Q1; (b) Q1 on the default mesh (one partition per
+   visible card), equal to (a); (c) a 10^7-row fact table, 85 % of it on
+   one key, registered with register_numpy and shuffle-joined to a
+   100-row dimension on tiny quotas: the retry must salt the join, the
+   options of every attempt are printed, the answer equals numpy; (d) Q3
+   through StandaloneCluster(policy="pull"), a LIMIT 10 that trips the
+   circuit breaker, two jobs queued before the scheduler runs, their stage
+   states. Its seconds and the script's are printed.
 Phases 7 and 8 also hold the kernel against its plain version on the
 calls Q4, Q15 and Q22 (phase 7) and Q11 and Q16 (phase 8) made.
 The line before the last is a JSON object describing the kernel (its
@@ -140,8 +160,12 @@ from ballista_tpu_torch.exec import plan as plan_mod
 from ballista_tpu_torch.exprs import Col, like_lut, parse_date
 from ballista_tpu_torch.ops import masked_sums
 from ballista_tpu_torch.schema import TypeKind
+from ballista_tpu_torch.parallel.mesh import make_mesh
 from ballista_tpu_torch.scheduler import serial as serial_mod
+from ballista_tpu_torch.scheduler.distributed_planner import DistOptions
+from ballista_tpu_torch.scheduler.runtime import execute_distributed
 from ballista_tpu_torch.scheduler.serial import estimate_serial_hbm
+from ballista_tpu_torch.scheduler.standalone import StandaloneCluster
 
 SF = 1.0
 SEED = 19940101
@@ -648,6 +672,7 @@ def phase_q1():
     check_q1(got, schema, cols)
     log("phase 4: result equals the numpy computation exactly")
     check_answers(got, schema, 1)
+    INCORE_ANSWERS[1] = got
     log("phase 4: result equals answers/sf1/answers/q1.out exactly")
 
     warm = []
@@ -744,6 +769,7 @@ def run_query(ctx, q, phase, with_sql=False):
         f"calls at (A, n), T = {call_shapes(calls)}")
     got = to_numpy(batch, schema)
     check_answers(got, schema, q)
+    INCORE_ANSWERS[q] = got
     log(f"phase {phase}: Q{q} result equals answers/sf1/answers/q{q}.out "
         "exactly")
     warm = []
@@ -2363,7 +2389,249 @@ def phase_sf10(sf1_ctx):
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the distributed slice at SF1
+# ---------------------------------------------------------------------------
+
+DIST_P = 8
+SKEW_N = 10 ** 7
+SKEW_SQL = ("select k, sum(v + w) as s, count(*) c from fact join dim "
+            "on k = dk group by k order by k")
+# the in-core answer of each query, from phases 4-8 (phase 13 alone
+# computes the ones it lacks)
+INCORE_ANSWERS = {}
+# the numbers of the partition call phase 13 holds (the kernels line of
+# --distributed-only)
+LAST_HELD = {}
+
+
+def _dist_ctx(sf1_ctx, mesh):
+    """A distributed context over phase 6's host tables."""
+    ctx = SessionContext(device="cuda", distributed=True, mesh=mesh)
+    for name, tp in sf1_ctx.tables.items():
+        if name in TPCH_TABLES:
+            ctx.register_host(name, tp.fields, tp.host,
+                              primary_key=TPCH_TABLES[name][1])
+    return ctx
+
+
+def _incore(sf1_ctx, q):
+    if q not in INCORE_ANSWERS:
+        INCORE_ANSWERS[q] = to_numpy(*sf1_ctx.sql(TPCH_QUERIES[q]).collect())
+    return INCORE_ANSWERS[q]
+
+
+def _job_summary(cl, jobs):
+    """Stages, tasks, escalations and per-stage (run_s, output_rows) of
+    the jobs a query made (a scalar subquery is a job of its own)."""
+    stages = tasks = escalations = 0
+    per_stage = []
+    for j in jobs:
+        jc = cl.launcher.jobs[j]
+        stages += len(jc.dplan.stages)
+        tasks += cl.scheduler.task_manager.jobs[j]._next_task_id
+        escalations += len(jc.attempts) - 1
+        per_stage += [(round(m.run_s, 4), m.output_rows)
+                      for _, m in sorted(jc.stage_metrics.items())]
+    return stages, tasks, escalations, per_stage
+
+
+def dist_queries(ctx, sf1_ctx):
+    """(a): the 22 queries through SessionContext(distributed=True) at
+    P = 8 on one card. Returns (answers, kernel launches, Q1's calls)."""
+    cl = ctx.cluster()
+    answers, launches, q1_calls = {}, np.zeros(2, dtype=np.int64), None
+    for q in range(1, 23):
+        want = _incore(sf1_ctx, q)
+        _fresh(ctx)
+        before = set(cl.launcher.jobs)
+        reset_counts()
+        with spy_rows() as calls:
+            t0 = time.perf_counter()
+            batch, schema = ctx.sql(TPCH_QUERIES[q]).collect()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        first_launches = read_counts()
+        launches += first_launches
+        alloc, reserved = _peaks()
+        table_bytes = cl.runtime.table_bytes
+        jobs = [j for j in cl.launcher.jobs if j not in before]
+        got = to_numpy(batch, schema)
+        del batch
+        check_answers(got, schema, q)
+        _same_answer(f"Q{q} distributed", got, want)
+        answers[q] = got
+        if q == 1:
+            q1_calls = calls
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ctx.sql(TPCH_QUERIES[q]).collect()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        stages, tasks, escalations, per_stage = _job_summary(cl, jobs)
+        log(f"phase 13 (a): Q{q} at P = {DIST_P}: equals answers/sf1 and the "
+            f"in-core answer; first run {first_s:.4f} s, warm median "
+            f"{statistics.median(warm):.4f} s (runs "
+            f"{[round(w, 4) for w in warm]}); {len(jobs)} jobs, {stages} "
+            f"stages, {tasks} tasks, {escalations} escalations; kernel "
+            f"launches in the first run {int(first_launches.sum())}; peak "
+            f"allocated {alloc} B "
+            f"({alloc / GIB:.3f} GiB), reserved {reserved} B; partitioned "
+            f"tables {table_bytes} B")
+        log(f"phase 13 (a): Q{q} stages (run_s, output_rows): {per_stage}")
+    return answers, launches, q1_calls
+
+
+def dist_default_mesh(sf1_ctx, answers):
+    """(b): Q1 through the default mesh (one partition per visible card)."""
+    ctx = _dist_ctx(sf1_ctx, None)
+    reset_counts()
+    t0 = time.perf_counter()
+    batch, schema = ctx.sql(TPCH_QUERIES[1]).collect()
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = read_counts()
+    _same_answer("Q1 on the default mesh", to_numpy(batch, schema), answers[1])
+    log(f"phase 13 (b): Q1 on the default mesh, P = {len(ctx.cluster().runtime.mesh)}"
+        f": equals (a); {took:.4f} s")
+    ctx.evict_device()
+    return launches
+
+
+def dist_skew(mesh):
+    """(c): tests/test_skew.py's shape at 10^7 fact rows, 85 % on one key,
+    joined to a 100-row unique dimension through a shuffle join on tiny
+    quotas: the overflow must escalate to salt; the answer is checked
+    against numpy on the host arrays."""
+    rng = np.random.default_rng(SEED)
+    keys = np.where(rng.random(SKEW_N) < 0.85, 7,
+                    rng.integers(0, 100, SKEW_N)).astype(np.int64)
+    v = rng.integers(0, 1000, SKEW_N).astype(np.int64)
+    w = np.arange(100, dtype=np.int64) * 10
+    ctx = SessionContext(device="cuda")
+    ctx.register_numpy("fact", {"k": keys, "v": v})
+    ctx.register_numpy("dim", {"dk": np.arange(100, dtype=np.int64), "w": w},
+                       primary_key=("dk",))
+    opts = DistOptions(n_partitions=DIST_P, broadcast_threshold=0,
+                       min_quota=16, quota_headroom=1.05)
+    reset_counts()
+    t0 = time.perf_counter()
+    batch, schema = execute_distributed(ctx, ctx.sql(SKEW_SQL).plan, mesh,
+                                        opts)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = read_counts()
+    seq = ctx.dist_attempts
+    log("phase 13 (c): options of each attempt: " + "; ".join(
+        f"headroom {o.quota_headroom:.4f}, join_salt {o.join_salt}, "
+        f"max_group_table {o.max_group_table}" for o in seq))
+    if len(seq) < 2 or seq[-1].join_salt < 2:
+        raise AssertionError("phase 13 (c): the skewed join did not "
+                             "escalate to salt")
+    got = to_numpy(batch, schema)
+    uk, cnt = np.unique(keys, return_counts=True)
+    sums = np.zeros(100, dtype=np.int64)
+    np.add.at(sums, keys, v + w[keys])
+    for name, want in (("k", uk), ("c", cnt), ("s", sums[uk])):
+        if not np.array_equal(got[name][0], want) or not got[name][1].all():
+            raise AssertionError(f"phase 13 (c): column {name} != numpy")
+    log(f"phase 13 (c): {SKEW_N} fact rows, {int(cnt.max())} on key 7: equals "
+        f"numpy; {took:.4f} s for {len(seq)} attempts; stages "
+        f"{[(round(m.run_s, 4), m.output_rows) for m in ctx.dist_metrics]}")
+    return launches
+
+
+def dist_control_plane(ctx, sf1_ctx, mesh):
+    """(d): Q3 in pull mode; a LIMIT that trips the circuit breaker; two
+    jobs submitted before the scheduler runs; their stage states."""
+    launches = np.zeros(2, dtype=np.int64)
+    pull = StandaloneCluster(ctx, mesh, DistOptions(n_partitions=DIST_P),
+                             policy="pull")
+    reset_counts()
+    batch, schema = pull.collect_sql(TPCH_QUERIES[3])
+    launches += read_counts()
+    check_answers(to_numpy(batch, schema), schema, 3)
+    log("phase 13 (d): Q3 through StandaloneCluster(policy='pull') equals "
+        "answers/sf1")
+    cl = ctx.cluster()
+    reset_counts()
+    batch, _ = cl.collect_sql("select l_orderkey from lineitem limit 10")
+    launches += read_counts()
+    jid = list(cl.launcher.jobs)[-1]
+    if int(batch.num_rows) != 10 or not \
+            cl.scheduler.circuit_breaker.is_tripped(jid, "global-limit"):
+        raise AssertionError("phase 13 (d): LIMIT 10 did not trip the "
+                             "circuit breaker")
+    log("phase 13 (d): LIMIT 10 over lineitem: 10 rows, the circuit breaker "
+        "tripped (global-limit)")
+    reset_counts()
+    jobs = {q: cl.submit_sql(TPCH_QUERIES[q]) for q in (6, 5)}
+    cl.scheduler.run_until_idle()
+    launches += read_counts()
+    for q, j in jobs.items():
+        status = cl.job_status(j)
+        states = {sid: st["state"] for sid, st in status["stages"].items()}
+        if status["state"] != "successful" or set(states.values()) != {
+                "successful"}:
+            raise AssertionError(f"phase 13 (d): Q{q}'s job {status}")
+        b, s = cl.wait(j)
+        check_answers(to_numpy(b, s), s, q)
+        log(f"phase 13 (d): Q{q} submitted with another job before the "
+            f"scheduler ran: {status['state']}, stage states {states}; "
+            "equals answers/sf1")
+    return launches
+
+
+def phase_distributed(sf1_ctx):
+    """Phase 13. Returns (kernel launches over its main paths, max |kernel
+    - plain| on the partition call it holds)."""
+    t_start = time.perf_counter()
+    sf1_ctx.evict_device()
+    mesh = make_mesh(DIST_P, devices=[torch.device("cuda", 0)] * DIST_P)
+    ctx = _dist_ctx(sf1_ctx, mesh)
+    t0 = time.perf_counter()
+    answers, launches, q1_calls = dist_queries(ctx, sf1_ctx)
+    log(f"phase 13 (a): {time.perf_counter() - t0:.1f} s")
+    sf1_ctx.evict_device()
+    # one partition's partial aggregate of Q1: the largest call at T = 12
+    call = max((c for c in q1_calls if c[2] == Q1_T),
+               key=lambda c: c[0].shape[0])
+    del q1_calls
+    held = hold_call(13, f"one partition's partial aggregate of Q1 at "
+                     f"P = {DIST_P}", *call)
+    LAST_HELD.update(held)
+    err = held_err(held)
+    del call
+    launches = launches + dist_default_mesh(sf1_ctx, answers)
+    t0 = time.perf_counter()
+    launches = launches + dist_skew(mesh)
+    log(f"phase 13 (c): {time.perf_counter() - t0:.1f} s with generation")
+    launches = launches + dist_control_plane(ctx, sf1_ctx, mesh)
+    ctx.evict_device()
+    log(f"phase 13: {time.perf_counter() - t_start:.1f} s; kernel launches "
+        f"{launches.tolist()}")
+    return launches, err
+
+
+def phase_distributed_alone():
+    """Phase 13 without phases 3-12: the SF1 tables made here, the
+    in-core answers computed on demand."""
+    t0 = time.perf_counter()
+    ctx = SessionContext(device="cuda")
+    for name, (fields, cols) in generate_tpch(SF, SEED).items():
+        ctx.register_host(name, fields, cols, primary_key=TPCH_TABLES[name][1])
+    log(f"phase 13: TPC-H SF1 generated in {time.perf_counter() - t0:.1f} s")
+    return phase_distributed(ctx)
+
+
 def main():
+    t_script = time.perf_counter()
+    alone = sys.argv[1:] == ["--distributed-only"]
+    if sys.argv[1:] and not alone:
+        print("usage: python3 chip_smoke.py [--distributed-only]",
+              file=sys.stderr)
+        sys.exit(2)
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2388,6 +2656,18 @@ def main():
     log(f"phase 2: {masked_sums.smem_bytes('cuda')} B of shared memory per "
         f"block on request; a_chunk(26) = {masked_sums.a_chunk(26, 'cuda')}")
 
+    if alone:
+        launches, err = phase_distributed_alone()
+        print(json.dumps({"kernels": [{
+            "name": "masked_slot_sums", "route": "cuda",
+            "source": "ballista_tpu_torch/csrc/masked_slot_sums.cu",
+            "replaces": "ballista_tpu/ops/pallas_agg.py:106",
+            "launches": int(launches.sum()), "max_abs_err": err,
+            **LAST_HELD["masked_slot_sums_rows"]}]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     max_err = phase_kernel()
     launches, q1_call = phase_q1()
     q1_held = phase_q1_inputs(*q1_call)
@@ -2399,6 +2679,7 @@ def main():
     analytic_launches, analytic_err = phase_analytic(ctx)
     client_launches, client_err = phase_client(ctx)
     sf10_launches, sf10_err = phase_sf10(ctx)
+    dist_launches, dist_err = phase_distributed(ctx)
 
     # one record for the kernel file; its times and bound are those of
     # Q1's own call through the entry the queries use. `entry_points`
@@ -2406,9 +2687,10 @@ def main():
     # the 22 queries', the analytic slice's and the client slice's first
     # runs, counted per wrapper.
     launches = (launches + join_launches + rest_launches + part_launches
-                + analytic_launches + client_launches + sf10_launches)
+                + analytic_launches + client_launches + sf10_launches
+                + dist_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
-                part_err, analytic_err, client_err, sf10_err)
+                part_err, analytic_err, client_err, sf10_err, dist_err)
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]
@@ -2419,6 +2701,7 @@ def main():
         "launches": int(launches.sum()),
         **q1_held["masked_slot_sums_rows"], "max_abs_err": worst,
         "entry_points": entries}]}))
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
