@@ -15,9 +15,11 @@ Run:  python -m ballista_tpu_torch.cli [--sf F] [--parquet DIR] [--csv DIR]
       [--quiet]
 
 It runs on the CUDA device (`--distributed`: one partition per visible
-CUDA device). Results print through the port's own formatter, which needs
-no pandas. `--connect` (the scheduler's RPC wire) and `--plugin-dir` (UDF
-plugins) are not ported and raise.
+CUDA device). `--connect URL` sends each query to a scheduler's RPC wire
+(`scheduler/rpc.py`; its executor processes run it) over the data
+environment named by `--sf` or `--parquet`. Results print through the
+port's own formatter, which needs no pandas. `--plugin-dir` (UDF plugins)
+is not ported and raises.
 """
 
 from __future__ import annotations
@@ -33,6 +35,75 @@ from . import batch as B
 from .schema import TypeKind
 
 HELP = __doc__.split("Run:")[0]
+
+
+def _remote_tables_spec(args) -> dict:
+    """The data-environment spec of the CLI's data flags (serde/tasks)."""
+    if args.sf:
+        return {"kind": "tpch", "sf": args.sf}
+    if args.parquet:
+        import glob
+        import os
+        tables = {}
+        for path in sorted(glob.glob(os.path.join(args.parquet,
+                                                  "*.parquet"))):
+            name = os.path.splitext(os.path.basename(path))[0]
+            tables[name] = {"format": "parquet", "path": os.path.abspath(path),
+                            "primary_key": None}
+        for d in sorted(glob.glob(os.path.join(args.parquet, "*/"))):
+            name = os.path.basename(d.rstrip("/"))
+            tables[name] = {"format": "parquet_dataset",
+                            "path": os.path.abspath(d), "primary_key": None}
+        return {"kind": "files", "tables": tables}
+    raise SystemExit("--connect needs a data environment: --sf or --parquet")
+
+
+class RemoteSession:
+    """A SessionContext-shaped adapter over the scheduler's RPC wire
+    (BallistaContext::remote, ballista-cli --host/--port parity): SQL is
+    parsed and planned on the client against the named data environment
+    (a context on `device`), ships as a serialized plan, and the result
+    comes back as a stage blob."""
+
+    def __init__(self, url: str, tables_spec: dict, device="cuda"):
+        from .scheduler.rpc import SchedulerRpcClient
+        from .serde.tasks import build_context
+        self.client = SchedulerRpcClient(url, device=device)
+        self.tables_spec = tables_spec
+        self._local = build_context(tables_spec, device)  # for planning
+        self.options = {}
+        self.config = None
+
+    @property
+    def tables(self):
+        return self._local.tables
+
+    @property
+    def views(self):
+        return self._local.views
+
+    def sql(self, query: str):
+        session = self
+
+        class _RemoteDF:
+            def __init__(self):
+                # plan at once, so \explain and errors surface locally
+                self.plan = session._local.sql(query).plan
+
+            def collect(self):
+                job_id = session.client.submit_sql(
+                    query, session.tables_spec, options=session.options,
+                    ctx=session._local)
+                return session.client.wait_batch(job_id)
+
+        return _RemoteDF()
+
+    def set_config(self, config) -> None:
+        self._local.set_config(config)
+        self.config = config
+
+    def take_warnings(self):
+        return self._local.take_warnings()
 
 
 def _cell(value, valid: bool, dtype) -> str:
@@ -230,16 +301,23 @@ def main(argv=None, device="cuda", mesh=None):
                     choices=["table", "csv", "json"])
     ap.add_argument("--connect", default=None, metavar="URL",
                     help="execute against a remote scheduler RPC service "
-                    "(not ported)")
+                    "(needs --sf or --parquet)")
     args = ap.parse_args(argv)
 
-    if args.connect:
-        raise NotImplementedError(
-            "--connect: the scheduler's RPC wire (scheduler/rpc.py, "
-            "serde/, executor_process.py) is not ported yet")
     if args.plugin_dir:
         raise NotImplementedError("--plugin-dir: plugin.py (UDF plugin "
                                   "loading) is not ported yet")
+    if args.connect:
+        repl = Repl(RemoteSession(args.connect, _remote_tables_spec(args),
+                                  device))
+        repl.fmt = args.format
+        repl.quiet = args.quiet
+        if args.command:
+            repl.execute_sql(args.command)
+            return
+        print(f"ballista_tpu_torch SQL REPL connected to {args.connect}")
+        repl.run()
+        return
     from .client import SessionContext
     if args.distributed and mesh is None:
         from .parallel.mesh import context_mesh

@@ -231,18 +231,22 @@ class ExecutionGraph:
                         ti.finished_at = now
                         st.output_locations[p] = s.executor_id
                 if s.metrics:
-                    # merge executor-collected operator metrics: rows sum
-                    # across tasks (disjoint partitions), run_s takes the
-                    # stage wall max (proto:286-319 OperatorMetricsSet
-                    # merge on the scheduler)
-                    rows = st.metrics.setdefault("operator_rows", {})
-                    for lbl, v in (s.metrics.get("operator_rows")
-                                   or {}).items():
-                        rows[lbl] = rows.get(lbl, 0) + int(v)
-                    if "run_s" in s.metrics:
-                        st.metrics["run_s"] = round(max(
-                            st.metrics.get("run_s", 0.0),
-                            float(s.metrics["run_s"])), 4)
+                    # merge executor-collected metrics: run_s takes the
+                    # stage wall max; counts sum across tasks (disjoint
+                    # partitions) and attempts, per key where they are a
+                    # dict (operator rows, kernel launches) (proto:286-319
+                    # OperatorMetricsSet merge on the scheduler)
+                    st.metrics.setdefault("operator_rows", {})
+                    for key, v in s.metrics.items():
+                        if key == "run_s":
+                            st.metrics["run_s"] = round(max(
+                                st.metrics.get("run_s", 0.0), float(v)), 4)
+                        elif isinstance(v, dict):
+                            merged = st.metrics.setdefault(key, {})
+                            for k, n in v.items():
+                                merged[k] = merged.get(k, 0) + int(n)
+                        elif isinstance(v, int):
+                            st.metrics[key] = st.metrics.get(key, 0) + v
                     st.metrics.setdefault("executors", [])
                     if s.executor_id not in st.metrics["executors"]:
                         st.metrics["executors"].append(s.executor_id)

@@ -8,14 +8,23 @@ a TaskLauncher that runs each stage as one task over every partition of
 the mesh. Jobs go through the real control plane (the SchedulerServer
 event loop, the ExecutionGraph state machine, slots, retries), so failures
 and retries behave as in distributed operation while the data stays on
-the devices. Stage outputs are not spilled (`spill.py` is not ported): an
-output that is gone raises a fetch failure, and the graph rolls back and
-runs its producer again.
+the devices. With a `work_dir` every stage output is spilled
+(`scheduler/spill.py`) and restored when the copy in memory is gone; an
+output found in no tier raises a fetch failure, and the graph rolls back
+and runs its producer again.
+
+`JobContext` is also the executor process's stage loop
+(`scheduler/executor_process.py`): there an input another process
+produced comes from the spill store or its producer's data endpoint, and
+an overflow fails the task so the scheduler escalates the job for every
+executor alike (`escalate=False`).
 """
 
 from __future__ import annotations
 
 import logging
+import threading
+import time
 from typing import Dict, List, Optional
 
 from .distributed_planner import DistOptions, DistributedPlan, DistributedPlanner
@@ -26,6 +35,11 @@ from .runtime import (CapacityOverflowError, DistributedRuntime,
 from .server import ExecutorMetadata, SchedulerServer, TaskLauncher, random_job_id
 
 log = logging.getLogger("ballista_tpu_torch.standalone")
+
+# the attempts a job makes (its first planning and every escalation after
+# an overflow) before the overflow fails it: one budget for the in-process
+# paths (JobContext) and the wire (rpc.py _escalate_on_overflow)
+MAX_ATTEMPTS = 4
 
 
 class MeshTaskLauncher(TaskLauncher):
@@ -90,24 +104,35 @@ class MeshTaskLauncher(TaskLauncher):
 
 class JobContext:
     """One job's plans and stage outputs: the partitioned runtime's stage
-    loop, driven stage by stage by the scheduler (`MeshTaskLauncher`) or
-    in order by `run` (`runtime.execute_distributed`). `op_metrics` holds
-    each finished stage's output rows per operator, `stage_metrics` its
-    StageMetrics, and `attempts` the options of the first planning and of
-    every retry; the job makes at most `max_attempts`. The options are the
-    job's own (`planner.opts`): an escalation leaves the cluster's and
-    other jobs' as they were (the reference sets them on the shared
-    runtime, for every later job).
+    loop, driven stage by stage by the scheduler (`MeshTaskLauncher`, an
+    executor process) or in order by `run` (`runtime.execute_distributed`).
+    `op_metrics` holds each finished stage's output rows per operator,
+    `stage_metrics` its StageMetrics, and `attempts` the options of the
+    first planning and of every retry; the job makes at most
+    `max_attempts`. The options are the job's own (`planner.opts`): an
+    escalation leaves the cluster's and other jobs' as they were (the
+    reference sets them on the shared runtime, for every later job).
 
     Each stage's counts are read when it is done, so before a stage that
     reads a finished one the plan is lowered again with the rows that
     stage sent (`DistributedRuntime.relower`; its stages stay those of the
     first lowering) and a stage's output is kept cut to that capacity
-    (`DistributedRuntime.trim`)."""
+    (`DistributedRuntime.trim`).
+
+    A stage input is read from three tiers, as the reference's shuffle
+    reader does (shuffle_reader.rs:395-537): the outputs in memory, then
+    `spiller.restore`, then `peer_fetch(job_id, stage_id, mesh)` (the
+    producing executor's data endpoint); a miss in all three raises a
+    fetch failure. A restored output's capacity is the rows its stage sent,
+    so it is recorded as observed before the plan is lowered again: an
+    executor that never ran the producer lowers the plan as the one that
+    did. With `escalate=False` an overflow raises its error (with the
+    shuffle-write stats) instead of re-planning here."""
 
     def __init__(self, job_id: str, runtime: DistributedRuntime, ctx,
                  logical_plan, planner: DistributedPlanner,
-                 max_attempts: int = 4):
+                 max_attempts: int = MAX_ATTEMPTS, spiller=None,
+                 peer_fetch=None, escalate: bool = True):
         self.job_id = job_id
         self.runtime = runtime
         self.ctx = ctx
@@ -117,6 +142,15 @@ class JobContext:
         self.op_metrics: Dict[int, dict] = {}
         self.stage_metrics: Dict[int, object] = {}
         self.attempts: List[DistOptions] = [planner.opts]
+        self.spiller = spiller
+        self.peer_fetch = peer_fetch
+        self.escalate = escalate
+        # guards `outputs`: an executor's data endpoint reads them from
+        # another thread
+        self.lock = threading.Lock()
+        # bytes written by spill, and stage inputs read per tier
+        self.spilled_bytes = 0
+        self.reads = {"spill": 0, "peer": 0}
         # the first lowering with the job's options (its broadcast choices
         # are replayed) and the leaf capacity of each finished stage's
         # output
@@ -128,29 +162,43 @@ class JobContext:
         self.dplan = dplan
         self.stage_by_id = {s.stage_id: s for s in dplan.stages}
 
+    def _fetch_input(self, stage_id: int) -> None:
+        """Bring a missing stage output in from the spill store or a peer;
+        a fetch failure names the producer when neither has it."""
+        mesh = self.runtime.mesh
+        pb = tier = None
+        if self.spiller is not None:
+            pb, tier = self.spiller.restore(self.job_id, stage_id, mesh), \
+                "spill"
+        if pb is None and self.peer_fetch is not None:
+            pb, tier = self.peer_fetch(self.job_id, stage_id, mesh), "peer"
+        if pb is None:
+            # typed fetch failure: carries the producer stage id so the
+            # graph can roll back precisely (error.rs:58 FetchFailed)
+            from ..errors import fetch_failed
+            raise fetch_failed("", stage_id, [],
+                               f"stage {stage_id} outputs lost and no spill")
+        self.reads[tier] += 1
+        with self.lock:
+            self.outputs[str(stage_id)] = pb
+        self.observed[stage_id] = pb.capacity
+
     def run_stage(self, stage_id: int):
         """Run one stage over every partition; read its counts (one sync).
         On an overflow, re-plan the job with the escalated options (a quota
         overflow from its shuffle-write stats; an operator's with grown
         capacities), run every finished stage again on it (a salted join
         needs its build side replicated by the exchange that fed it) and
-        retry the stage; an overflow on the job's last attempt raises. (The
-        reference's cluster allows each stage 3 attempts and runs again
-        only the stages numbered below this one, so a finished stage
-        numbered above it loses its output.)"""
-        import time
-
+        retry the stage; an overflow on the job's last attempt, or any
+        overflow with `escalate=False`, raises. (The reference's cluster
+        allows each stage 3 attempts and runs again only the stages
+        numbered below this one, so a finished stage numbered above it
+        loses its output.)"""
         while True:
             stage = self.stage_by_id[stage_id]
             for src in stage.sources.values():
                 if src.kind == "stage" and src.name not in self.outputs:
-                    # typed fetch failure: carries the producer stage id
-                    # so the graph can roll back precisely
-                    # (error.rs:58 FetchFailed payload)
-                    from ..errors import fetch_failed
-                    raise fetch_failed(
-                        "", int(src.name), [],
-                        f"stage {src.name} outputs lost and no spill")
+                    self._fetch_input(int(src.name))
             if self.runtime.stale(stage, self.observed):
                 self._plan(self.runtime.relower(self.logical_plan,
                                                 self.observed, self.planner))
@@ -161,8 +209,12 @@ class JobContext:
             counts = run.read()
             if not counts.overflow:
                 self.observed[stage_id] = counts.leaf_capacity
-                self.outputs[str(stage_id)] = self.runtime.trim(
-                    run.out, counts.leaf_capacity)
+                out = self.runtime.trim(run.out, counts.leaf_capacity)
+                with self.lock:
+                    self.outputs[str(stage_id)] = out
+                if self.spiller is not None:
+                    self.spilled_bytes += self.spiller.spill(
+                        self.job_id, stage_id, out)
                 m = self.runtime.stage_metrics(stage, counts,
                                                time.perf_counter() - t0)
                 m.retries = len(self.attempts) - 1
@@ -170,7 +222,7 @@ class JobContext:
                 self.op_metrics[stage_id] = m.operator_rows
                 return
             err = counts.error(stage_id)
-            if len(self.attempts) >= self.max_attempts:
+            if not self.escalate or len(self.attempts) >= self.max_attempts:
                 raise err
             opts = (grow_capacities(self.planner.opts)
                     if isinstance(err, CapacityOverflowError)
@@ -189,7 +241,12 @@ class JobContext:
                                               replay_quotas=False)
             self._plan(self.planner.plan(self.logical_plan))
             self.observed.clear()
-            self.outputs.clear()
+            with self.lock:
+                self.outputs.clear()
+            if self.spiller is not None:
+                # the old attempt's spills are of other capacities and
+                # salts: the new attempt keys its own
+                self.spiller = self.spiller.at_version(len(self.attempts) - 1)
             for dep in finished:
                 self.run_stage(dep)
 
@@ -210,10 +267,13 @@ class JobContext:
 class StandaloneCluster:
     """In-process scheduler and partitioned executor
     (BallistaContext::standalone). `policy` "push" has the scheduler
-    launch tasks; "pull" has the executor claim them (PollWork)."""
+    launch tasks; "pull" has the executor claim them (PollWork). With a
+    `work_dir` (an object-store URL) every stage output is spilled there
+    and restored when the copy in memory is lost."""
 
     def __init__(self, ctx, mesh=None, options: Optional[DistOptions] = None,
-                 task_slots: int = 4, policy: str = "push"):
+                 task_slots: int = 4, work_dir: Optional[str] = None,
+                 policy: str = "push"):
         from .server import PollLoopExecutor
 
         self.ctx = ctx
@@ -233,6 +293,10 @@ class StandaloneCluster:
                 self.scheduler, self.launcher, meta)
         else:
             self.scheduler.register_executor(meta)
+        self.spiller = None
+        if work_dir is not None:
+            from .spill import StageSpiller
+            self.spiller = StageSpiller(work_dir)
 
     def submit_sql(self, sql: str) -> str:
         df = self.ctx.sql(sql)
@@ -247,7 +311,8 @@ class StandaloneCluster:
         planner = DistributedPlanner(
             self.ctx, self.converged.get(key, self.runtime.opts))
         job_id = random_job_id()
-        jc = JobContext(job_id, self.runtime, self.ctx, plan, planner)
+        jc = JobContext(job_id, self.runtime, self.ctx, plan, planner,
+                        spiller=self.spiller)
         self.launcher.jobs[job_id] = jc
         graph = ExecutionGraph.from_distributed_plan(
             job_id, jc.dplan, self.runtime.opts.n_partitions)

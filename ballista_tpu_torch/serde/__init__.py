@@ -1,2 +1,3 @@
-"""Wire encodings (port of ballista_tpu/serde). Only the wire version of
-persisted documents is ported; the plan and task codecs are not."""
+"""Wire encodings (port of ballista_tpu/serde): the logical-plan codec
+(`plans`) and the task, status, executor-registration and job-spec codecs
+(`tasks`). Host only."""

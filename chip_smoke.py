@@ -126,11 +126,34 @@ Phases:
    through StandaloneCluster(policy="pull"), a LIMIT 10 that trips the
    circuit breaker, two jobs queued before the scheduler runs, their stage
    states. Its seconds and the script's are printed.
+14. the wire slice on phase 6's SF1 data environment ({"kind": "tpch",
+   "sf": 1}, which every process generates itself; with `--wire-only` the
+   script's SF1 tables are made in the call): three scheduler RPC services
+   (`serve_scheduler`) on threads of the script and six executor processes
+   (`python -m ballista_tpu_torch.scheduler.executor_process --device cuda
+   --partitions 4`), all on cuda:0, each waited for by its EXECUTOR_READY
+   line. First the kernel is held against its plain version on one
+   partition's partial aggregate of Q1 at P = 4, the call an executor's
+   stage makes (run in this process). (a) the 22 queries through
+   `SchedulerRpcClient.submit_sql` -> `wait_batch` on two pull executors,
+   each exact against answers/sf1 and equal to the in-core answer (f64 at
+   rtol 1e-9), with seconds from submit to result, stages, tasks per
+   executor, the spec version (escalations), blob bytes spilled, inputs
+   restored from the spill store and kernel launches summed over the
+   tasks' metrics; both executors must run tasks and Q1 must launch the
+   kernel in them; (b) Q1, Q3, Q5 and Q21 through two push executors,
+   equal; (c) Q3 and Q5 through two executors whose work dirs are their
+   own and disjoint from the scheduler's: stage inputs must cross through
+   `fetch_partition` (at least one) and the scheduler's store stays empty;
+   (d) Q21 on (a)'s executors, the one whose task reports first killed
+   (SIGKILL): the job ends on the survivor, equal; (e) every live executor
+   stopped by SIGTERM exits 0 and leaves its scheduler's registry. Every
+   process is killed in a `finally`. Its seconds are printed.
 Phases 7 and 8 also hold the kernel against its plain version on the
 calls Q4, Q15 and Q22 (phase 7) and Q11 and Q16 (phase 8) made.
 The line before the last is a JSON object describing the kernel (its
-launches summed over every query's first run, per entry point under
-`entry_points`); the last line is
+launches summed over every query's first run and phase 14's executor
+tasks, per entry point under `entry_points`); the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code 1).
 """
 
@@ -138,9 +161,11 @@ import datetime
 import decimal
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -163,6 +188,8 @@ from ballista_tpu_torch.schema import TypeKind
 from ballista_tpu_torch.parallel.mesh import make_mesh
 from ballista_tpu_torch.scheduler import serial as serial_mod
 from ballista_tpu_torch.scheduler.distributed_planner import DistOptions
+from ballista_tpu_torch.scheduler.rpc import (SchedulerRpcClient,
+                                              serve_scheduler)
 from ballista_tpu_torch.scheduler.runtime import execute_distributed
 from ballista_tpu_torch.scheduler.serial import estimate_serial_hbm
 from ballista_tpu_torch.scheduler.standalone import StandaloneCluster
@@ -2625,12 +2652,317 @@ def phase_distributed_alone():
     return phase_distributed(ctx)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the wire slice (scheduler and executor processes over HTTP)
+# ---------------------------------------------------------------------------
+
+WIRE_P = 4
+# seconds without a heartbeat before the scheduler drops an executor (d)
+WIRE_EXPIRY_S = 5.0
+WIRE_PUSH = (1, 3, 5, 21)
+WIRE_P2P = (3, 5)
+# (d): a query that converges at spec v0, so the job's recovery is the
+# lost executor's and not an escalation's reset of every stage
+WIRE_LOST = 9
+
+
+class _Executor:
+    """One executor process on the card (`python -m
+    ballista_tpu_torch.scheduler.executor_process`); its output is kept
+    for a failure's report."""
+
+    def __init__(self, url, eid, policy="pull", work_dir=None):
+        cmd = [sys.executable, "-m",
+               "ballista_tpu_torch.scheduler.executor_process",
+               "--scheduler", url, "--executor-id", eid,
+               "--device", "cuda",
+               "--partitions", str(WIRE_P), "--poll-ms", "10",
+               "--heartbeat-s", "1", "--policy", policy]
+        if work_dir:
+            cmd += ["--work-dir", work_dir]
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p]))
+        self.eid = eid
+        self.lines = []
+        self.ready = threading.Event()
+        self.proc = subprocess.Popen(cmd, env=env, cwd=here,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            if line.startswith("EXECUTOR_READY"):
+                self.ready.set()
+
+    def wait_ready(self, timeout=120):
+        if not self.ready.wait(timeout):
+            raise AssertionError(f"phase 14: executor {self.eid} did not "
+                                 f"register: {self.lines[-20:]}")
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def _wire_scheduler(work_dir, policy="pull"):
+    service, httpd = serve_scheduler(work_dir, policy=policy,
+                                     executor_timeout_s=WIRE_EXPIRY_S,
+                                     device="cuda")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    return service, httpd, SchedulerRpcClient(url, timeout=120,
+                                              device="cuda")
+
+
+def _wire_job(service, client, job_id):
+    """Stages, the stages each executor ran (in any attempt: a stage's
+    merged metrics list every executor that finished one of its tasks),
+    spec version, bytes spilled, inputs restored and fetched, and kernel
+    launches per entry point (masked_slot_sums_rows, masked_slot_sums)
+    summed over the job's task metrics."""
+    stages = client.job_status(job_id)["stages"]
+    per_ex, spilled, restored, fetched = {}, 0, 0, 0
+    launches = np.zeros(2, dtype=np.int64)
+    for st in stages.values():
+        m = st.get("metrics") or {}
+        for e in m.get("executors", []):
+            per_ex[e] = per_ex.get(e, 0) + 1
+        spilled += m.get("spilled_bytes", 0)
+        restored += m.get("inputs_restored", 0)
+        fetched += m.get("inputs_fetched", 0)
+        counts = m.get("kernel_launches", {})
+        launches += [counts.get("masked_slot_sums_rows", 0),
+                     counts.get("masked_slot_sums", 0)]
+    return dict(stages=len(stages), ran=per_ex,
+                version=service.specs[job_id].version, spilled=spilled,
+                restored=restored, fetched=fetched, launches=launches)
+
+
+def _wire_query(label, service, client, sf1_ctx, q):
+    """Submit, wait, and hold the answer to answers/sf1 and the in-core
+    answer; returns (seconds, job summary)."""
+    t0 = time.perf_counter()
+    job_id = client.submit_sql(TPCH_QUERIES[q], {"kind": "tpch", "sf": SF},
+                               options={"n_partitions": WIRE_P}, ctx=sf1_ctx)
+    batch, schema = client.wait_batch(job_id, timeout_s=600)
+    took = time.perf_counter() - t0
+    got = to_numpy(batch, schema)
+    check_answers(got, schema, q)
+    _same_answer(f"phase 14 {label} Q{q}", got, _incore(sf1_ctx, q))
+    return took, job_id, _wire_job(service, client, job_id)
+
+
+def wire_pull(service, client, sf1_ctx):
+    """(a): the 22 queries through two pull executors."""
+    launches, ran = np.zeros(2, dtype=np.int64), set()
+    t0 = time.perf_counter()
+    for q in range(1, 23):
+        took, _, j = _wire_query("(a)", service, client, sf1_ctx, q)
+        ran |= set(j["ran"])
+        launches += j["launches"]
+        if q == 1 and j["launches"].sum() < 1:
+            raise AssertionError("phase 14 (a): Q1 launched no kernel in "
+                                 "the executors")
+        log(f"phase 14 (a): Q{q} over the wire: equals answers/sf1 and the "
+            f"in-core answer; {took:.4f} s from submit to result; "
+            f"{j['stages']} stages; stages run per executor {j['ran']}; spec "
+            f"version {j['version']}; {j['spilled']} B spilled; inputs "
+            f"restored {j['restored']}, fetched {j['fetched']}; kernel "
+            f"launches in the executors {j['launches'].tolist()}")
+    if ran != {"pull-a", "pull-b"}:
+        raise AssertionError(f"phase 14 (a): tasks ran on {sorted(ran)}")
+    log(f"phase 14 (a): {time.perf_counter() - t0:.1f} s for 22 queries; "
+        f"kernel launches in the executors {launches.tolist()}")
+    return launches
+
+
+def wire_push(service, client, sf1_ctx):
+    """(b): Q1, Q3, Q5 and Q21 through two push executors."""
+    launches = np.zeros(2, dtype=np.int64)
+    for q in WIRE_PUSH:
+        took, _, j = _wire_query("(b)", service, client, sf1_ctx, q)
+        launches += j["launches"]
+        log(f"phase 14 (b): Q{q} pushed: equal; {took:.4f} s; stages run "
+            f"per executor {j['ran']}; kernel launches "
+            f"{j['launches'].tolist()}")
+    return launches
+
+
+def wire_p2p(service, client, sf1_ctx, sched_dir):
+    """(c): Q3 and Q5 between executors whose work dirs are their own."""
+    launches, fetched = np.zeros(2, dtype=np.int64), 0
+    for q in WIRE_P2P:
+        took, _, j = _wire_query("(c)", service, client, sf1_ctx, q)
+        launches += j["launches"]
+        fetched += j["fetched"]
+        log(f"phase 14 (c): Q{q} peer to peer: equal; {took:.4f} s; stages "
+            f"run per executor {j['ran']}; stage inputs fetched from peers "
+            f"{j['fetched']}, restored {j['restored']}")
+    if fetched < 1:
+        raise AssertionError("phase 14 (c): no stage input crossed "
+                             "through fetch_partition")
+    stray = [f for _, _, fs in os.walk(sched_dir) for f in fs]
+    if stray:
+        raise AssertionError(f"phase 14 (c): the scheduler's store holds "
+                             f"{stray[:5]}")
+    return launches
+
+
+def wire_lost(service, client, sf1_ctx, executors):
+    """(d): SIGKILL the executor whose task reports first; the job ends on
+    the survivor."""
+    t0 = time.perf_counter()
+    job_id = client.submit_sql(TPCH_QUERIES[WIRE_LOST],
+                               {"kind": "tpch", "sf": SF},
+                               options={"n_partitions": WIRE_P}, ctx=sf1_ctx)
+    victim = None
+    while victim is None and time.perf_counter() - t0 < 120:
+        ran = _wire_job(service, client, job_id)["ran"]
+        victim = next((ex for ex in executors if ex.eid in ran), None)
+        time.sleep(0.005)
+    if victim is None:
+        raise AssertionError("phase 14 (d): no task reported")
+    victim.kill()
+    killed_at = time.perf_counter() - t0
+    batch, schema = client.wait_batch(job_id, timeout_s=600)
+    took = time.perf_counter() - t0
+    got = to_numpy(batch, schema)
+    check_answers(got, schema, WIRE_LOST)
+    _same_answer(f"phase 14 (d) Q{WIRE_LOST}", got,
+                 _incore(sf1_ctx, WIRE_LOST))
+    j = _wire_job(service, client, job_id)
+    survivor = [ex for ex in executors if ex is not victim][0]
+    if survivor.eid not in j["ran"] or survivor.proc.poll() is not None:
+        raise AssertionError(f"phase 14 (d): {j['ran']}")
+    log(f"phase 14 (d): Q{WIRE_LOST}: {victim.eid} killed (SIGKILL) "
+        f"{killed_at:.3f} s after submit, after its first task reported; "
+        f"the job finished on {survivor.eid}, equal; {took:.4f} s; spec "
+        f"version {j['version']}; stages run per executor {j['ran']}; "
+        f"inputs restored {j['restored']}")
+    return victim, j["launches"]
+
+
+def wire_stop(services, executors):
+    """(e): SIGTERM every live executor; each exits 0 and leaves its
+    scheduler's registry."""
+    for ex in executors:
+        ex.proc.send_signal(signal.SIGTERM)
+    for ex in executors:
+        code = ex.proc.wait(timeout=60)
+        if code != 0:
+            raise AssertionError(f"phase 14 (e): {ex.eid} exited {code}")
+    deadline = time.perf_counter() + 30
+    left = [ex.eid for ex in executors]
+    while left and time.perf_counter() < deadline:
+        left = [eid for eid in left if any(
+            eid in svc.scheduler.executor_manager.executors
+            for svc in services)]
+        time.sleep(0.05)
+    if left or not all(any(svc.scheduler.executor_manager.is_dead(ex.eid)
+                           for svc in services) for ex in executors):
+        raise AssertionError(f"phase 14 (e): still registered: {left}")
+    log(f"phase 14 (e): {len(executors)} executors stopped by SIGTERM, "
+        "exit code 0, deregistered")
+
+
+def wire_held(sf1_ctx):
+    """The kernel against its plain version on the call an executor's
+    partial aggregate of Q1 makes at P = WIRE_P (the same stage run in this
+    process)."""
+    mesh = make_mesh(WIRE_P, devices=[torch.device("cuda")] * WIRE_P)
+    with spy_rows() as calls:
+        execute_distributed(sf1_ctx, sf1_ctx.sql(TPCH_QUERIES[1]).plan, mesh,
+                            DistOptions(n_partitions=WIRE_P))
+    call = max((c for c in calls if c[2] == Q1_T),
+               key=lambda c: c[0].shape[0])
+    del calls
+    held = hold_call(14, f"one partition's partial aggregate of Q1 at "
+                     f"P = {WIRE_P}, the executors' call", *call)
+    sf1_ctx.evict_device()
+    return held
+
+
+def phase_wire(sf1_ctx):
+    """Phase 14. Returns (kernel launches in the executors and this
+    process, the held call's numbers)."""
+    import tempfile
+    t_start = time.perf_counter()
+    # the in-core answers phase 14 holds the wire's to, computed before the
+    # launches are counted (phases 4-8 leave them all; --wire-only does not)
+    for q in range(1, 23):
+        _incore(sf1_ctx, q)
+    _fresh(sf1_ctx)     # the executor processes share the card
+    held = wire_held(sf1_ctx)
+    procs, servers, services = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            pull = _wire_scheduler(os.path.join(tmp, "shuffle"))
+            push = _wire_scheduler(os.path.join(tmp, "shuffle_push"), "push")
+            p2p_dir = os.path.join(tmp, "sched_p2p")
+            p2p = _wire_scheduler(p2p_dir)
+            for svc, httpd, _ in (pull, push, p2p):
+                services.append(svc)
+                servers.append(httpd)
+            pulls = [_Executor(pull[2].url, eid) for eid in ("pull-a",
+                                                              "pull-b")]
+            pushes = [_Executor(push[2].url, eid, "push")
+                      for eid in ("push-a", "push-b")]
+            peers = [_Executor(p2p[2].url, eid,
+                               work_dir=os.path.join(tmp, eid))
+                     for eid in ("p2p-a", "p2p-b")]
+            procs = pulls + pushes + peers
+            for ex in procs:
+                ex.wait_ready()
+            log(f"phase 14: 3 schedulers, {len(procs)} executor processes "
+                f"of {WIRE_P} partitions on the card registered in "
+                f"{time.perf_counter() - t_start:.1f} s")
+            reset_counts()
+            launches = wire_pull(pull[0], pull[2], sf1_ctx)
+            t0 = time.perf_counter()
+            launches += wire_push(push[0], push[2], sf1_ctx)
+            log(f"phase 14 (b): {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            launches += wire_p2p(p2p[0], p2p[2], sf1_ctx, p2p_dir)
+            log(f"phase 14 (c): {time.perf_counter() - t0:.1f} s")
+            victim, lost_launches = wire_lost(pull[0], pull[2], sf1_ctx,
+                                              pulls)
+            launches += lost_launches
+            wire_stop(services, [ex for ex in procs if ex is not victim])
+            here = read_counts()
+        finally:
+            for ex in procs:
+                ex.kill()
+            for httpd in servers:
+                httpd.shutdown()
+                httpd.server_close()
+    log(f"phase 14: {time.perf_counter() - t_start:.1f} s; kernel launches "
+        f"in the executors {launches.tolist()}, in this process (the "
+        f"client's folded subqueries) {here.tolist()}")
+    return launches + here, held
+
+
+def phase_wire_alone():
+    """Phase 14 without phases 3-13: the SF1 tables made here, the in-core
+    answers computed at the phase's start."""
+    t0 = time.perf_counter()
+    ctx = SessionContext(device="cuda")
+    for name, (fields, cols) in generate_tpch(SF, SEED).items():
+        ctx.register_host(name, fields, cols, primary_key=TPCH_TABLES[name][1])
+    log(f"phase 14: TPC-H SF1 generated in {time.perf_counter() - t0:.1f} s")
+    return phase_wire(ctx)
+
+
 def main():
     t_script = time.perf_counter()
-    alone = sys.argv[1:] == ["--distributed-only"]
+    alone = sys.argv[1:] in (["--distributed-only"], ["--wire-only"])
     if sys.argv[1:] and not alone:
-        print("usage: python3 chip_smoke.py [--distributed-only]",
-              file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--distributed-only | "
+              "--wire-only]", file=sys.stderr)
         sys.exit(2)
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -2657,13 +2989,19 @@ def main():
         f"block on request; a_chunk(26) = {masked_sums.a_chunk(26, 'cuda')}")
 
     if alone:
-        launches, err = phase_distributed_alone()
+        if sys.argv[1] == "--distributed-only":
+            launches, err = phase_distributed_alone()
+            held = LAST_HELD
+        else:
+            launches, held = phase_wire_alone()
+            err = held_err(held)
         print(json.dumps({"kernels": [{
             "name": "masked_slot_sums", "route": "cuda",
             "source": "ballista_tpu_torch/csrc/masked_slot_sums.cu",
             "replaces": "ballista_tpu/ops/pallas_agg.py:106",
-            "launches": int(launches.sum()), "max_abs_err": err,
-            **LAST_HELD["masked_slot_sums_rows"]}]}))
+            "launches": int(launches.sum()),
+            **held["masked_slot_sums_rows"], "max_abs_err": err}]}))
+        log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2680,17 +3018,20 @@ def main():
     client_launches, client_err = phase_client(ctx)
     sf10_launches, sf10_err = phase_sf10(ctx)
     dist_launches, dist_err = phase_distributed(ctx)
+    wire_launches, wire_held_numbers = phase_wire(ctx)
 
     # one record for the kernel file; its times and bound are those of
     # Q1's own call through the entry the queries use. `entry_points`
     # gives each wrapper's own numbers on that call; launches are those of
     # the 22 queries', the analytic slice's and the client slice's first
-    # runs, counted per wrapper.
+    # runs, counted per wrapper, and those the executor processes of
+    # phase 14 reported.
     launches = (launches + join_launches + rest_launches + part_launches
                 + analytic_launches + client_launches + sf10_launches
-                + dist_launches)
+                + dist_launches + wire_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
-                part_err, analytic_err, client_err, sf10_err, dist_err)
+                part_err, analytic_err, client_err, sf10_err, dist_err,
+                held_err(wire_held_numbers))
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]

@@ -6,7 +6,9 @@ tests/test_standalone.py (lifecycle, several jobs, an injected stage
 failure retried, `SessionContext(distributed=True)` with Q11's nested
 jobs, operator metrics, the circuit breaker, pull mode), each held to the
 JAX package's answer and job status; then the command line's one-shot
-`-c` with `--distributed`, and `--connect` raising.
+`-c` with `--distributed`, `--plugin-dir` raising, and `--connect`
+refusing to run without a data environment (it runs end to end in
+tests/test_torch_rpc.py).
 
 Answers are compared row by row: validity, integers, decimals and strings
 exact, f64 at rtol 1e-9."""
@@ -245,10 +247,13 @@ def test_cli_explain_shows_stages():
     assert "GatherExec(P=4)" in out.getvalue()
 
 
-@pytest.mark.parametrize("flag", [["--connect", "grpc://localhost:50050"],
-                                  ["--plugin-dir", "plugins"]])
-def test_cli_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
+@pytest.mark.parametrize("flag, error, match", [
+    (["--connect", "http://localhost:50050"], SystemExit,
+     "needs a data environment"),
+    (["--plugin-dir", "plugins"], NotImplementedError, "not ported")],
+    ids=["flag0", "flag1"])
+def test_cli_unported_flags_raise(flag, error, match):
+    with pytest.raises(error, match=match):
         cli.main(flag + ["-c", "select 1"], device="cpu")
 
 
