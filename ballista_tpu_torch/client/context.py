@@ -36,6 +36,7 @@ import torch
 from .. import batch as B
 from ..exec import memory
 from ..exec.plan import run_plan
+from ..exprs import drop_device_luts
 from ..planner import logical as L
 from ..planner.physical import PhysicalOptions, create_physical_plan
 from ..schema import STRING, Field, Schema, TypeKind
@@ -75,7 +76,8 @@ class TableProvider:
                  if self.host[f.name].dictionary is not None}
         bounds = {f.name: self.host[f.name].bounds for f in self.fields
                   if self.host[f.name].bounds is not None}
-        return Schema(self.fields, dicts, bounds)
+        return Schema(self.fields, dicts, bounds,
+                      {f.name for f in self.fields if self.host[f.name].raw})
 
     def evict_device(self) -> None:
         """Drop the device columns; the host columns stay, and a column
@@ -147,7 +149,12 @@ class ParquetDatasetProvider(TableProvider):
 
     def ensure_meta(self, names) -> None:
         """Read the dictionary and bounds of each column in `names` that
-        has none yet, one part file at a time."""
+        has none yet, one part file at a time. A string column's
+        dictionary is the sorted union of the part files' distinct
+        values, whatever their count: the dataset is never read whole, so
+        it has no RAW columns (a RAW code is a row index into the whole
+        column)."""
+        import pyarrow.compute as pc
         import pyarrow.parquet as pq
         dtypes = {f.name: f.dtype for f in self.fields}
         todo = [n for n in dict.fromkeys(names) if n not in self._meta]
@@ -157,14 +164,17 @@ class ParquetDatasetProvider(TableProvider):
         for f in self.files:
             t = pq.read_table(f, columns=todo)
             for n in todo:
-                parts[n].append(B.ingest_arrow_column(t.column(n), dtypes[n]))
+                parts[n].append(
+                    np.asarray(pc.unique(pc.drop_null(t.column(n))),
+                               dtype=object).astype(str)
+                    if dtypes[n].kind is TypeKind.STRING
+                    else B.ingest_arrow_column(t.column(n), dtypes[n]))
         for n, cols in parts.items():
             dictionary = None
             if dtypes[n].kind is TypeKind.STRING:
-                # the union of the part files' sorted dictionaries
                 dictionary = np.unique(np.concatenate(
-                    [np.zeros(0, dtype=str)]
-                    + [c.dictionary.astype(str) for c in cols])).astype(object)
+                    [np.zeros(0, dtype=str)] + cols)).astype(object)
+                cols = []
             spans = [c.bounds for c in cols if c.bounds is not None]
             bounds = ((min(b[0] for b in spans), max(b[1] for b in spans))
                       if spans else None)
@@ -309,6 +319,7 @@ class SessionContext:
         if self._cluster is not None:
             self._cluster.runtime.drop_tables()
         B.drop_row_indices()
+        drop_device_luts()
 
     def cluster(self):
         """The standalone cluster of distributed mode (made on first use)."""
@@ -436,7 +447,10 @@ class SessionContext:
                 # a parquet dataset has no host columns to infer from
                 for f in (f for f in tp.fields if f.name in tp.host):
                     h = tp.host[f.name]
-                    n_distinct = (len(np.unique(h.values[h.validity]))
+                    # a RAW column's codes are row indices: count values
+                    values = (h.dictionary[h.validity].astype(str) if h.raw
+                              else h.values[h.validity])
+                    n_distinct = (len(np.unique(values))
                                   + int(not h.validity.all()))
                     if n_distinct == tp.num_rows:
                         tp._inferred_unique.append((f.name,))

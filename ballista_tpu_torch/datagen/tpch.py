@@ -6,7 +6,9 @@ JAX package's `generate_table`, so the rows are identical; but instead of a
 pyarrow table each column comes out as the `HostColumn` that the JAX
 package's ingest (`ingest_column_host`) would make of it: decimals as
 scaled int64, dates as int32 days, strings as int32 codes into a sorted
-dictionary of the values present. No pyarrow.
+dictionary of the values present. No pyarrow. `register_tpch` then takes
+ingest's RAW decision (`batch._estimate_high_cardinality`) on every
+string column, as the reference's arrow ingest does.
 
 Every field is nullable, as the reference's arrow schemas declare it.
 """
@@ -19,7 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..batch import HostColumn
+from ..batch import HostColumn, _estimate_high_cardinality
 from ..schema import (DATE32, INT32, INT64, STRING, DataType, Field, decimal)
 
 EPOCH = datetime.date(1970, 1, 1)
@@ -133,24 +135,45 @@ N_CUST = TPCH_TABLES["customer"][0]
 Table = Tuple[Tuple[Field, ...], Dict[str, HostColumn]]
 
 
-def from_ingested(values, validity, dictionary, bounds) -> HostColumn:
+def from_ingested(values, validity, dictionary, bounds,
+                  is_raw: bool = False) -> HostColumn:
     """The JAX package's host-ingest tuple (numpy arrays, from
-    `ballista_tpu.batch.ingest_column_host`) as a port host column.
+    `ballista_tpu.batch.ingest_column_host`: values, validity, dictionary,
+    is_raw, bounds) as a port host column.
 
-    The port's string code holds code order to be lexicographic order, so
-    a dictionary that is not sorted and distinct (the reference's RAW
-    mode for high-cardinality strings, where code == row index) raises
-    ValueError instead of giving wrong answers."""
-    if dictionary is not None:
+    A RAW dictionary (`is_raw`: the column's values in row order, code ==
+    row index) is kept as it is. Any other dictionary must be sorted and
+    distinct, because code order stands for lexicographic order: an
+    unsorted one not flagged raw raises ValueError instead of giving
+    wrong answers."""
+    if dictionary is not None and not is_raw:
         d = np.asarray(dictionary, dtype=object).astype(str)
         if len(d) > 1 and not bool((d[1:] > d[:-1]).all()):
-            raise ValueError("unsorted (raw) string dictionary: the port "
-                             "needs sorted, distinct dictionary values")
+            raise ValueError("unsorted string dictionary not flagged raw: "
+                             "the port needs sorted, distinct values")
     return HostColumn(np.asarray(values), np.asarray(validity, dtype=bool),
                       None if dictionary is None
                       else np.asarray(dictionary, dtype=object),
                       None if bounds is None
-                      else (int(bounds[0]), int(bounds[1])))
+                      else (int(bounds[0]), int(bounds[1])), bool(is_raw))
+
+
+def as_ingested(col: HostColumn) -> HostColumn:
+    """A generated string column as ingest takes it: RAW (the values in
+    row order, code == row index) where its estimated distinct count
+    exceeds BALLISTA_RAW_DICT_MAX, else as it is."""
+    if col.dictionary is None or col.raw:
+        return col
+
+    def values_at(idx):
+        return np.where(col.validity[idx], col.dictionary[col.values[idx]],
+                        "")
+
+    n = len(col.values)
+    if not _estimate_high_cardinality(n, values_at):
+        return col
+    return HostColumn(np.arange(n, dtype=np.int32), col.validity,
+                      values_at(np.arange(n)), None, raw=True)
 
 
 def _numeric(values: np.ndarray, dtype: DataType) -> HostColumn:
@@ -448,7 +471,12 @@ def generate_tpch(sf: float, seed: int = 19940101,
 
 
 def register_tpch(ctx, sf: float, seed: int = 19940101,
-                  tables: Optional[Sequence[str]] = None) -> None:
-    for name, (fields, cols) in generate_tpch(sf, seed, tables).items():
-        ctx.register_host(name, fields, cols,
+                  tables: Optional[Sequence[str]] = None,
+                  data: Optional[Dict[str, Table]] = None) -> None:
+    """Register the tables (`data`, else generated) in `ctx`, each string
+    column RAW where ingest would make it so (`as_ingested`)."""
+    data = data or generate_tpch(sf, seed, tables)
+    for name, (fields, cols) in data.items():
+        ctx.register_host(name, fields,
+                          {c: as_ingested(h) for c, h in cols.items()},
                           primary_key=TPCH_TABLES[name][1])

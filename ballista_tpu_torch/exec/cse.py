@@ -41,7 +41,7 @@ _VALUE_ATTRS = (
     "chunk_b",                    # NestedLoopJoinExec (from opts)
     "n", "offset",                # LimitExec
     "key_names", "n_parts", "quota",                 # ExchangeExec, GatherExec
-    "salt", "salt_mode", "salt_kind",                # ExchangeExec
+    "salt", "salt_mode", "salt_kind", "value_hash",  # ExchangeExec
 )
 
 

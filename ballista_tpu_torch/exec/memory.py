@@ -31,7 +31,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..exprs import Alias, Col
+from ..exprs import Alias, Col, device_lut_bytes
 from ..schema import Schema, TypeKind
 
 _DTYPE_BYTES = {
@@ -234,15 +234,18 @@ def estimate_stage_hbm(root) -> int:
 
 def hbm_budget_bytes(device) -> Optional[int]:
     """Device bytes a plan may use: BALLISTA_HBM_BYTES where set (as the
-    reference), else the CUDA device's total memory times SLACK. None for
-    a device that is not a CUDA device (nothing to route against)."""
+    reference), else the CUDA device's total memory times SLACK, less
+    what the binder's device LUT cache holds there (up to 512 MiB,
+    `exprs.device_lut_bytes`). None for a device that is not a CUDA
+    device (nothing to route against)."""
     env = os.environ.get("BALLISTA_HBM_BYTES")
-    if env:
-        return int(float(env))
     device = torch.device(device)
+    if env:
+        return int(float(env)) - device_lut_bytes(device)
     if device.type != "cuda":
         return None
-    return int(torch.cuda.mem_get_info(device)[1] * SLACK)
+    return (int(torch.cuda.mem_get_info(device)[1] * SLACK)
+            - device_lut_bytes(device))
 
 
 def route_serial(exec_plan, budget: int) -> int:

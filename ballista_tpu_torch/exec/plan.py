@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..batch import LANE, Batch, Column, round_capacity, row_mask
-from ..exprs import Alias, Col, Expr, bind_expr, expr_name, gather_lut
+from ..exprs import (Alias, Col, Expr, bind_expr, expr_name, gather_lut,
+                     recode_tables, sorted_recode)
 from ..ops import segagg
 from ..ops.compact import compaction_perm, filter_batch, gather_batch
 from ..ops.expand_join import expand_join
@@ -39,6 +40,10 @@ from .aggregate import AggExpr, BoundAgg, _avg_dtype
 DEAD = 2 ** 62
 
 
+# what a capacity retry grows, in the order of Run.growth's entries
+GROWTH_KINDS = ("group", "join")
+
+
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -47,10 +52,11 @@ def _next_pow2(n: int) -> int:
 
 
 class Run:
-    """One evaluation of a plan: its bound inputs, the overflow flags
-    (0-d bool tensors) raised by nodes whose output outgrew its static
-    capacity (`run_plan` reads them once, at the end), and the outputs of
-    the nodes that several parents share.
+    """One evaluation of a plan: its bound inputs, the rows each node that
+    can outgrow its static capacity needed beside that capacity (its
+    overflow flag, which `run_plan` reads once, at the end; the growth a
+    retry needs), and the outputs of the nodes that several parents
+    share.
 
     The serial and partitioned runtimes run a stage once per partition:
     `partition` is that partition's id (PartitionPruneExec reads it; None
@@ -68,13 +74,41 @@ class Run:
         self.partition = partition
         self.device = device
         self.op_rows: Optional[List[tuple]] = [] if trace else None
-        self.flags: List[torch.Tensor] = []
+        # (rows needed, rows held, index in GROWTH_KINDS) of each
+        # operator that can overflow
+        self.needs: List[Tuple[torch.Tensor, int, int]] = []
         self.evaluated = 0      # evaluate() calls made in this run
         # id(node) -> [output, parents that have not read it yet]
         self._shared: Dict[int, list] = {}
 
-    def flag_overflow(self, flag: torch.Tensor) -> None:
-        self.flags.append(flag)
+    def flag_overflow(self, need: torch.Tensor, have: int,
+                      kind: str) -> None:
+        """An operator whose static capacity holds `have` rows needed
+        `need` (a 0-d tensor): the run overflowed where need > have.
+        `kind` is what a retry grows for it: "group" (a group table,
+        max_group_table) or "join" (a join output, join_out_factor)."""
+        self.needs.append((need, have, GROWTH_KINDS.index(kind)))
+
+    @property
+    def flags(self) -> List[torch.Tensor]:
+        """Each such operator's overflow flag (0-d bool tensors)."""
+        return [need > have for need, have, _ in self.needs]
+
+    def growth(self) -> Optional[torch.Tensor]:
+        """(len(GROWTH_KINDS),) int64: for each kind, how many times its
+        capacity the neediest operator of that kind wanted, rounded up
+        and at least 2 where one overflowed (1 where none did); None when
+        no operator of the plan can overflow."""
+        if not self.needs:
+            return None
+        dev = self.needs[0][0].device
+        out = torch.ones(len(GROWTH_KINDS), dtype=torch.int64, device=dev)
+        for need, have, kind in self.needs:
+            need = need.to(dev, torch.int64)
+            g = torch.where(need > have,
+                            (-(-need // max(have, 1))).clamp(min=2), 1)
+            out[kind] = torch.maximum(out[kind], g)
+        return out
 
     def _evaluate(self, node: "ExecNode") -> Batch:
         self.evaluated += 1
@@ -219,18 +253,23 @@ class ProjectExec(ExecNode):
         names = list(names) if names else [expr_name(e) for e in exprs]
         fields = tuple(Field(n, b.dtype, b.nullable)
                        for n, b in zip(names, self._bounds))
-        # propagate dictionaries of passthrough columns
+        # propagate dictionaries of passthrough columns, RAW ones as RAW
         dicts = {}
+        unsorted = set()
         for n, e, b in zip(names, exprs, self._bounds):
             if b.dictionary is not None:
                 dicts[n] = b.dictionary
+                if not b.dict_sorted:
+                    unsorted.add(n)
                 continue
             base = e.child if isinstance(e, Alias) else e
             if isinstance(base, Col) and child.schema.dictionary(base.name) is not None:
                 dicts[n] = child.schema.dictionary(base.name)
+                if not child.schema.is_sorted_dict(base.name):
+                    unsorted.add(n)
         bounds = {n: b.int_bound
                   for n, b in zip(names, self._bounds) if b.int_bound}
-        self.schema = Schema(fields, dicts, bounds)
+        self.schema = Schema(fields, dicts, bounds, unsorted)
         self.capacity = child.capacity
 
     def evaluate(self, run):
@@ -277,7 +316,12 @@ class HashAggregateExec(ExecNode):
         self._pre_bound = (bind_expr(pre_filter, child.schema)
                            if pre_filter is not None else None)
         in_schema = child.schema
-        self._group_bounds = [bind_expr(e, in_schema) for e in group_exprs]
+        # RAW string keys group by their re-encoded codes: a RAW code is a
+        # row index, so equal values have different codes. A `carry`
+        # keeps its RAW codes (any code of an all-equal group decodes to
+        # the value)
+        self._group_bounds = [sorted_recode(bind_expr(e, in_schema))
+                              for e in group_exprs]
         self._group_names = (list(group_names) if group_names
                              else [expr_name(e) for e in group_exprs])
         self._key_nullables = [b.nullable for b in self._group_bounds]
@@ -350,6 +394,7 @@ class HashAggregateExec(ExecNode):
         # where a min/max/carry keeps its dictionary and int bounds: under
         # the first state column between the two phases
         suffix = "#s0" if mode == "partial" else ""
+        unsorted = set()
         if mode == "final":
             # the child emits key columns + state columns
             self._bound_aggs = [_final_agg(a, in_schema) for a in aggs]
@@ -360,18 +405,25 @@ class HashAggregateExec(ExecNode):
                 if a.kind in ("min", "max", "carry"):
                     if in_schema.dictionary(f"{a.name}#s0") is not None:
                         dicts[a.name] = in_schema.dictionary(f"{a.name}#s0")
+                        if not in_schema.is_sorted_dict(f"{a.name}#s0"):
+                            unsorted.add(a.name)
                     if in_schema.int_bound(f"{a.name}#s0") is not None:
                         bounds[a.name] = in_schema.int_bound(f"{a.name}#s0")
         else:
             self._bound_aggs = [BoundAgg(a, in_schema) for a in aggs]
             for ba in self._bound_aggs:
                 # dict-coded min/max stay in code space (sorted
-                # dictionaries make code extrema exact)
+                # dictionaries make code extrema exact; a RAW argument is
+                # re-encoded first)
                 a = ba.spec
                 if a.kind not in ("min", "max", "carry"):
                     continue
+                if a.kind != "carry":
+                    ba.arg = sorted_recode(ba.arg)
                 if ba.arg.dictionary is not None:
                     dicts[a.name + suffix] = ba.arg.dictionary
+                    if not ba.arg.dict_sorted:
+                        unsorted.add(a.name + suffix)
                 base = a.arg.child if isinstance(a.arg, Alias) else a.arg
                 if isinstance(base, Col) and in_schema.int_bound(base.name):
                     bounds[a.name + suffix] = in_schema.int_bound(base.name)
@@ -380,7 +432,7 @@ class HashAggregateExec(ExecNode):
                                for f in ba.state_fields())
         else:
             agg_fields = tuple(ba.out_field for ba in self._bound_aggs)
-        self.schema = Schema(key_fields + agg_fields, dicts, bounds)
+        self.schema = Schema(key_fields + agg_fields, dicts, bounds, unsorted)
 
     def _child_states(self, b: Batch, i: int) -> List[Column]:
         """final mode: the child's state columns of aggregate i."""
@@ -453,7 +505,7 @@ class HashAggregateExec(ExecNode):
         layout = segagg.layout_from_sorted_keys(s_sorted, live,
                                                 self.table_size)
         T_used = layout.T  # clamped to row capacity
-        run.flag_overflow(layout.n_groups > T_used)
+        run.flag_overflow(layout.n_groups, T_used, "group")
         n_groups = layout.n_groups.clamp(max=T_used).to(torch.int32)
         gvalid = torch.arange(T_used, device=b.device) < n_groups
         src = layout.run_start
@@ -611,16 +663,30 @@ class HashJoinExec(ExecNode):
             if da is None or db is None:
                 raise ValueError(
                     f"join key {a}={bn}: string/non-string mismatch")
-            if da is db or (len(da) == len(db) and bool((da == db).all())):
+            # a RAW dictionary repeats values under different codes, so
+            # even one shared RAW dictionary needs the remap
+            raw = (not build.schema.is_sorted_dict(a)
+                   or not probe.schema.is_sorted_dict(bn))
+            if not raw and (da is db or (len(da) == len(db)
+                                         and bool((da == db).all()))):
                 dict_bounds[ki] = (0, max(len(da) - 1, 0))
                 continue
-            union = np.unique(np.concatenate([da.astype(str), db.astype(str)]))
+            # each side's distinct values (a RAW side's through its
+            # dense-rank tables) and the code -> distinct-value map
+            sides = [recode_tables(d) if not srt
+                     else (d, np.arange(max(len(d), 1)))
+                     for d, srt in ((da, build.schema.is_sorted_dict(a)),
+                                    (db, probe.schema.is_sorted_dict(bn)))]
+            union = np.unique(np.concatenate([u.astype(str)
+                                              for u, _ in sides]))
 
-            def _lut(d):
-                m = np.searchsorted(union, d.astype(str)).astype(np.int64)
-                return m if len(m) else np.zeros(1, np.int64)
+            def _lut(uniq, rank):
+                if not len(uniq):
+                    return np.zeros(1, np.int64)
+                return np.searchsorted(union, uniq.astype(str)).astype(
+                    np.int64)[rank]
 
-            self._key_luts[ki] = (_lut(da), _lut(db))
+            self._key_luts[ki] = (_lut(*sides[0]), _lut(*sides[1]))
             dict_bounds[ki] = (0, max(len(union) - 1, 0))
 
         # multi-key joins: pack bounded keys into shared limbs (both sides
@@ -722,13 +788,12 @@ class HashJoinExec(ExecNode):
                             blive, plive):
         """Duplicate-key build: output slot j holds (probe row, k-th
         matching build row) from ops.expand_join."""
-        em = expand_join([c.data for c in bkeys], [c.validity for c in bkeys],
-                         blive, [c.data for c in pkeys],
-                         [c.validity for c in pkeys], plive,
-                         self.out_capacity,
-                         left_outer=self.join_type in ("left_outer",
-                                                       "full_outer"))
-        run.flag_overflow(em.overflow)
+        em = expand_join(
+            [c.data for c in bkeys], [c.validity for c in bkeys], blive,
+            [c.data for c in pkeys], [c.validity for c in pkeys], plive,
+            self.out_capacity,
+            left_outer=self.join_type in ("left_outer", "full_outer"))
+        run.flag_overflow(em.need, self.out_capacity, "join")
         matched = em.build_row >= 0
         cols = (gather_columns(build_b.columns, em.build_row.clamp(min=0),
                                valid_and=matched)
@@ -784,7 +849,7 @@ def _joined_schema(build: Schema, probe: Schema,
     dicts.update(probe.dictionaries)
     bounds = dict(build.int_bounds)
     bounds.update(probe.int_bounds)
-    return Schema(fields, dicts, bounds)
+    return Schema(fields, dicts, bounds, build.unsorted | probe.unsorted)
 
 
 def _static_one_row(node: ExecNode) -> bool:
@@ -935,7 +1000,7 @@ class NestedLoopJoinExec(ExecNode):
                 od.index_copy_(0, dest, c.data)
                 ov.index_copy_(0, dest, c.validity)
             offset = offset + keep.sum()
-        run.flag_overflow(offset > out_cap)
+        run.flag_overflow(offset, out_cap, "join")
         num_rows = offset.clamp(max=out_cap).to(torch.int32)
         live = torch.arange(out_cap, dtype=torch.int32, device=dev) < num_rows
         return Batch(tuple(Column(d[:out_cap], v[:out_cap] & live)
@@ -959,8 +1024,10 @@ class DictRemapExec(ExecNode):
                       for n, l in luts.items()}
         dicts = dict(child.schema.dictionaries)
         dicts.update(new_dicts)
+        # remapped columns land in sorted union dictionaries
         self.schema = Schema(child.schema.fields, dicts,
-                             child.schema.int_bounds)
+                             child.schema.int_bounds,
+                             child.schema.unsorted - set(new_dicts))
 
     def evaluate(self, run):
         b = run.eval(self.children[0])
@@ -1019,8 +1086,10 @@ class SortExec(ExecNode):
         self.keys = tuple(keys)
         self.schema = child.schema
         self.capacity = child.capacity
-        self._key_bounds = [(bind_expr(e, child.schema), asc, nf)
-                            for e, asc, nf in keys]
+        # RAW string sort keys sort by their re-encoded codes; the
+        # columns themselves keep their RAW codes
+        self._key_bounds = [(sorted_recode(bind_expr(e, child.schema)), asc,
+                             nf) for e, asc, nf in keys]
 
     def evaluate(self, run):
         b = run.eval(self.children[0])

@@ -32,7 +32,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..batch import Batch, Column, row_mask
-from ..exprs import Bound, Expr, _div_scaled, bind_expr, expr_name
+from ..exprs import (Bound, Expr, _div_scaled, bind_expr, expr_name,
+                     sorted_recode)
 from ..ops.hash import _norm_keys
 from ..ops.sort import SortKeySpec, _rankable
 from ..ops.vsort import lex_perm
@@ -221,15 +222,18 @@ class WindowExec(ExecNode):
             raise ValueError(f"duplicate column names in window output: {names}")
         self.schema = Schema(in_schema.fields + tuple(new_fields),
                              dict(in_schema.dictionaries),
-                             in_schema.int_bounds)
+                             in_schema.int_bounds, in_schema.unsorted)
         # group specs by shared clause
         self._groups: Dict[Tuple, List[int]] = {}
         for i, s in enumerate(self.specs):
             self._groups.setdefault((s.partition_by, s.order_by), []).append(i)
-        self._bound_parts = [tuple(bind_expr(e, in_schema)
+        # RAW string partition and order keys re-encode: dense-rank codes
+        # restore value equality (partitions) and lexicographic order
+        self._bound_parts = [tuple(sorted_recode(bind_expr(e, in_schema))
                                    for e in s.partition_by)
                              for s in self.specs]
-        self._bound_orders = [tuple((bind_expr(e, in_schema), asc, nf)
+        self._bound_orders = [tuple((sorted_recode(bind_expr(e, in_schema)),
+                                     asc, nf)
                                     for e, asc, nf in s.order_by)
                               for s in self.specs]
         self._bound_args = [bind_expr(s.arg, in_schema) if s.arg is not None

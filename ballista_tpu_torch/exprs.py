@@ -7,10 +7,13 @@ An expression is bound against a Schema at plan time, producing a closure
 - Three-valued (Kleene) NULL logic carried as validity masks.
 - DECIMAL arithmetic on scaled int64 (exact, like Arrow decimal128).
 - String comparisons with literals are translated into dictionary-code
-  space at bind time. Every dictionary the port makes or ingests is sorted
-  (`datagen.tpch.from_ingested` refuses any other), so code order is
-  lexicographic order: the reference's raw-dictionary paths (equality
-  LUTs, `sorted_recode`) have nothing to serve here.
+  space at bind time: on a sorted dictionary code order is lexicographic
+  order. A RAW column (`Schema.unsorted`: the dictionary is the column's
+  values in row order, code == row index) answers =, != and IN through a
+  boolean LUT over its values; a range compare, and every key use above
+  (grouping, sorting, joining, min/max, window keys), re-encodes it first
+  (`sorted_recode`: a dense-rank LUT onto its sorted distinct values). Two
+  RAW columns are never compared with each other.
 - LIKE, IN over strings, string CASE and the string functions (substring,
   upper, trim, replace, length, concat, ...) are host work over the
   dictionary, once at bind time; the device only gathers a lookup table
@@ -32,7 +35,7 @@ import torch
 
 from .schema import (BOOL, DATE32, DataType, Field, FLOAT32, FLOAT64, INT32,
                      INT64, Schema, STRING, TypeKind, decimal)
-from .batch import Batch, Column
+from .batch import Batch, Column, _sorted_distinct
 
 # ---------------------------------------------------------------------------
 # AST nodes (logical expressions — used by the SQL frontend & DataFrame API)
@@ -312,7 +315,8 @@ class Bound:
     nullable: bool
     # fn(batch) -> Column; closure over column indices / folded constants
     fn: Callable[[Batch], Column]
-    # for string columns: the sorted dictionary the codes index into
+    # for string columns: the dictionary the codes index into (sorted,
+    # unless dict_sorted is False)
     dictionary: Optional[np.ndarray] = None
     # static exclusive upper bound on the value domain when known
     # (dictionary size, 2 for bool) — lets the aggregate planner use
@@ -324,6 +328,10 @@ class Bound:
     # code_bound or the int_bound width (date_trunc('year') over 7 years
     # of dates: 7); feeds the aggregate's group-count bound
     ndv_bound: Optional[int] = None
+    # False for a RAW string column: `dictionary` is the column verbatim
+    # (duplicates; code == row index). LUT predicates work on it; code
+    # order and code equality do not (`sorted_recode` restores both)
+    dict_sorted: bool = True
 
 
 def _const_column(value, dtype: DataType, valid: bool = True):
@@ -525,6 +533,11 @@ _COMPARE = {"=": torch.eq, "!=": torch.ne, "<>": torch.ne, "<": torch.lt,
 def _bind_compare(op: str, l: Bound, r: Bound) -> Bound:
     lt, rt = l.dtype, r.dtype
     if lt.kind is TypeKind.STRING and rt.kind is TypeKind.STRING:
+        if not (l.dict_sorted and r.dict_sorted):
+            # raw codes are row indices, not value identities
+            raise NotImplementedError(
+                "comparison between high-cardinality raw string columns "
+                "(raise BALLISTA_RAW_DICT_MAX to dictionary-encode)")
         # both already in code space (literal translated by bind_expr)
         fl = fr = lambda c: c.data
     elif lt.kind is TypeKind.DATE32 or rt.kind is TypeKind.DATE32:
@@ -560,7 +573,7 @@ def _string_lit_to_code(value: str, dictionary: Optional[np.ndarray]):
     dictionary: code-space equivalents of comparisons with the literal."""
     if dictionary is None or len(dictionary) == 0:
         return -1, False
-    d = dictionary.astype(str)
+    d = dict_str(dictionary)
     pos = int(np.searchsorted(d, value))
     return pos, pos < len(d) and d[pos] == value
 
@@ -630,9 +643,10 @@ def bind_expr(e: Expr, schema: Schema) -> Bound:
             bound = max(len(dic), 1)
         elif f.dtype.kind is TypeKind.BOOL:
             bound = 2
+        srt = schema.is_sorted_dict(e.name)
         return Bound(f.dtype, f.nullable, lambda batch: batch.columns[idx],
-                     dictionary=dic, code_bound=bound,
-                     int_bound=schema.int_bound(e.name))
+                     dictionary=dic, code_bound=bound if srt else None,
+                     int_bound=schema.int_bound(e.name), dict_sorted=srt)
 
     if isinstance(e, Lit):
         return _bind_lit(e)
@@ -661,6 +675,15 @@ def bind_expr(e: Expr, schema: Schema) -> Bound:
         r = bind_expr(e.right, schema)
         # string vs literal: translate the literal into code space
         if l.dtype.kind is TypeKind.STRING and isinstance(e.right, Lit):
+            if not l.dict_sorted:
+                # RAW: equality through a boolean LUT over the values; a
+                # range compare re-encodes, then takes the sorted logic
+                if e.op in ("=", "!=", "<>"):
+                    value, eq = str(e.right.value), e.op == "="
+                    return _bool_lut(l, dict_cached(
+                        l.dictionary, ("eq" if eq else "ne", value),
+                        lambda: (dict_str(l.dictionary) == value) == eq))
+                l = sorted_recode(l)
             pos, exact = _string_lit_to_code(str(e.right.value), l.dictionary)
             if e.op == "=" and not exact:
                 return Bound(BOOL, False, _const_column(False, BOOL))
@@ -747,9 +770,113 @@ def gather_lut(lut: np.ndarray, col: Column) -> torch.Tensor:
     padding rows never index out of range; an empty LUT reads as one 0)."""
     if not len(lut):
         lut = np.zeros(1, dtype=lut.dtype)
-    lut_dev = torch.from_numpy(lut).to(col.data.device)
+    lut_dev = _device_lut(lut, col.data.device)
     idx = col.data.to(torch.int64).clamp(0, lut_dev.shape[0] - 1)
     return lut_dev.index_select(0, idx)
+
+
+# device copies of large host LUTs, per (LUT object, device): a RAW
+# column's recode LUT is as long as its column, and a plan is evaluated
+# anew on every collect. An entry holds its LUT, so the id cannot be
+# reused while the entry lives. At most _LUT_CACHE_BYTES of device memory;
+# the least recently used go first. The memory router takes what the
+# cache holds off a plan's budget (`device_lut_bytes`); `drop_device_luts`
+# frees it, for every context of the process.
+_LUT_CACHE: dict = {}
+_LUT_CACHE_BYTES = 512 << 20
+_LUT_CACHED_FROM = 1 << 20     # bytes: a smaller LUT is uploaded each time
+
+
+def _device_lut(lut: np.ndarray, device: torch.device) -> torch.Tensor:
+    if device.type == "cpu" or lut.nbytes < _LUT_CACHED_FROM:
+        return torch.from_numpy(lut).to(device)
+    key = (id(lut), str(device))
+    hit = _LUT_CACHE.pop(key, None)
+    if hit is None or hit[0] is not lut:
+        hit = (lut, torch.from_numpy(lut).to(device))
+    _LUT_CACHE[key] = hit
+    held = sum(t.nbytes for _, t in _LUT_CACHE.values())
+    while held > _LUT_CACHE_BYTES and len(_LUT_CACHE) > 1:
+        held -= _LUT_CACHE.pop(next(iter(_LUT_CACHE)))[1].nbytes
+    return hit[1]
+
+
+def device_lut_bytes(device) -> int:
+    """Device bytes the LUT cache holds on `device`."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return sum(t.nbytes for (_, d), (_, t) in _LUT_CACHE.items()
+               if d == str(device))
+
+
+def drop_device_luts() -> None:
+    """Free the device copies of LUTs (`SessionContext.evict_device`)."""
+    _LUT_CACHE.clear()
+
+
+def sorted_recode(b: Bound) -> Bound:
+    """A RAW string Bound re-encoded onto its sorted distinct values (the
+    reference's "re-encode on demand"): RAW codes are row indices, so
+    neither code equality nor code order says anything of the values. A
+    dense-rank LUT, made once per dictionary (`recode_tables`), maps each
+    code to the rank of its value; the result is a sorted Bound whose
+    code bound and distinct bound are the number of distinct values. Any
+    other Bound comes back as it is."""
+    if b.dictionary is None or b.dict_sorted:
+        return b
+    uniq, lut = recode_tables(b.dictionary)
+    inner = b.fn
+
+    def fn(batch):
+        col = inner(batch)
+        return Column(gather_lut(lut, col), col.validity)
+    n = max(len(uniq), 1)
+    return Bound(b.dtype, b.nullable, fn, dictionary=uniq, code_bound=n,
+                 ndv_bound=n)
+
+
+def recode_tables(dictionary: np.ndarray):
+    """(sorted distinct values as objects, int32 dense rank of each entry)
+    of a dictionary, in code-point order, made once per dictionary (the
+    reference's `pc.rank(..., tiebreaker="dense") - 1` and its sorted
+    `pc.unique`, without pyarrow). The empty dictionary gives ([], [0])."""
+    def make():
+        if not len(dictionary):
+            return np.empty(0, dtype=object), np.zeros(1, dtype=np.int32)
+        uniq, inv = _sorted_distinct(dict_str(dictionary))
+        return uniq.astype(object), inv.astype(np.int32)
+    return dict_cached(dictionary, ("recode",), make)
+
+
+def dict_str(dictionary: np.ndarray) -> np.ndarray:
+    """The dictionary as a fixed-width str array, made once per
+    dictionary: a RAW dictionary is as long as its column, and converting
+    10^7 Python strings takes seconds."""
+    return dict_cached(dictionary, ("str",), lambda: dictionary.astype(str))
+
+
+def value_hash_lut(dictionary: Optional[np.ndarray]) -> np.ndarray:
+    """An int64 hash of each dictionary entry's value, made once per
+    dictionary: a polynomial over the code points, so equal strings hash
+    alike in any dictionary (what an exchange hashes for a RAW key). The
+    empty dictionary gives [0]."""
+    if dictionary is None or not len(dictionary):
+        return np.zeros(1, dtype=np.int64)
+
+    def make():
+        strs = dict_str(dictionary)
+        points = np.ascontiguousarray(strs).view(np.uint32).reshape(
+            len(strs), -1).astype(np.uint64)
+        h = np.zeros(len(strs), dtype=np.uint64)
+        weight = 1
+        for j in range(points.shape[1]):
+            # sum of point_j * B^j mod 2^64: the padding points are 0, so a
+            # string hashes alike at any width
+            h += points[:, j] * np.uint64(weight)
+            weight = weight * 1000003 % (1 << 64)
+        return h.view(np.int64)
+    return dict_cached(dictionary, ("value_hash",), make)
 
 
 def _bool_lut(c: Bound, lut: np.ndarray) -> Bound:
@@ -767,7 +894,8 @@ def _bool_lut(c: Bound, lut: np.ndarray) -> Bound:
 # what was derived): a query is bound again on every collect, and a LIKE
 # or a substring over a 200,000-entry dictionary is a Python loop over
 # it. An entry holds its dictionary, so the id in the key cannot be
-# reused by another array while the entry lives. Oldest entries go first.
+# reused by another array while the entry lives. The least recently used
+# entries go first.
 _DICT_CACHE: dict = {}
 _DICT_CACHE_MAX = 64
 
@@ -778,6 +906,7 @@ def dict_cached(dictionary: np.ndarray, what: tuple, make):
     key = (id(dictionary), what)
     hit = _DICT_CACHE.get(key)
     if hit is not None and hit[0] is dictionary:
+        _DICT_CACHE[key] = _DICT_CACHE.pop(key)     # the most recent now
         return hit[1]
     value = make()
     if len(_DICT_CACHE) >= _DICT_CACHE_MAX:
@@ -789,17 +918,44 @@ def dict_cached(dictionary: np.ndarray, what: tuple, make):
 def like_lut(dictionary: Optional[np.ndarray], pattern: str) -> np.ndarray:
     """SQL LIKE over every dictionary entry, as a bool array: `%` matches
     any run of characters, `_` any one character, and the whole entry must
-    match (pyarrow.compute.match_like's semantics, without pyarrow)."""
+    match (pyarrow.compute.match_like's semantics, without pyarrow). A
+    pattern without `_` is matched by numpy's vectorised string functions
+    (a RAW dictionary is as long as its column); any other by a regular
+    expression per entry."""
     if dictionary is None or not len(dictionary):
         return np.zeros(0, dtype=bool)
 
     def make():
+        strs = dict_str(dictionary)
+        if "_" not in pattern and hasattr(np, "strings"):
+            return _like_pieces(strs, pattern.split("%"))
         rx = re.compile("".join(".*" if ch == "%" else "." if ch == "_"
                                 else re.escape(ch) for ch in pattern), re.S)
-        return np.fromiter((rx.fullmatch(s) is not None
-                            for s in dictionary.astype(str)),
-                           dtype=bool, count=len(dictionary))
+        return np.fromiter((rx.fullmatch(s) is not None for s in strs),
+                           dtype=bool, count=len(strs))
     return dict_cached(dictionary, ("like", pattern), make)
+
+
+def _like_pieces(strs: np.ndarray, pieces) -> np.ndarray:
+    """LIKE of a pattern of literal pieces joined by `%`: the first piece
+    is a prefix, each middle piece is found at its leftmost place after
+    the one before (the leftmost is never worse), and the last is a
+    suffix that starts after them."""
+    if len(pieces) == 1:
+        return strs == pieces[0]
+    first, last = pieces[0], pieces[-1]
+    ok = (np.strings.startswith(strs, first) if first
+          else np.ones(len(strs), dtype=bool))
+    pos = np.full(len(strs), len(first), dtype=np.int64)
+    for piece in pieces[1:-1]:
+        if piece:
+            at = np.strings.find(strs, piece, pos)
+            ok &= at >= 0
+            pos = np.where(at >= 0, at + len(piece), pos)
+    if last:
+        ok &= np.strings.endswith(strs, last) & (
+            np.strings.str_len(strs) - len(last) >= pos)
+    return ok
 
 
 def _bind_in_list(e: InList, schema: Schema) -> Bound:
@@ -808,6 +964,12 @@ def _bind_in_list(e: InList, schema: Schema) -> Bound:
         raise NotImplementedError("IN list of non-literal values")
     if c.dtype.kind is TypeKind.STRING:
         dic = c.dictionary
+        if not c.dict_sorted:
+            # RAW: membership over the values
+            values = tuple(sorted({str(v.value) for v in e.values}))
+            lut = dict_cached(dic, ("in", values),
+                              lambda: np.isin(dict_str(dic), values))
+            return _bool_lut(c, ~lut if e.negated else lut)
         lut = np.zeros(len(dic) if dic is not None else 0, dtype=bool)
         for v in e.values:
             pos, exact = _string_lit_to_code(str(v.value), dic)
@@ -957,7 +1119,7 @@ def _dict_fn_bound(c: Bound, what: tuple, xform, code_bound: bool) -> Bound:
     its tables made once per dictionary (`dict_cached`)."""
     return _dict_lut_bound(c, dict_cached(
         c.dictionary, what, lambda: _dict_tables(
-            [xform(s) for s in c.dictionary.astype(str)])), code_bound)
+            [xform(s) for s in dict_str(c.dictionary)])), code_bound)
 
 
 def _dict_tables(values: list):
@@ -1132,7 +1294,7 @@ def _bind_scalar_fn(e: ScalarFn, schema: Schema) -> Bound:
             c.dictionary, ("octet_length" if octets else "length",),
             lambda: np.fromiter(
                 ((len(s.encode()) if octets else len(s))
-                 for s in c.dictionary.astype(str)),
+                 for s in dict_str(c.dictionary)),
                 dtype=np.int32, count=len(c.dictionary)))
 
         def fn(batch):

@@ -9,8 +9,9 @@ run of equal build keys with two `searchsorted` calls (its first position
 and its match count), prefix-sum the counts into output slots, and map
 each slot back to its (probe row, k-th match) with `rank_in_sorted`.
 
-The output has a static capacity. A larger total raises `overflow` and is
-clipped, never silently: the caller re-runs with a larger capacity.
+The output has a static capacity. A larger total is clipped, never
+silently: `need` keeps the unclipped total, and the caller re-runs with a
+larger capacity.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ class ExpandedMatch(NamedTuple):
                                  # outer miss and past total
     valid: torch.Tensor          # (out_capacity,) bool live output slot
     total: torch.Tensor          # () int32 output rows (clipped to capacity)
-    overflow: torch.Tensor       # () bool: the unclipped total exceeded it
+    need: torch.Tensor           # () int64 output rows before the clip
     build_matched: torch.Tensor  # (nb,) bool build row matched >= 1 probe
 
 
@@ -80,4 +81,4 @@ def expand_join(build_keys: Sequence[torch.Tensor],
     build_matched[order] = covered
     return ExpandedMatch(torch.where(valid, i, -1), build_row, valid,
                          total.clamp(max=out_capacity).to(torch.int32),
-                         total > out_capacity, build_matched)
+                         total.to(torch.int64), build_matched)

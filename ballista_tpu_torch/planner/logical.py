@@ -91,19 +91,24 @@ class Projection(LogicalPlan):
         names = self.names or tuple(expr_name(e) for e in self.exprs)
         fields = []
         dicts = {}
+        unsorted = set()
         from ..exprs import Alias, Col
         for n, e in zip(names, self.exprs):
             b = bind_expr(e, in_schema)
             fields.append(Field(n, b.dtype, b.nullable))
             if b.dictionary is not None:
                 dicts[n] = b.dictionary
+                if not b.dict_sorted:
+                    unsorted.add(n)
                 continue
             base = e.child if isinstance(e, Alias) else e
             if isinstance(base, Col) and in_schema.dictionary(base.name) is not None:
                 dicts[n] = in_schema.dictionary(base.name)
+                if not in_schema.is_sorted_dict(base.name):
+                    unsorted.add(n)
         from ..exprs import propagate_bounds
         bounds = propagate_bounds(self.exprs, names, in_schema)
-        return Schema(tuple(fields), dicts, bounds)
+        return Schema(tuple(fields), dicts, bounds, unsorted)
 
     def children(self):
         return (self.input,)
@@ -124,9 +129,12 @@ class Aggregate(LogicalPlan):
         names = self.group_names or tuple(expr_name(e) for e in self.group_exprs)
         fields = []
         dicts = {}
-        from ..exprs import Alias, Col
+        unsorted = set()
+        from ..exprs import Alias, Col, sorted_recode
         for n, e in zip(names, self.group_exprs):
-            b = bind_expr(e, in_schema)
+            # a RAW key groups by its re-encoded (sorted) codes, as
+            # HashAggregateExec does
+            b = sorted_recode(bind_expr(e, in_schema))
             fields.append(Field(n, b.dtype, b.nullable))
             if b.dictionary is not None:
                 dicts[n] = b.dictionary
@@ -147,10 +155,12 @@ class Aggregate(LogicalPlan):
                 if isinstance(base, Col):
                     if in_schema.dictionary(base.name) is not None:
                         dicts[ba.out_field.name] = in_schema.dictionary(base.name)
+                        if not in_schema.is_sorted_dict(base.name):
+                            unsorted.add(ba.out_field.name)
                     ib = in_schema.int_bound(base.name)
                     if ib is not None:
                         bounds[ba.out_field.name] = ib
-        return Schema(tuple(fields), dicts, bounds)
+        return Schema(tuple(fields), dicts, bounds, unsorted)
 
     def children(self):
         return (self.input,)
@@ -211,7 +221,7 @@ class Join(LogicalPlan):
         dicts.update(rs.dictionaries)
         bounds = dict(ls.int_bounds)
         bounds.update(rs.int_bounds)
-        return Schema(fields, dicts, bounds)
+        return Schema(fields, dicts, bounds, ls.unsorted | rs.unsorted)
 
     def children(self):
         return (self.left, self.right)
@@ -236,7 +246,7 @@ class Window(LogicalPlan):
         fields = in_schema.fields + tuple(
             _out_field(s, in_schema) for s in self.specs)
         return Schema(fields, dict(in_schema.dictionaries),
-                      in_schema.int_bounds)
+                      in_schema.int_bounds, in_schema.unsorted)
 
     def children(self):
         return (self.input,)

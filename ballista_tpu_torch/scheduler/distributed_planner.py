@@ -146,7 +146,8 @@ class DistributedPlanner:
 
     def _cut_shuffle(self, root: ExecNode, key_names, expected_rows: int,
                      salt: int = 1, salt_mode: str | None = None,
-                     salt_kind: str | None = None) -> InputLeaf:
+                     salt_kind: str | None = None,
+                     value_hash=None) -> InputLeaf:
         P = self.opts.n_partitions
         # quota is per (sender, destination) cell. `expected_rows` is the
         # per-shard estimate (callers pass the sharded child's capacity),
@@ -162,7 +163,8 @@ class DistributedPlanner:
         self.quotas.append(quota)
         return self._cut(ExchangeExec(root, key_names, P, quota,
                                       salt=salt, salt_mode=salt_mode,
-                                      salt_kind=salt_kind))
+                                      salt_kind=salt_kind,
+                                      value_hash=value_hash))
 
     def _cut_gather(self, root: ExecNode) -> InputLeaf:
         return self._cut(GatherExec(root, self.opts.n_partitions))
@@ -367,14 +369,21 @@ class DistributedPlanner:
         # re-append their unmatched rows)
         S = min(opts.join_salt, P) if p.how != "full_outer" else 1
         saltable = p.how != "full_outer"
+        # a key pair with a RAW side is hashed by value on both sides, so
+        # that equal values meet whatever their codes
+        by_value = [(a, b) for a, b in on
+                    if not (build.schema.is_sorted_dict(a)
+                            and probe.schema.is_sorted_dict(b))]
         bleaf = self._cut_shuffle(
             build, [a for a, _ in on], expected_rows=build.capacity * S,
             salt=S, salt_mode="replicate" if S > 1 else None,
-            salt_kind="replicate" if saltable else None)
+            salt_kind="replicate" if saltable else None,
+            value_hash=[a for a, _ in by_value])
         pleaf = self._cut_shuffle(
             probe, [b for _, b in on], expected_rows=probe.capacity,
             salt=S, salt_mode="spread" if S > 1 else None,
-            salt_kind="spread" if saltable else None)
+            salt_kind="spread" if saltable else None,
+            value_hash=[b for _, b in by_value])
         if not p.unique_build and p.how not in ("semi", "anti"):
             out_cap = self._join_out(bleaf, pleaf)
         return HashJoinExec(bleaf, pleaf, on, p.how,

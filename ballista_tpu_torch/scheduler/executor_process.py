@@ -379,7 +379,7 @@ class ExecutorProcess:
                               "salt_kind": st["salt_kind"],
                               "counts": [[int(x) for x in row] for row in
                                          st["counts"]]})
-            metrics = ({"overflow": "capacity"}
+            metrics = ({"overflow": "capacity", "growth": list(e.growth)}
                        if isinstance(e, CapacityOverflowError) else None)
             return TaskStatus(task.task_id, task.job_id, task.stage_id,
                               task.partitions, self.meta.executor_id,

@@ -118,8 +118,10 @@ class HttpPushLauncher(TaskLauncher):
 def _result_blob(blob: bytes, schema) -> tuple:
     """(one-partition stage blob, dictionaries) of a final stage's blob:
     its partitions' live rows gathered on the CPU, each string column's
-    codes renumbered into the dictionary entries its rows use (the egress
-    ships those, not the table's whole dictionary)."""
+    codes renumbered into the sorted distinct values its rows use (the
+    egress ships those, not the table's whole dictionary; a RAW
+    dictionary may hold a value under many codes, and the client gets a
+    sorted dictionary either way)."""
     batch = gather_partitions(decode_stage(blob), schema)
     n = int(batch.num_rows)
     cols, dicts = [], {}
@@ -129,10 +131,16 @@ def _result_blob(blob: bytes, schema) -> tuple:
             codes, ok = data.numpy(), valid.numpy()
             used = np.unique(codes[ok])
             full = schema.dictionary(f.name)
-            dicts[f.name] = [] if full is None else \
-                [str(v) for v in full[used]]
-            data = torch.from_numpy(np.where(
-                ok, np.searchsorted(used, codes), 0).astype(np.int32))
+            if full is None or not len(used):
+                dicts[f.name] = []
+                code = np.zeros(len(codes), dtype=np.int64)
+            else:
+                values, rank = np.unique(full[used].astype(str),
+                                         return_inverse=True)
+                dicts[f.name] = values.tolist()
+                code = rank.reshape(-1)[np.searchsorted(used, codes).clip(
+                    max=len(used) - 1)]
+            data = torch.from_numpy(np.where(ok, code, 0).astype(np.int32))
         cols.append(Column(data, valid))
     out = PartitionedBatch((Batch(tuple(cols), batch.num_rows),))
     return encode_stage(out), dicts
@@ -279,7 +287,8 @@ class SchedulerRpcService:
                 log.warning("job %s: %s", s.job_id, g.error)
                 continue
             if (s.metrics or {}).get("overflow") == "capacity":
-                spec.options = grow_capacities(spec.options)
+                spec.options = grow_capacities(
+                    spec.options, (s.metrics or {}).get("growth", (4, 4)))
             else:
                 carrier = ShuffleOverflowError("wire stats")
                 carrier.stats = [

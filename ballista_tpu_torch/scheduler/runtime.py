@@ -76,13 +76,28 @@ class CapacityOverflowError(ShuffleOverflowError):
     """An operator outgrew its static capacity (a group table, an
     expanding join's output) while every exchange kept to its quota: the
     retry grows group tables and join outputs, as the in-core path does,
-    and leaves the quotas (`grow_capacities`)."""
+    and leaves the quotas (`grow_capacities`). `growth` is, for each of
+    GROWTH_KINDS (group tables, join outputs), how many times its capacity
+    the neediest operator of that kind wanted, where the run counted it."""
+    growth = (4, 4)
 
 
-def grow_capacities(opts):
-    """The DistOptions of the retry after a CapacityOverflowError."""
-    return dataclasses.replace(opts, max_group_table=opts.max_group_table * 4,
-                               join_out_factor=opts.join_out_factor * 4)
+def _growth_factor(growth: int) -> int:
+    """The power of two at or above `growth`, and at least 4."""
+    return max(4, 1 << (max(int(growth), 1) - 1).bit_length())
+
+
+def grow_capacities(opts, growth=(4, 4)):
+    """The DistOptions of the retry after a CapacityOverflowError: group
+    tables grown by the group tables' growth and expanding-join outputs
+    by the join outputs' (`CapacityOverflowError.growth`), each to a
+    power of two and by at least 4x. The need is what the overflowing run
+    counted; an operator fed by one that was clipped counts low, and the
+    next attempt grows again."""
+    group, join = growth
+    return dataclasses.replace(
+        opts, max_group_table=opts.max_group_table * _growth_factor(group),
+        join_out_factor=opts.join_out_factor * _growth_factor(join))
 
 
 def escalate_overflow_opts(opts, err, attempt: int):
@@ -141,12 +156,13 @@ def escalate_overflow_opts(opts, err, attempt: int):
 class StageRun(NamedTuple):
     """One run of a stage over every partition, before its counts reach
     the host. `out` is the stage output; the tensors live on the first
-    partition's device: the operators' overflow flag per partition, the
-    exchange's per sender (None without one), its pre-clamp counts
-    (senders, P), each recorded operator's output rows per partition
-    (partitions, operators)."""
+    partition's device: per partition and kind how many times its
+    capacity the neediest operator wanted (`Run.growth`; above 1 where an
+    operator overflowed), the exchange's overflow flag per sender (None without
+    one), its pre-clamp counts (senders, P), each recorded operator's
+    output rows per partition (partitions, operators)."""
     out: object                       # PartitionedBatch
-    op_overflow: torch.Tensor         # (P,) bool
+    growth: torch.Tensor              # (P, len(GROWTH_KINDS)) int64
     ex_overflow: Optional[torch.Tensor]
     counts: Optional[torch.Tensor]    # (P, P) int32
     op_rows: torch.Tensor             # (P, n_ops) int64
@@ -157,9 +173,9 @@ class StageRun(NamedTuple):
     def summary(self) -> torch.Tensor:
         """Every count of the run as one int64 vector (`read` splits it
         again)."""
-        P = self.op_overflow.shape[0]
-        dev = self.op_overflow.device
-        parts = [self.op_overflow.to(torch.int64),
+        P = self.growth.shape[0]
+        dev = self.growth.device
+        parts = [self.growth.reshape(-1),
                  (self.ex_overflow.to(torch.int64)
                   if self.ex_overflow is not None
                   else torch.zeros(P, dtype=torch.int64, device=dev)),
@@ -173,14 +189,17 @@ class StageRun(NamedTuple):
     def read(self) -> "StageCounts":
         """The run's counts on the host, in one device-to-host copy."""
         vector = self.summary().cpu().numpy()
-        P, k = self.op_overflow.shape[0], len(self.labels)
-        op_ov, ex_ov = vector[:P] != 0, vector[P:2 * P] != 0
-        counts = vector[2 * P:2 * P + P * P].reshape(P, P)
-        rows = vector[2 * P + P * P:2 * P + P * P + P * k].reshape(P, k)
-        num_rows = vector[2 * P + P * P + P * k:]
-        return StageCounts(self, bool(op_ov.any()),
+        (P, g), k = self.growth.shape, len(self.labels)
+        growth = vector[:P * g].reshape(P, g)
+        vector = vector[P * g:]
+        ex_ov = vector[:P] != 0
+        counts = vector[P:P + P * P].reshape(P, P)
+        rows = vector[P + P * P:P + P * P + P * k].reshape(P, k)
+        num_rows = vector[P + P * P + P * k:]
+        return StageCounts(self, bool((growth > 1).any()),
                            self.ex_overflow is not None and bool(ex_ov.any()),
-                           counts, rows, num_rows)
+                           counts, rows, num_rows,
+                           tuple(int(x) for x in growth.max(axis=0)))
 
 
 class StageCounts(NamedTuple):
@@ -190,6 +209,8 @@ class StageCounts(NamedTuple):
     counts: np.ndarray        # (senders, P) pre-clamp rows per destination
     op_rows: np.ndarray       # (P, n_ops)
     num_rows: np.ndarray      # (P,) output rows per partition
+    growth: tuple             # per kind, the most an operator outgrew its
+                              # capacity
 
     @property
     def overflow(self) -> bool:
@@ -225,9 +246,12 @@ class StageCounts(NamedTuple):
                           "salt_kind": self.run.salt_kind,
                           "counts": self.counts}]
             return err
-        return CapacityOverflowError(
+        err = CapacityOverflowError(
             f"stage {stage_id}: a group table or join output outgrew its "
-            "capacity")
+            f"capacity (group tables {self.growth[0]}x, join outputs "
+            f"{self.growth[1]}x)")
+        err.growth = self.growth
+        return err
 
 
 def _row_bytes(batch) -> int:
@@ -295,22 +319,22 @@ class DistributedRuntime:
         """Run the stage body once per partition, then the root's
         collective across the P outputs. Reads nothing on the host."""
         from ..exec.distributed import ExchangeExec, GatherExec
-        from ..exec.plan import Run
+        from ..exec.plan import GROWTH_KINDS, Run
         from ..parallel.partitioned import PartitionedBatch
         root = stage.root
         body = (root.children[0] if isinstance(root, (ExchangeExec, GatherExec))
                 else root)
         P = len(self.mesh)
         dev0 = self.mesh[0]
-        outs, flags, rows, labels = [], [], [], None
+        outs, growths, rows, labels = [], [], [], None
         for p in range(P):
             run = Run({lid: pb.batches[p] for lid, pb in inputs.items()},
                       partition=p, trace=True, device=self.mesh[p])
             outs.append(run.eval(body))
-            flag = torch.zeros((), dtype=torch.bool, device=dev0)
-            for f in run.flags:
-                flag = flag | f.to(dev0)
-            flags.append(flag)
+            g = run.growth()
+            growths.append(torch.ones(len(GROWTH_KINDS), dtype=torch.int64,
+                                      device=dev0)
+                           if g is None else g.to(dev0))
             if labels is None:
                 labels = [lbl for lbl, _ in run.op_rows]
             rows.append([n.to(dev0, torch.int64) for _, n in run.op_rows])
@@ -325,7 +349,7 @@ class DistributedRuntime:
             outs = root.gather(outs, self.mesh)
         op_rows = (torch.stack([torch.stack(r) for r in rows]) if labels
                    else torch.zeros((P, 0), dtype=torch.int64, device=dev0))
-        return StageRun(PartitionedBatch(tuple(outs)), torch.stack(flags),
+        return StageRun(PartitionedBatch(tuple(outs)), torch.stack(growths),
                         ex_overflow, counts, op_rows, labels or [], quota,
                         salt_kind)
 

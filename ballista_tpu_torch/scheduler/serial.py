@@ -130,8 +130,9 @@ class SerialRuntime:
         """(run(pid, inputs), leaf ids, kind): the stage's body, run once
         per partition. run returns (output batch, send counts, the
         operators' overflow flag or None, the exchange's overflow flag,
-        per-operator row counts, pre-clamp counts); an exchange's three
-        are None in a stage that is no exchange."""
+        per-operator row counts, pre-clamp counts, the operators' growth
+        (`Run.growth`) or None); an exchange's three are None in a stage
+        that is no exchange."""
         root = stage.root
         if isinstance(root, ExchangeExec):
             kind, body = "exchange", root.children[0]
@@ -150,9 +151,11 @@ class SerialRuntime:
             counts = raw = exchange_overflow = None
             if kind == "exchange":
                 out, counts, exchange_overflow, raw = exchange_send_rows(
-                    out, root._key_idx, root.n_parts, root.quota, root.salt,
-                    root.salt_mode)
-            return out, counts, overflow, exchange_overflow, r.op_rows, raw
+                    *root.hash_input(out), root.n_parts, root.quota,
+                    root.salt, root.salt_mode)
+                out = root.drop_hash_columns(out)
+            return (out, counts, overflow, exchange_overflow, r.op_rows, raw,
+                    r.growth())
 
         return run, leaf_ids, kind
 
@@ -219,8 +222,8 @@ class SerialRuntime:
                                        if prod.kind == "exchange"
                                        else self._gather_input(prod, cap))
                     m.bytes_to_device += _live_bytes(inputs[lid])
-                out, counts, overflow, exchange_overflow, op_rows, raw = \
-                    fn(pid, inputs)
+                out, counts, overflow, exchange_overflow, op_rows, raw, \
+                    growth = fn(pid, inputs)
                 del inputs
                 if exchange_overflow is not None and bool(exchange_overflow):
                     err = ShuffleOverflowError(
@@ -233,9 +236,11 @@ class SerialRuntime:
                                   "counts": raw.cpu().numpy()[None, :]}]
                     raise err
                 if overflow is not None and bool(overflow):
-                    raise CapacityOverflowError(
+                    err = CapacityOverflowError(
                         f"stage {stage.stage_id} partition {pid}: a group "
                         "table or join output outgrew its capacity")
+                    err.growth = tuple(growth.tolist())
+                    raise err
                 sout.shards[pid] = _fetch_shard(
                     out, counts.cpu().numpy() if kind == "exchange" else None)
                 m.bytes_to_host += sout.shards[pid].nbytes
@@ -317,7 +322,7 @@ def execute_serial(ctx, plan, n_partitions: int,
             if attempt == max_retries - 1:
                 raise
             if isinstance(e, CapacityOverflowError):
-                opts = grow_capacities(opts)
+                opts = grow_capacities(opts, e.growth)
             else:
                 opts = escalate_overflow_opts(opts, e, attempt)
             log.warning("serial overflow (%s); retrying with headroom %.1f, "

@@ -224,7 +224,7 @@ class JobContext:
             err = counts.error(stage_id)
             if not self.escalate or len(self.attempts) >= self.max_attempts:
                 raise err
-            opts = (grow_capacities(self.planner.opts)
+            opts = (grow_capacities(self.planner.opts, err.growth)
                     if isinstance(err, CapacityOverflowError)
                     else escalate_overflow_opts(self.planner.opts, err,
                                                 len(self.attempts) - 1))

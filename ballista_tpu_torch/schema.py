@@ -125,19 +125,29 @@ class Schema:
     """Ordered list of fields + host-side string dictionaries.
 
     Dictionaries are per-field numpy object arrays of Python str, sorted
-    ascending, so that code order == lexicographic order. They are planning
-    metadata; they never reach the device. (The reference's RAW unsorted
-    dictionaries for very high-cardinality strings are not ported.)
+    ascending, so that code order == lexicographic order, except for the
+    RAW columns named in `unsorted` (see there). They are planning
+    metadata; they never reach the device.
     """
 
     def __init__(self, fields: Tuple[Field, ...],
                  dictionaries: Optional[dict] = None,
-                 int_bounds: Optional[dict] = None):
+                 int_bounds: Optional[dict] = None,
+                 unsorted: Optional[set] = None):
         self.fields = tuple(fields)
         self.dictionaries = dict(dictionaries or {})  # name -> np.ndarray[str]
         # name -> (lo, hi): ingest-time value bounds for integer/date/
         # decimal columns (planning metadata)
         self.int_bounds = dict(int_bounds or {})
+        # names of RAW string columns: the dictionary is the column's host
+        # values verbatim (unsorted, duplicates allowed; code == row
+        # index). Ingest takes this form when a column's estimated
+        # distinct count exceeds BALLISTA_RAW_DICT_MAX (batch.py
+        # `_estimate_high_cardinality`). LUT predicates (LIKE, =, IN) and
+        # decoding work unchanged; code-order and code-equality uses
+        # (group, sort and join keys, min/max, range compares) re-encode
+        # through `exprs.sorted_recode` first.
+        self.unsorted = set(unsorted or ())
         self._index = {f.name: i for i, f in enumerate(self.fields)}
 
     def __repr__(self):
@@ -157,8 +167,11 @@ class Schema:
     def int_bound(self, name: str):
         return self.int_bounds.get(name)
 
+    def is_sorted_dict(self, name: str) -> bool:
+        return name not in self.unsorted
+
     def select(self, names) -> "Schema":
         fields = tuple(self.field(n) for n in names)
         dicts = {n: self.dictionaries[n] for n in names if n in self.dictionaries}
         bounds = {n: self.int_bounds[n] for n in names if n in self.int_bounds}
-        return Schema(fields, dicts, bounds)
+        return Schema(fields, dicts, bounds, self.unsorted & set(names))

@@ -13,6 +13,9 @@ and the partitioned runtime.
 
     python3 chip_smoke.py                     # every phase
     python3 chip_smoke.py --distributed-only  # phases 1, 2 and 13 alone
+    python3 chip_smoke.py --wire-only         # phases 1, 2 and 14 alone
+    python3 chip_smoke.py --raw-only          # phases 1, 2, 11's h2o join
+                                              # and 15 alone
 
 Phases:
 1. torch version, card name and power limit (exits 1 without CUDA);
@@ -83,8 +86,9 @@ Phases:
    kernel launches and overflow retries per question; counts and integer
    sums exact, f64 sums, averages, stddev and corr at rtol 1e-9, the
    median at rtol 1e-12, q8 exact as a multiset; q10's ~10^7 groups must
-   come through the overflow retries); the join task at N = 10^6 (J1_1e6:
-   row counts, matched rows, sum(v1) and sum(v2) of the 5 questions); the
+   come through the overflow retries); the join task at N = 10^7 (J1_1e7:
+   x.id6 and large.id6 must come out RAW at the default threshold; row
+   counts, matched rows, sum(v1) and sum(v2) of the 5 questions); the
    taxi query over 10^7 synthetic trips; TPC-H Q1 and Q3 at SF1 written
    as DataFrame calls, equal to answers/sf1 (Q1 must launch the kernel at
    T = 12); for Q3, Q5, Q7, Q8, Q9, Q18 and Q21 the nodes `plan_sparse_flow`
@@ -149,6 +153,22 @@ Phases:
    (SIGKILL): the job ends on the survivor, equal; (e) every live executor
    stopped by SIGTERM exits 0 and leaves its scheduler's registry. Every
    process is killed in a `finally`. Its seconds are printed.
+15. RAW strings (the dictionary is the column in row order, code == row
+   index) at full width: (a) the 22 queries at SF1 over phase 6's rows
+   registered with BALLISTA_RAW_DICT_MAX=0 (every string column RAW,
+   l_comment's dictionary 5,998,239 entries), each exact against
+   answers/sf1 and equal to the sorted-dictionary answer, first run and
+   warm median of 3, with the host seconds of the dictionary tables each
+   made (str conversion, dense-rank recode, LIKE lookup tables, value
+   hashes); Q1 must launch the kernel at T = 12, and that call is held
+   against its plain version; (b) on phase 11's J1_1e7 x (id6 RAW at the
+   default threshold), against numpy on the same host arrays: GROUP BY
+   id6 (~6.32 M groups, through overflow retries), ORDER BY id6 LIMIT
+   100, min and max of id6, and an equality, an IN and a LIKE on id6;
+   (c) Q1 and Q13 over the RAW tables through SessionContext(distributed=
+   True) at P = 8 and through the wire (a scheduler and two executor
+   processes of P = 4 started with BALLISTA_RAW_DICT_MAX=0), each equal
+   to (a)'s answer.
 Phases 7 and 8 also hold the kernel against its plain version on the
 calls Q4, Q15 and Q22 (phase 7) and Q11 and Q16 (phase 8) made.
 The line before the last is a JSON object describing the kernel (its
@@ -179,9 +199,11 @@ from ballista_tpu_torch.benchmarks.queries import q1_frame, q3_frame
 from ballista_tpu_torch.benchmarks.timing import cuda_ms, host_ms
 from ballista_tpu_torch.client import SessionContext
 from ballista_tpu_torch.client.context import rebind_scans
-from ballista_tpu_torch.datagen import TPCH_TABLES, generate_tpch
+from ballista_tpu_torch.datagen import (TPCH_TABLES, generate_tpch,
+                                        register_tpch)
 from ballista_tpu_torch.exec import memory
 from ballista_tpu_torch.exec import plan as plan_mod
+from ballista_tpu_torch import exprs as exprs_mod
 from ballista_tpu_torch.exprs import Col, like_lut, parse_date
 from ballista_tpu_torch.ops import masked_sums
 from ballista_tpu_torch.schema import TypeKind
@@ -855,9 +877,9 @@ def phase_rest(ctx):
     real = plan_mod.expand_join
 
     def spy(*args, **kwargs):
-        em = real(*args, **kwargs)
-        joins.append(em)
-        return em
+        out = real(*args, **kwargs)
+        joins.append(out)
+        return out
 
     total_launches, max_err, kernel_calls = 0, 0, {}
     for q in SIX_TABLE_REST:
@@ -871,10 +893,10 @@ def phase_rest(ctx):
         total_launches += launches
         kernel_calls[q] = (launches, calls)
         # every run repeats the same expanding joins: log each once
-        for rows, cap, over in sorted({(int(em.total), em.valid.shape[0],
-                                        bool(em.overflow)) for em in joins}):
+        for rows, cap, need in sorted({(int(em.total), em.valid.shape[0],
+                                        int(em.need)) for em in joins}):
             log(f"phase 7: Q{q} expanding join: {rows} output rows of "
-                f"capacity {cap}, overflow {over}")
+                f"capacity {cap}, needed {need}, overflow {need > cap}")
         retries = ctx.warnings[n_warn:]
         log(f"phase 7: Q{q} overflow retries over its 11 runs: "
             f"{len(retries)}{(': ' + retries[0]) if retries else ''}")
@@ -1532,7 +1554,7 @@ def phase_analytic(ctx):
 # ---------------------------------------------------------------------------
 
 H2O_N, H2O_K, H2O_SEED = 10 ** 7, 100, 42
-H2O_JOIN_N = 10 ** 6
+H2O_JOIN_N = 10 ** 7
 TAXI_N = 10 ** 7
 SUM_RTOL = 1e-9     # f64 sums and averages: the card adds in no fixed order
 
@@ -1608,9 +1630,9 @@ def _layouts(ctx, sql):
     return out or ["no aggregate"]
 
 
-def _timed_question(ctx, label, sql):
+def _timed_question(ctx, label, sql, phase=11):
     """First run and warm median of 3 of ctx.sql(sql).collect(): returns
-    (batch, schema, kernel launches on the first run)."""
+    (batch, schema, kernel launches on the first run, overflow retries)."""
     n_warn = len(ctx.warnings)
     times = []
     for i in range(4):
@@ -1623,7 +1645,7 @@ def _timed_question(ctx, label, sql):
         if i == 0:
             launches = read_counts()
             retries = ctx.warnings[n_warn:]
-    log(f"phase 11: {label}: {int(batch.num_rows)} rows; first run "
+    log(f"phase {phase}: {label}: {int(batch.num_rows)} rows; first run "
         f"{times[0]:.4f} s, warm median "
         f"{statistics.median(times[1:]) * 1e3:.3f} ms; aggregate layout "
         f"{_layouts(ctx, sql)}; masked_slot_sums_rows launches {launches[0]}; "
@@ -1824,12 +1846,19 @@ def _lookup(build_keys, probe_keys):
 def phase_h2o_join():
     t0 = time.perf_counter()
     tables = h2o.join_tables(H2O_JOIN_N, H2O_SEED)
-    log(f"phase 11: h2o join J1_1e6: generated x, small, medium, large "
+    log(f"phase 11: h2o join J1_1e7: generated x, small, medium, large "
         f"({[len(t['v2' if 'v2' in t else 'v1']) for t in tables.values()]} "
         f"rows) in {time.perf_counter() - t0:.2f} s")
     ctx = SessionContext(device="cuda")
     for name, table in tables.items():
         _register_numpy_timed(ctx, name, table, "h2o join")
+    # id6 has about as many distinct values as rows: RAW at the default
+    # threshold (BALLISTA_RAW_DICT_MAX unset), the other strings sorted
+    raw = {name: tp.schema.unsorted for name, tp in ctx.tables.items()}
+    if raw != {"x": {"id6"}, "small": set(), "medium": set(),
+               "large": {"id6"}}:
+        raise AssertionError(f"phase 11: h2o join RAW columns {raw}")
+    log(f"phase 11: h2o join RAW columns {raw}")
     x = tables["x"]
     plan = {1: ("small", "id1", True), 2: ("medium", "id2", True),
             3: ("medium", "id2", False), 4: ("medium", "id5", False),
@@ -1863,6 +1892,7 @@ def phase_h2o_join():
             raise AssertionError(f"h2o join q{q}: NULL in v1")
         log(f"phase 11: h2o join q{q} equals numpy ({'; '.join(notes)})")
     ctx.evict_device()
+    JOIN_KEPT.update(ctx=ctx, x=x)
     return total
 
 
@@ -2957,12 +2987,320 @@ def phase_wire_alone():
     return phase_wire(ctx)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: RAW strings at full width
+# ---------------------------------------------------------------------------
+
+RAW_DIST_QUERIES = (1, 13)
+# phase 11's J1_1e7 context and x, which (b) reads
+JOIN_KEPT = {}
+# (a)'s answers, which (c) holds its paths to
+RAW_ANSWERS = {}
+
+
+class raw_threshold:
+    """BALLISTA_RAW_DICT_MAX set to `value` while the block runs: what
+    every process of the port reads at ingest (the executors started in
+    the block inherit it)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.old = os.environ.get("BALLISTA_RAW_DICT_MAX")
+        os.environ["BALLISTA_RAW_DICT_MAX"] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("BALLISTA_RAW_DICT_MAX", None)
+        else:
+            os.environ["BALLISTA_RAW_DICT_MAX"] = self.old
+
+
+class spy_tables:
+    """Host seconds spent making dictionary tables while the block runs,
+    by kind (`exprs.dict_cached`'s `make`: "str" conversions, "recode"
+    dense ranks, "like" lookup tables, "value_hash"), each kind's own
+    time: a recode that converts its dictionary first counts that under
+    "str"."""
+
+    def __enter__(self):
+        self.real = exprs_mod.dict_cached
+        seconds, stack = {}, []
+
+        def cached(dictionary, what, make):
+            def timed():
+                stack.append(0.0)
+                t0 = time.perf_counter()
+                try:
+                    return make()
+                finally:
+                    took = time.perf_counter() - t0
+                    inner = stack.pop()
+                    seconds[what[0]] = seconds.get(what[0], 0.0) + took - inner
+                    if stack:
+                        stack[-1] += took
+            return self.real(dictionary, what, timed)
+
+        exprs_mod.dict_cached = cached
+        return seconds
+
+    def __exit__(self, *exc):
+        exprs_mod.dict_cached = self.real
+
+
+def _seconds(secs):
+    return ", ".join(f"{k} {v:.3f} s" for k, v in sorted(secs.items())) \
+        or "none made"
+
+
+def raw_tpch(sf1_ctx):
+    """(a): the 22 queries over phase 6's rows with every string column
+    RAW. Returns (the RAW context, kernel launches over the first runs,
+    the held Q1 call's numbers)."""
+    t0 = time.perf_counter()
+    ctx = SessionContext(device="cuda")
+    with raw_threshold("0"):
+        register_tpch(ctx, SF, data={
+            name: (tp.fields, tp.host) for name, tp in sf1_ctx.tables.items()
+            if name in TPCH_TABLES})
+    for name, tp in ctx.tables.items():
+        strings = {f.name for f in tp.fields
+                   if f.dtype.kind is TypeKind.STRING}
+        if tp.schema.unsorted != strings:
+            raise AssertionError(f"phase 15 (a): {name} RAW columns "
+                                 f"{tp.schema.unsorted} != {strings}")
+    n_comment = len(ctx.tables["lineitem"].host["l_comment"].dictionary)
+    if n_comment != LINEITEM_ROWS:
+        raise AssertionError(f"phase 15 (a): l_comment RAW dictionary of "
+                             f"{n_comment} entries")
+    log(f"phase 15 (a): the eight SF1 tables registered with every string "
+        f"column RAW in {time.perf_counter() - t0:.2f} s (l_comment: "
+        f"{n_comment} dictionary entries)")
+    launches, held = np.zeros(2, dtype=np.int64), None
+    for q in range(1, 23):
+        sql = TPCH_QUERIES[q]
+        reset_counts()
+        with spy_rows() as calls, spy_tables() as secs:
+            t0 = time.perf_counter()
+            batch, schema = ctx.sql(sql).collect()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+        counts = read_counts()
+        launches += counts
+        got = to_numpy(batch, schema)
+        del batch
+        check_answers(got, schema, q)
+        _same_answer(f"phase 15 (a) Q{q}", got, _incore(sf1_ctx, q))
+        RAW_ANSWERS[q] = got
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ctx.sql(sql).collect()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        log(f"phase 15 (a): Q{q} all RAW: equals answers/sf1 and the sorted "
+            f"answer; first run {first:.4f} s (dictionary tables made: "
+            f"{_seconds(secs)}), warm median "
+            f"{statistics.median(warm) * 1e3:.3f} ms; masked_slot_sums_rows "
+            f"launches {counts[0]}, calls at (A, n), T = "
+            f"{call_shapes(calls)}")
+        if q == 1:
+            if counts[0] < 1 or call_shapes(calls) != [((Q1_A, Q1_N), Q1_T)]:
+                raise AssertionError(f"phase 15 (a): all-RAW Q1's kernel "
+                                     f"calls {call_shapes(calls)}")
+            held = hold_call(15, "all-RAW Q1's own kernel inputs", *calls[0])
+        del calls
+    ctx.evict_device()
+    return ctx, launches, held
+
+
+def _count_like(uniq, counts, piece):
+    """Rows whose value holds `piece`, by a Python test over the distinct
+    values (a reference independent of the port's LIKE)."""
+    return int(sum(c for s, c in zip(uniq.tolist(), counts.tolist())
+                   if piece in s))
+
+
+def raw_h2o_x(ctx, x):
+    """(b): id6 of J1_1e7's x (RAW at the default threshold) against numpy
+    on the same host arrays. Returns the kernel launches."""
+    ids = x["id6"]
+    t0 = time.perf_counter()
+    uniq, inv, counts = np.unique(ids, return_inverse=True,
+                                  return_counts=True)
+    log(f"phase 15 (b): numpy: {len(uniq)} distinct id6 of {len(ids)} rows "
+        f"in {time.perf_counter() - t0:.2f} s")
+    launches = np.zeros(2, dtype=np.int64)
+
+    def question(label, sql):
+        with spy_tables() as secs:
+            batch, schema, n, retries = _timed_question(ctx, label, sql, 15)
+        log(f"phase 15 (b): {label}: dictionary tables made: "
+            f"{_seconds(secs)}; overflow retries {retries}")
+        nonlocal launches
+        launches = launches + n
+        got = _raw_columns(batch, schema)
+        del batch
+        return got, schema
+
+    got, schema = question(
+        "GROUP BY id6", "SELECT id6, count(*) c, sum(id1) s FROM x GROUP BY "
+        "id6")
+    codes, ok = got["id6"]
+    if not ok.all() or len(codes) != len(uniq):
+        raise AssertionError(f"phase 15 (b): {len(codes)} groups, numpy "
+                             f"{len(uniq)}")
+    order = np.argsort(codes, kind="stable")
+    keys = schema.dictionary("id6")[codes[order]].astype(str)
+    if not np.array_equal(keys, uniq):
+        raise AssertionError("phase 15 (b): GROUP BY id6 keys differ")
+    sums = np.bincount(inv.reshape(-1), weights=x["id1"]).astype(np.int64)
+    for name, want in (("c", counts), ("s", sums)):
+        if not np.array_equal(got[name][0][order], want):
+            raise AssertionError(f"phase 15 (b): GROUP BY id6 {name} differs")
+    del got, codes, keys, sums, order
+    log("phase 15 (b): GROUP BY id6 equals numpy exactly")
+
+    got, schema = question("ORDER BY id6 LIMIT 100",
+                           "SELECT id6 FROM x ORDER BY id6 LIMIT 100")
+    first = schema.dictionary("id6")[got["id6"][0]].astype(str)
+    if not np.array_equal(first, np.repeat(uniq[:100], counts[:100])[:100]):
+        raise AssertionError("phase 15 (b): ORDER BY id6 LIMIT 100 differs")
+
+    got, schema = question("min and max", "SELECT min(id6) mn, max(id6) mx "
+                           "FROM x")
+    ext = [str(schema.dictionary(k)[got[k][0][0]]) for k in ("mn", "mx")]
+    if ext != [uniq[0], uniq[-1]]:
+        raise AssertionError(f"phase 15 (b): min/max {ext}")
+
+    needle = str(ids[len(ids) // 3])
+    members = [str(ids[len(ids) // k]) for k in (5, 7, 11)] + ["id-none"]
+    for label, where, mask in (
+            ("equality", f"id6 = '{needle}'", ids == needle),
+            ("IN", "id6 IN (" + ", ".join(f"'{v}'" for v in members) + ")",
+             np.isin(ids, members)),
+            ("LIKE", "id6 LIKE '%4242%'", None)):
+        got, _ = question(label, f"SELECT count(*) c, sum(v1) s FROM x "
+                          f"WHERE {where}")
+        want_c = (int(mask.sum()) if mask is not None
+                  else _count_like(uniq, counts, "4242"))
+        notes = "count " + _held(f"phase 15 (b) {label} count",
+                                 int(got["c"][0][0]), want_c)
+        if mask is not None:
+            notes += "; sum(v1) " + _held(f"phase 15 (b) {label} sum",
+                                          float(got["s"][0][0]),
+                                          float(x["v1"][mask].sum()),
+                                          SUM_RTOL)
+        log(f"phase 15 (b): {label} on id6 equals numpy ({notes})")
+    ctx.evict_device()
+    return launches
+
+
+def raw_paths(raw_ctx):
+    """(c): Q1 and Q13 over the RAW tables through the partitioned
+    runtime at P = 8 and over the wire. Returns the kernel launches
+    (this process's, and those the executors' task metrics report)."""
+    launches = np.zeros(2, dtype=np.int64)
+    mesh = make_mesh(DIST_P, devices=[torch.device("cuda", 0)] * DIST_P)
+    dctx = _dist_ctx(raw_ctx, mesh)
+    for q in RAW_DIST_QUERIES:
+        reset_counts()
+        t0 = time.perf_counter()
+        got = to_numpy(*dctx.sql(TPCH_QUERIES[q]).collect())
+        took = time.perf_counter() - t0
+        launches += read_counts()
+        _same_answer(f"phase 15 (c) Q{q} at P = {DIST_P}", got,
+                     RAW_ANSWERS[q])
+        log(f"phase 15 (c): Q{q} all RAW at P = {DIST_P} equals (a) in "
+            f"{took:.3f} s")
+    dctx.evict_device()
+    del dctx
+    _fresh(raw_ctx)
+    import tempfile
+    procs, httpd = [], None
+    with raw_threshold("0"), tempfile.TemporaryDirectory() as tmp:
+        try:
+            t0 = time.perf_counter()
+            service, httpd, client = _wire_scheduler(os.path.join(tmp, "s"))
+            procs = [_Executor(client.url, eid)
+                     for eid in ("raw-a", "raw-b")]
+            for ex in procs:
+                ex.wait_ready()
+            log(f"phase 15 (c): scheduler and 2 executors started with "
+                f"BALLISTA_RAW_DICT_MAX=0 in {time.perf_counter() - t0:.1f} s")
+            for q in RAW_DIST_QUERIES:
+                reset_counts()
+                t0 = time.perf_counter()
+                job = client.submit_sql(TPCH_QUERIES[q], {"kind": "tpch",
+                                                          "sf": SF},
+                                        options={"n_partitions": WIRE_P},
+                                        ctx=raw_ctx)
+                batch, schema = client.wait_batch(job, timeout_s=600)
+                took = time.perf_counter() - t0
+                if schema.unsorted:
+                    raise AssertionError(f"phase 15 (c): the wire answered "
+                                         f"RAW columns {schema.unsorted}")
+                got = to_numpy(batch, schema)
+                check_answers(got, schema, q)
+                _same_answer(f"phase 15 (c) Q{q} over the wire", got,
+                             RAW_ANSWERS[q])
+                summary = _wire_job(service, client, job)
+                launches += summary["launches"] + read_counts()
+                log(f"phase 15 (c): Q{q} all RAW over the wire equals (a) in "
+                    f"{took:.3f} s (the executors' first task generates SF1); "
+                    f"stages {summary['stages']}, ran {summary['ran']}, "
+                    f"spec v{summary['version']}, kernel launches in the "
+                    f"executors {summary['launches'].tolist()}")
+        finally:
+            for ex in procs:
+                ex.kill()
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.server_close()
+    return launches
+
+
+def phase_raw(sf1_ctx):
+    """Phase 15. Returns (kernel launches over its paths, max |kernel -
+    plain| on the call it holds)."""
+    t_start = time.perf_counter()
+    sf1_ctx.evict_device()
+    raw_ctx, launches, held = raw_tpch(sf1_ctx)
+    log(f"phase 15 (a): {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    launches = launches + raw_h2o_x(JOIN_KEPT["ctx"], JOIN_KEPT["x"])
+    JOIN_KEPT.clear()
+    log(f"phase 15 (b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = launches + raw_paths(raw_ctx)
+    log(f"phase 15 (c): {time.perf_counter() - t0:.1f} s")
+    raw_ctx.evict_device()
+    log(f"phase 15: {time.perf_counter() - t_start:.1f} s; kernel launches "
+        f"{launches.tolist()}")
+    return launches, held
+
+
+def phase_raw_alone():
+    """Phase 11's h2o join and phase 15 without the other phases: the SF1
+    tables made here, the sorted in-core answers computed on demand."""
+    t0 = time.perf_counter()
+    ctx = SessionContext(device="cuda")
+    for name, (fields, cols) in generate_tpch(SF, SEED).items():
+        ctx.register_host(name, fields, cols, primary_key=TPCH_TABLES[name][1])
+    log(f"phase 15: TPC-H SF1 generated in {time.perf_counter() - t0:.1f} s")
+    launches = phase_h2o_join()
+    more, held = phase_raw(ctx)
+    return launches + more, held
+
+
 def main():
     t_script = time.perf_counter()
-    alone = sys.argv[1:] in (["--distributed-only"], ["--wire-only"])
+    alone = sys.argv[1:] in (["--distributed-only"], ["--wire-only"],
+                             ["--raw-only"])
     if sys.argv[1:] and not alone:
         print("usage: python3 chip_smoke.py [--distributed-only | "
-              "--wire-only]", file=sys.stderr)
+              "--wire-only | --raw-only]", file=sys.stderr)
         sys.exit(2)
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -2992,8 +3330,11 @@ def main():
         if sys.argv[1] == "--distributed-only":
             launches, err = phase_distributed_alone()
             held = LAST_HELD
-        else:
+        elif sys.argv[1] == "--wire-only":
             launches, held = phase_wire_alone()
+            err = held_err(held)
+        else:
+            launches, held = phase_raw_alone()
             err = held_err(held)
         print(json.dumps({"kernels": [{
             "name": "masked_slot_sums", "route": "cuda",
@@ -3019,19 +3360,20 @@ def main():
     sf10_launches, sf10_err = phase_sf10(ctx)
     dist_launches, dist_err = phase_distributed(ctx)
     wire_launches, wire_held_numbers = phase_wire(ctx)
+    raw_launches, raw_held = phase_raw(ctx)
 
     # one record for the kernel file; its times and bound are those of
     # Q1's own call through the entry the queries use. `entry_points`
     # gives each wrapper's own numbers on that call; launches are those of
     # the 22 queries', the analytic slice's and the client slice's first
     # runs, counted per wrapper, and those the executor processes of
-    # phase 14 reported.
+    # phases 14 and 15 reported.
     launches = (launches + join_launches + rest_launches + part_launches
                 + analytic_launches + client_launches + sf10_launches
-                + dist_launches + wire_launches)
+                + dist_launches + wire_launches + raw_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
                 part_err, analytic_err, client_err, sf10_err, dist_err,
-                held_err(wire_held_numbers))
+                held_err(wire_held_numbers), held_err(raw_held))
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]

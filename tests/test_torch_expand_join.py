@@ -1,7 +1,9 @@
 """ballista_tpu_torch.ops.expand_join against ballista_tpu.ops.expand_join
 on the same seeded keys: duplicate build keys, NULL keys on both sides,
 dead rows, two-part keys, left outer, an empty build and a forced
-overflow. Every field of ExpandedMatch is compared exactly; and
+overflow. Every field of ExpandedMatch is compared exactly (`need`, the
+unclipped total, against the reference's `overflow` flag and, where the
+output was clipped, against a count of the matching pairs); and
 vsort.rank_in_sorted against the reference's two-sort merge."""
 
 import numpy as np
@@ -41,6 +43,11 @@ def _run_both(build, probe, out_capacity, left_outer):
     got = TX.expand_join(*tx(build), *tx(probe), out_capacity,
                          left_outer=left_outer)
     for name in TX.ExpandedMatch._fields:
+        if name == "need":   # the reference keeps need > out_capacity
+            np.testing.assert_array_equal(
+                got.need.numpy() > out_capacity, np.asarray(want.overflow),
+                err_msg=name)
+            continue
         np.testing.assert_array_equal(
             getattr(got, name).numpy(), np.asarray(getattr(want, name)),
             err_msg=name)
@@ -65,7 +72,7 @@ def test_expand_join_matches_jax(case, left_outer):
     build = _side(rng, nb, nb_live, n_keys, hi, nulls)
     probe = _side(rng, np_, np_live, n_keys, hi, nulls)
     got = _run_both(build, probe, 8192, left_outer)
-    assert not bool(got.overflow)
+    assert int(got.need) == int(got.total) <= 8192
     if left_outer:   # every live probe row comes out at least once
         rows = got.probe_row[got.valid].numpy()
         assert set(rows) == set(range(np_live))
@@ -87,7 +94,12 @@ def test_forced_overflow_is_flagged(left_outer):
     build = _side(rng, 512, 512, 1, 4, 0.0)    # ~128 matches per probe row
     probe = _side(rng, 256, 256, 1, 4, 0.0)
     got = _run_both(build, probe, 1024, left_outer)
-    assert bool(got.overflow) and int(got.total) == 1024
+    keys_b, _, live_b = build
+    keys_p, _, live_p = probe
+    per_probe = (keys_p[0][:, None] == keys_b[0][None, live_b]).sum(axis=1)
+    want_need = int(np.where(live_p, np.maximum(per_probe, int(left_outer)),
+                             0).sum())
+    assert int(got.need) == want_need > 1024 and int(got.total) == 1024
     assert bool(got.valid.all())
 
 

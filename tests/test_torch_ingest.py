@@ -218,6 +218,34 @@ def test_sampled_distinct_path_matches_sort(monkeypatch):
     np.testing.assert_array_equal(got.dictionary[got.values], rare)
 
 
+@pytest.mark.parametrize("width", [1, 7, 8, 9, 16, 17, 33])
+def test_word_sort_matches_np_unique(monkeypatch, width):
+    """`_sorted_distinct` (ASCII text sorted as big-endian uint64 words)
+    gives np.unique's values and inverse at every width: strings shorter
+    than the widest, the empty string, and a long column of few values
+    on the sample path; non-ASCII text keeps np.unique."""
+    rng = np.random.default_rng(width)
+    alphabet = np.array(list("ab~ Z0"))
+    strs = np.array(["".join(rng.choice(alphabet, rng.integers(0, width + 1)))
+                     for _ in range(3000)])
+    few = np.tile(strs[:11], 367)[:64 * 63]   # a sample step of 63 sees all
+    for arr in (strs, few, np.char.add(strs, "é")):
+        want_u, want_inv = np.unique(arr, return_inverse=True)
+        got_u, got_inv = TB._sorted_distinct(arr)
+        np.testing.assert_array_equal(got_u, want_u)
+        np.testing.assert_array_equal(got_inv, want_inv.reshape(-1))
+    monkeypatch.setattr(TB, "_SAMPLE_ROWS", 64)
+
+    def no_sort(*args):
+        raise AssertionError("the sample path sorts no column")
+
+    monkeypatch.setattr(TB, "_sort_words", no_sort)
+    got_u, got_inv = TB._sorted_distinct(few)
+    want_u, want_inv = np.unique(few, return_inverse=True)
+    np.testing.assert_array_equal(got_u, want_u)
+    np.testing.assert_array_equal(got_inv, want_inv.reshape(-1))
+
+
 def test_unsigned_integers_widen_or_raise():
     assert repr(TB.column_dtype(np.array([1], dtype=np.uint16))) == "int32"
     got = TB.ingest_column(np.array([1, 2 ** 32 - 1], dtype=np.uint32))
@@ -226,11 +254,25 @@ def test_unsigned_integers_widen_or_raise():
         TB.ingest_column(np.array([2 ** 63], dtype=np.uint64))
 
 
-def test_too_many_distinct_strings_raise(monkeypatch):
-    monkeypatch.setattr(TB, "RAW_DICT_MAX", 16)
-    TB.ingest_column([f"s{i}" for i in range(16)])
-    with pytest.raises(NotImplementedError, match="raw"):
-        TB.ingest_column([f"s{i}" for i in range(17)])
+@pytest.mark.parametrize("n", [16, 17])
+def test_high_cardinality_strings_go_raw(monkeypatch, n):
+    """Past BALLISTA_RAW_DICT_MAX estimated distinct values a column is
+    RAW, as the reference's ingest makes it: codes are row indices and
+    the dictionary is the column in row order ("" for NULL)."""
+    monkeypatch.setenv("BALLISTA_RAW_DICT_MAX", "16")
+    vals = [None if i == 3 else f"s{i % 40}" for i in range(n)]
+    arr = pa.array(vals, type=pa.string())
+    field = JB.schema_from_arrow(pa.schema([pa.field("c", arr.type)])
+                                 ).fields[0]
+    values, validity, dictionary, is_raw, _ = JB.ingest_column_host(
+        arr, field, n)
+    for got in (TB.ingest_column(vals),
+                TB.ingest_arrow_column(arr, TB.STRING)):
+        assert got.raw == is_raw == (n > 16)
+        np.testing.assert_array_equal(got.validity, validity)
+        np.testing.assert_array_equal(got.values[got.validity],
+                                      values[validity])
+        assert got.dictionary.tolist() == dictionary.tolist()
 
 
 def _table():

@@ -366,6 +366,34 @@ def test_rpc_overflow_escalates_spec_version(tmp_path, port_ctx, kind):
         stop_all(procs, httpd)
 
 
+def test_rpc_capacity_growth_answers_q18(tmp_path, port_ctx):
+    """Q18 from group tables of 16 slots over the wire: the executor
+    reports how many times its capacity the overflowing operator wanted,
+    the scheduler grows the spec by that (a power of two, at least 4x),
+    and the job answers within MAX_ATTEMPTS, equal to in-core."""
+    from ballista_tpu_torch.batch import to_numpy
+    from ballista_tpu_torch.scheduler.standalone import MAX_ATTEMPTS
+    service, httpd, url = start_scheduler(tmp_path / "shuffle")
+    procs = []
+    try:
+        procs.append(spawn_executor(url, "ex-a"))
+        client = SchedulerRpcClient(url, device="cpu")
+        job_id = client.submit_sql(
+            TPCH_QUERIES[18], TABLES, ctx=port_ctx,
+            options={"n_partitions": N_PART, "max_group_table": 16})
+        got = to_numpy(*client.wait_batch(job_id, timeout_s=120))
+        want = to_numpy(*port_ctx.sql(TPCH_QUERIES[18]).collect())
+        for name in want:
+            np.testing.assert_array_equal(got[name][1], want[name][1])
+            np.testing.assert_array_equal(got[name][0][got[name][1]],
+                                          want[name][0][want[name][1]])
+        spec = service.specs[job_id]
+        assert 1 <= spec.version <= MAX_ATTEMPTS - 1
+        assert spec.options.max_group_table > 16 * 4 ** spec.version
+    finally:
+        stop_all(procs, httpd)
+
+
 @pytest.mark.parametrize("kind", ["shuffle", "capacity"])
 def test_rpc_permanent_overflow_fails_the_job(tmp_path, port_ctx, kind):
     """An executor whose every attempt overflows: the scheduler escalates

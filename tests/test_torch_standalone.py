@@ -310,3 +310,47 @@ def test_escalation_reruns_finished_stages():
     assert cl.job_status(jid)["state"] == "successful"
     assert_same(got, incore.sql(TPCH_QUERIES[21]).collect(), to_numpy)
     assert int(got[0].num_rows) > 0
+
+
+def test_capacity_growth_sized_from_the_need():
+    """Q18 from group tables of 16 slots: each retry grows group tables
+    and join outputs by the need the overflowing stage counted (a power
+    of two, at least 4x), so the job answers within its MAX_ATTEMPTS, as
+    the in-core run does; growing 4x blindly needed more attempts than
+    that."""
+    tctx = SessionContext(device="cpu")
+    register_tpch(tctx, SF)
+    cl = S.StandaloneCluster(tctx, cpu_mesh(), DistOptions(
+        n_partitions=P, max_group_table=16))
+    jid = cl.submit_sql(TPCH_QUERIES[18])
+    got = cl.wait(jid)
+    attempts = cl.launcher.jobs[jid].attempts
+    assert 2 <= len(attempts) <= S.MAX_ATTEMPTS
+    assert attempts[-1].max_group_table > 16 * 4 ** (len(attempts) - 1)
+    assert cl.job_status(jid)["state"] == "successful"
+    assert_same(got, tctx.sql(TPCH_QUERIES[18]).collect(), to_numpy)
+
+
+def test_group_table_growth_leaves_join_outputs_at_4x():
+    """An aggregate of about 3,000 groups over an expanding join (four
+    partsupp rows per part), from group tables of 16 slots: the
+    overflowing attempt grows group tables by their need (far over 4x)
+    and the join outputs, which kept to their capacity, by 4x only."""
+    sql = ("SELECT l_orderkey, count(*) AS n, sum(ps_availqty) AS q "
+           "FROM lineitem JOIN partsupp ON l_partkey = ps_partkey "
+           "GROUP BY l_orderkey ORDER BY l_orderkey")
+    tctx = SessionContext(device="cpu")
+    register_tpch(tctx, SF)
+    cl = S.StandaloneCluster(tctx, cpu_mesh(), DistOptions(
+        n_partitions=P, max_group_table=16, join_out_factor=8.0))
+    jid = cl.submit_sql(sql)
+    got = cl.wait(jid)
+    jc = cl.launcher.jobs[jid]
+    labels = [lbl for rows in jc.op_metrics.values() for lbl in rows]
+    assert any("expanding" in lbl for lbl in labels), labels
+    attempts = jc.attempts
+    assert len(attempts) == 2
+    assert attempts[1].max_group_table >= 16 * 16
+    assert attempts[1].join_out_factor == 8.0 * 4
+    assert cl.job_status(jid)["state"] == "successful"
+    assert_same(got, tctx.sql(sql).collect(), to_numpy)
