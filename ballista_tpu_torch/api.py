@@ -5,8 +5,9 @@ handlers `api/handlers.rs`): /api/state, /api/jobs, /api/job/{id},
 /api/job/{id}/dot, /api/metrics — served by a stdlib ThreadingHTTPServer
 over a StandaloneCluster (`scheduler/standalone.py`) or the scheduler's RPC
 service (`scheduler/rpc.py`, whose executors are other processes). The dot
-output renders with any graphviz viewer. `/api/file_metadata` answers 501:
-`client/context.py file_metadata` is not ported.
+output renders with any graphviz viewer. `/api/file_metadata?path=...`
+answers a parquet, csv or json file's schema and row count
+(`client/context.py file_metadata`).
 """
 
 from __future__ import annotations
@@ -181,9 +182,16 @@ class ApiServer:
                 ctype="text/plain; version=0.0.4")
             return
         if path.startswith("/api/file_metadata"):
-            # GetFileMetadata RPC analog (grpc.rs:293)
-            h._send(501, {"error": "file_metadata (client/context.py "
-                                   "file_metadata) is not ported"})
+            # GetFileMetadata RPC analog (grpc.rs:293): schema inference
+            # for clients
+            from urllib.parse import parse_qs, urlparse
+            q = parse_qs(urlparse(path).query)
+            fpath = (q.get("path") or [""])[0]
+            try:
+                from .client.context import file_metadata
+                h._send(200, file_metadata(fpath))
+            except Exception as e:  # noqa: BLE001 - the client's error
+                h._send(400, {"error": f"{type(e).__name__}: {e}"})
             return
         h._send(404, {"error": "not found"})
 

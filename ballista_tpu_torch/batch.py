@@ -608,21 +608,41 @@ def schema_to_arrow(schema: Schema):
     return pa.schema(fields)
 
 
-def to_arrow(batch: Batch, schema: Schema):
-    """Live rows as an exact pyarrow Table (decimals stay decimal128)."""
+def host_to_numpy(fields, cols) -> dict:
+    """Host columns ({name: HostColumn}) in `to_numpy`'s form: name ->
+    (values, validity), strings decoded into object arrays."""
+    out = {}
+    for f in fields:
+        h = cols[f.name]
+        if f.dtype.kind is TypeKind.STRING:
+            decoded = np.empty(len(h.values), dtype=object)
+            if len(h.dictionary):
+                decoded[:] = h.dictionary[h.values]
+            decoded[~h.validity] = None
+            out[f.name] = (decoded, h.validity)
+        else:
+            out[f.name] = (h.values, h.validity)
+    return out
+
+
+def columns_to_arrow(fields, raw: dict):
+    """Columns in `to_numpy`'s form as an exact pyarrow Table (decimals
+    stay decimal128)."""
     import pyarrow as pa
 
-    arrow_schema = schema_to_arrow(schema)
-    raw = to_numpy(batch, schema)
+    arrow_schema = schema_to_arrow(Schema(fields))
     arrays = []
-    for f, af in zip(schema.fields, arrow_schema):
+    for f, af in zip(fields, arrow_schema):
         data, valid = raw[f.name]
         mask = ~valid
         if f.dtype.kind is TypeKind.DECIMAL:
-            s = f.dtype.scale
-            vals = [None if not v else pydecimal.Decimal(int(x)).scaleb(-s)
-                    for x, v in zip(data.tolist(), valid.tolist())]
-            arrays.append(pa.array(vals, type=af.type))
+            # decimal128: 16-byte little-endian two's complement, the
+            # scaled int64 and its sign extension
+            v = np.asarray(data, dtype=np.int64)
+            arrays.append(pa.Array.from_buffers(
+                af.type, len(v),
+                [pa.array(np.asarray(valid, dtype=bool)).buffers()[1],
+                 pa.py_buffer(np.stack([v, v >> 63], axis=1).tobytes())]))
         elif f.dtype.kind is TypeKind.STRING:
             arrays.append(pa.array(data, type=pa.string()))
         elif f.dtype.kind is TypeKind.DATE32:
@@ -631,3 +651,8 @@ def to_arrow(batch: Batch, schema: Schema):
         else:
             arrays.append(pa.array(data, type=af.type, mask=mask))
     return pa.Table.from_arrays(arrays, schema=arrow_schema)
+
+
+def to_arrow(batch: Batch, schema: Schema):
+    """Live rows as an exact pyarrow Table (decimals stay decimal128)."""
+    return columns_to_arrow(schema.fields, to_numpy(batch, schema))

@@ -18,8 +18,8 @@ It runs on the CUDA device (`--distributed`: one partition per visible
 CUDA device). `--connect URL` sends each query to a scheduler's RPC wire
 (`scheduler/rpc.py`; its executor processes run it) over the data
 environment named by `--sf` or `--parquet`. Results print through the
-port's own formatter, which needs no pandas. `--plugin-dir` (UDF plugins)
-is not ported and raises.
+port's own formatter, which needs no pandas. `--plugin-dir` loads the UDF
+plugin modules of a directory (`plugin.py`) into the local session.
 """
 
 from __future__ import annotations
@@ -293,8 +293,7 @@ def main(argv=None, device="cuda", mesh=None):
                     help="execute a SQL script file and exit "
                     "(';'-separated statements)")
     ap.add_argument("--plugin-dir", default=None,
-                    help="load UDF plugin modules from this directory "
-                    "(not ported)")
+                    help="load UDF plugin modules from this directory")
     ap.add_argument("--quiet", action="store_true",
                     help="suppress result output (timing-only runs)")
     ap.add_argument("--format", default="table",
@@ -304,9 +303,6 @@ def main(argv=None, device="cuda", mesh=None):
                     "(needs --sf or --parquet)")
     args = ap.parse_args(argv)
 
-    if args.plugin_dir:
-        raise NotImplementedError("--plugin-dir: plugin.py (UDF plugin "
-                                  "loading) is not ported yet")
     if args.connect:
         repl = Repl(RemoteSession(args.connect, _remote_tables_spec(args),
                                   device))
@@ -338,6 +334,10 @@ def main(argv=None, device="cuda", mesh=None):
                 name = os.path.splitext(os.path.basename(path))[0]
                 register(name, path)
                 print(f"registered {name}", file=sys.stderr)
+    if args.plugin_dir:
+        loaded = ctx.load_plugins(args.plugin_dir)
+        print(f"loaded plugins: {', '.join(loaded) or '(none)'}",
+              file=sys.stderr)
 
     repl = Repl(ctx, args.distributed, mesh)
     repl.fmt = args.format

@@ -2,9 +2,10 @@
 ballista_tpu/client/context.py).
 
 One device. Tables are registered from numpy arrays (`register_numpy`,
-which needs no pyarrow), from arrow tables, pandas frames, csv, parquet and
-json files (converted onto it), or from ready `HostColumn`s
-(`register_host`, e.g. from `datagen`); they are ingested on the host at
+which needs no pyarrow), from Avro files (`register_avro`, no pyarrow
+either), from arrow tables, pandas frames, csv, parquet and json files
+(converted onto it), or from ready `HostColumn`s (`register_host`, e.g.
+from `datagen` or `datagen.tbl.read_tbl`); they are ingested on the host at
 registration and uploaded to the context's device column by column, on
 first use. A directory of parquet part files registers as a dataset that is
 read range by range (`register_parquet_dataset`).
@@ -301,15 +302,15 @@ class SessionContext:
         self.config = None  # optional BallistaConfig (set_config)
 
     def set_config(self, config) -> None:
-        """Keep a BallistaConfig on this session. The reference also
-        takes its capacity mode and plugin directory from it; the port
-        has no capacity mode (a table's capacity is its lane-rounded row
-        count) and no plugin loader yet, so a configured plugin
-        directory raises."""
+        """Keep a BallistaConfig on this session and load the UDF plugins
+        of its plugin directory. (The reference also takes its capacity
+        mode from it; the port has none: a table's capacity is its
+        lane-rounded row count.)"""
         from ..config import BALLISTA_PLUGIN_DIR
-        if config.get(BALLISTA_PLUGIN_DIR):
-            raise NotImplementedError("load_plugins is not ported")
         self.config = config
+        plugin_dir = config.get(BALLISTA_PLUGIN_DIR)
+        if plugin_dir:
+            self.load_plugins(plugin_dir)
 
     def evict_device(self) -> None:
         """Free device memory: drop every table's device columns (the
@@ -396,6 +397,13 @@ class SessionContext:
         import pyarrow.json as pajson
         self.register_arrow(name, pajson.read_json(path), primary_key)
 
+    def register_avro(self, name: str, path: str, primary_key=None) -> None:
+        """An Avro container file (BallistaContext::read_avro parity), read
+        by `avro.read_avro` with no pyarrow."""
+        from ..avro import read_avro
+        fields, cols = read_avro(path)
+        self.register_host(name, fields, cols, primary_key)
+
     # read_* variants return a DataFrame over an anonymous registration
     # (BallistaContext::read_csv/parquet/json, context.rs:143+)
     def read_csv(self, path: str, schema=None, **kwargs) -> DataFrame:
@@ -413,12 +421,23 @@ class SessionContext:
         self.register_json(name, path)
         return self.table(name)
 
+    def read_avro(self, path: str) -> DataFrame:
+        name = f"__read_{len(self.tables)}"
+        self.register_avro(name, path)
+        return self.table(name)
+
     def register_udf(self, name: str, fn, out_dtype,
                      propagate_nulls: bool = True) -> None:
         """Register a scalar UDF for SQL and expressions: fn(*data
         tensors) -> data tensor (`exprs.register_udf`)."""
         from ..exprs import register_udf
         register_udf(name, fn, out_dtype, propagate_nulls)
+
+    def load_plugins(self, plugin_dir: str):
+        """Load UDF plugin modules from a directory (the dlopen plugin
+        system, core/src/plugin; plugin.py for the module contract)."""
+        from ..plugin import load_plugins
+        return load_plugins(plugin_dir, self)
 
     def list_functions(self, kind=None):
         """All SQL functions, built-ins + registered UDFs
@@ -602,35 +621,21 @@ class SessionContext:
 
         With `serial_partitions` set every plan runs on the serial runtime.
         Otherwise a plan goes there when the memory model says it will not
-        fit (`exec.memory.route_serial`; a cheap gate first: when even 200
-        bytes per registered row fit the budget, no plan is priced), and
-        after its in-core run raised torch.cuda.OutOfMemoryError; both
-        leave a warning, and the second records the plan in the OOM memo.
-        Any other error is raised as it is. In distributed mode the plan
-        is a job of the standalone cluster (`cluster()`)."""
-        from ..scheduler.serial import execute_serial, fit_partitions
+        fit (`serial_route`), and after its in-core run raised
+        torch.cuda.OutOfMemoryError (`oom_partitions`). Any other error is
+        raised as it is. In distributed mode the plan is a job of the
+        standalone cluster (`cluster()`)."""
+        from ..scheduler.serial import execute_serial
         if self.distributed:
             cl = self.cluster()
             return cl.wait(cl.submit_plan(plan))
         if self.serial_partitions:
             return execute_serial(self, plan, self.serial_partitions,
                                   max_retries=max_retries)
-        budget = memory.hbm_budget_bytes(self.device)
-        total_rows = sum(tp.num_rows for tp in self.tables.values())
-        if budget is not None and total_rows * 200 >= budget:
-            plan = rebind_scans(plan, self)
-            exec_plan = self.physical_plan(plan)
-            route_n = memory.route_serial(exec_plan, budget)
-            if route_n and not memory.oom_memo_lookup(
-                    memory.plan_fingerprint(exec_plan)):
-                # routed by the estimate: enough partitions for the stages
-                # (a memo's count was fitted when it was learned)
-                route_n = fit_partitions(self, plan, route_n, budget)
-            if route_n:
-                self.warn(f"plan routed out-of-core (serial@{route_n}): "
-                          "predicted working set exceeds device memory")
-                return execute_serial(self, plan, route_n,
-                                      max_retries=max_retries)
+        route_n = self.serial_route(plan)
+        if route_n:
+            return execute_serial(self, plan, route_n,
+                                  max_retries=max_retries)
         try:
             exec_plan, _, out = self.converge(plan, max_retries)
             return out, exec_plan.schema
@@ -638,11 +643,40 @@ class SessionContext:
             pass
         # out of the except block: the traceback, whose frames hold the
         # failed run's tensors, is gone, so the memory can be given back
-        return self._serial_after_oom(plan, budget, max_retries)
+        return execute_serial(self, plan, self.oom_partitions(plan),
+                              max_retries=max_retries)
 
-    def _serial_after_oom(self, plan: L.LogicalPlan, budget: Optional[int],
-                          max_retries: int):
-        from ..scheduler.serial import execute_serial, fit_partitions
+    def serial_route(self, plan: L.LogicalPlan) -> int:
+        """The partition count of the serial runtime a plan is routed to
+        before it runs, or 0 to run it in-core: routed when the memory
+        model says it will not fit the device's budget
+        (`exec.memory.route_serial`; a cheap gate first: when even 200
+        bytes per registered row fit the budget, no plan is priced) or
+        the out-of-memory memo names it. Routing leaves a warning."""
+        from ..scheduler.serial import fit_partitions
+        budget = memory.hbm_budget_bytes(self.device)
+        total_rows = sum(tp.num_rows for tp in self.tables.values())
+        if budget is None or total_rows * 200 < budget:
+            return 0
+        plan = rebind_scans(plan, self)
+        exec_plan = self.physical_plan(plan)
+        route_n = memory.route_serial(exec_plan, budget)
+        if route_n and not memory.oom_memo_lookup(
+                memory.plan_fingerprint(exec_plan)):
+            # routed by the estimate: enough partitions for the stages
+            # (a memo's count was fitted when it was learned)
+            route_n = fit_partitions(self, plan, route_n, budget)
+        if route_n:
+            self.warn(f"plan routed out-of-core (serial@{route_n}): "
+                      "predicted working set exceeds device memory")
+        return route_n
+
+    def oom_partitions(self, plan: L.LogicalPlan) -> int:
+        """After a plan's in-core run ran out of device memory: free the
+        device, record the plan in the OOM memo, and return the partition
+        count of the serial runtime that answers it instead (twice the
+        model's, fitted to the budget), with a warning."""
+        from ..scheduler.serial import fit_partitions
         self.evict_device()
         gc.collect()
         if self.device.type == "cuda":
@@ -653,12 +687,12 @@ class SessionContext:
         exec_plan = self.physical_plan(plan)
         est = memory.estimate_plan_hbm(exec_plan)
         # the OOM just proved the estimate low: twice the model's count
-        budget = budget or est
+        budget = memory.hbm_budget_bytes(self.device) or est
         n_parts = fit_partitions(self, plan, min(
             memory.plan_serial_partitions(est, budget) * 2, 64), budget)
         # later sessions send this plan shape out-of-core at once
         memory.oom_memo_record(memory.plan_fingerprint(exec_plan), n_parts)
-        return execute_serial(self, plan, n_parts, max_retries=max_retries)
+        return n_parts
 
     def converge(self, plan: L.LogicalPlan, max_retries: int = 5):
         """Plan and run until the output fits: returns (exec_plan, inputs,
@@ -695,6 +729,34 @@ class SessionContext:
             f"join_out_factor {opts.join_out_factor / 4}); raise "
             "max_retries, PhysicalOptions.max_group_table or "
             "PhysicalOptions.join_out_factor")
+
+
+def file_metadata(path: str) -> dict:
+    """Schema and row count of a parquet, csv or json file (GetFileMetadata
+    RPC parity, scheduler grpc.rs:293: the reference infers schemas
+    server-side for clients). pyarrow is imported here; a parquet file's
+    schema and counts come from its footer alone."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".parquet":
+        import pyarrow.parquet as pq
+        f = pq.ParquetFile(path)
+        schema = f.schema_arrow
+        meta = {"num_rows": f.metadata.num_rows,
+                "num_row_groups": f.metadata.num_row_groups}
+    elif ext == ".csv":
+        import pyarrow.csv as pacsv
+        t = pacsv.read_csv(path)  # no cheap schema-only CSV read in pyarrow
+        schema, meta = t.schema, {"num_rows": t.num_rows}
+    elif ext in (".json", ".ndjson"):
+        import pyarrow.json as pajson
+        t = pajson.read_json(path)
+        schema, meta = t.schema, {"num_rows": t.num_rows}
+    else:
+        raise ValueError(f"unsupported file type: {path!r}")
+    return {"path": path,
+            "fields": [{"name": f.name, "type": str(f.type),
+                        "nullable": f.nullable} for f in schema],
+            **meta}
 
 
 def rebind_scans(plan: L.LogicalPlan, ctx: SessionContext) -> L.LogicalPlan:

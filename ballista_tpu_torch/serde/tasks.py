@@ -148,20 +148,15 @@ def build_context(tables: dict, device="cuda"):
         from ..datagen import register_tpch
         register_tpch(ctx, float(tables["sf"]))
     elif kind == "tbl":
-        raise NotImplementedError(
-            "data environment 'tbl': datagen/tbl.py (dbgen .tbl ingest) "
-            "is not ported yet")
+        from ..datagen.tbl import register_tpch_tbl
+        register_tpch_tbl(ctx, tables["dir"])
     elif kind == "files":
         for name, spec in tables["tables"].items():
             pk = tuple(spec["primary_key"]) if spec.get("primary_key") \
                 else None
             fmt = spec.get("format", "parquet")
-            if fmt == "avro":
-                raise NotImplementedError(
-                    f"table {name!r}: avro.py (register_avro) is not "
-                    "ported yet")
             reg = {"parquet": ctx.register_parquet, "csv": ctx.register_csv,
-                   "json": ctx.register_json,
+                   "json": ctx.register_json, "avro": ctx.register_avro,
                    "parquet_dataset": ctx.register_parquet_dataset}[fmt]
             reg(name, spec["path"], primary_key=pk)
     else:

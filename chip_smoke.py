@@ -7,15 +7,18 @@ SF1 against numpy: statistical aggregates, percentiles, a partial -> final
 aggregate, window functions over lineitem and orders, INTERSECT/EXCEPT ALL,
 and a converged plan re-run without planning; the client slice; the
 22 queries at SF10 in-core, on the serial runtime, routed under a 10 GiB
-cap and through a real out-of-memory fallback; and the distributed slice:
+cap and through a real out-of-memory fallback; the distributed slice:
 the 22 queries at SF1 over 8 partitions of the card through the scheduler
-and the partitioned runtime.
+and the partitioned runtime; and the TPC-H tools: the datagen CLI's .tbl
+files, their numpy reader, the benchmark runner against answers/sf1, the
+load, scaling and scheduler-event benches, Avro and a UDF plugin.
 
     python3 chip_smoke.py                     # every phase
     python3 chip_smoke.py --distributed-only  # phases 1, 2 and 13 alone
     python3 chip_smoke.py --wire-only         # phases 1, 2 and 14 alone
     python3 chip_smoke.py --raw-only          # phases 1, 2, 11's h2o join
                                               # and 15 alone
+    python3 chip_smoke.py --tools-only        # phases 1, 2 and 16 alone
 
 Phases:
 1. torch version, card name and power limit (exits 1 without CUDA);
@@ -169,6 +172,28 @@ Phases:
    True) at P = 8 and through the wire (a scheduler and two executor
    processes of P = 4 started with BALLISTA_RAW_DICT_MAX=0), each equal
    to (a)'s answer.
+16. the TPC-H tools at SF1 (with `--tools-only`, the generated tables
+   made in the call): (a) `python -m ballista_tpu_torch.datagen --sf 1
+   --format tbl` writes the eight tables to build/tpch_sf1_tbl, with the
+   seconds and bytes per table; (b) `read_tbl` reads each back, every
+   column equal to the generated one (values, validity, the strings
+   behind the codes), with the parse seconds per table; (c)
+   `runner.run(tbl_dir=..., expected=answers/sf1, iterations=3)` over the
+   22 queries: every query must report a match and no error (Q9's exact
+   midpoint is reported, not failed), its ms and first-run seconds beside
+   phases 4-8's warm medians; Q1's kernel call at T = 12 is held against
+   its plain version; (d) the runner's command line, `--queries 1,6,21
+   --distributed --expected answers/sf1`, every match true; (e) a
+   scheduler and one pull executor process (P = 4, cuda:0) over the
+   {"kind": "tbl"} data environment answer Q1 and Q6 exactly; (f)
+   `loadtest` of 4 clients x 4 requests over Q1, Q3 and Q6 (16 queries),
+   `scaling` of Q1 at P = 1, 2, 4 and 8 on cuda:0, each P's answer equal
+   to P = 1's, and the scheduler event bench in process and over the
+   wire; (g) customer (150,000 rows) written with `write_avro` (deflate)
+   and registered with `register_avro` in place of the .tbl one, Q13 and
+   Q22 exact; (h) a plugin directory with one UDF loaded and its UDF
+   summed over lineitem, against numpy. Every part prints its seconds;
+   the .tbl directory is deleted in a `finally`.
 Phases 7 and 8 also hold the kernel against its plain version on the
 calls Q4, Q15 and Q22 (phase 7) and Q11 and Q16 (phase 8) made.
 The line before the last is a JSON object describing the kernel (its
@@ -177,8 +202,6 @@ tasks, per entry point under `entry_points`); the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code 1).
 """
 
-import datetime
-import decimal
 import json
 import os
 import signal
@@ -199,8 +222,13 @@ from ballista_tpu_torch.benchmarks.queries import q1_frame, q3_frame
 from ballista_tpu_torch.benchmarks.timing import cuda_ms, host_ms
 from ballista_tpu_torch.client import SessionContext
 from ballista_tpu_torch.client.context import rebind_scans
+from ballista_tpu_torch.avro import write_avro
+from ballista_tpu_torch.benchmarks import runner as runner_mod
+from ballista_tpu_torch.benchmarks import scaling as scaling_mod
+from ballista_tpu_torch.benchmarks import scheduler_events
 from ballista_tpu_torch.datagen import (TPCH_TABLES, generate_tpch,
                                         register_tpch)
+from ballista_tpu_torch.datagen.tbl import diff_expected, read_tbl
 from ballista_tpu_torch.exec import memory
 from ballista_tpu_torch.exec import plan as plan_mod
 from ballista_tpu_torch import exprs as exprs_mod
@@ -224,8 +252,12 @@ LINEITEM_ROWS = 5_998_239          # lineitem at SF1 from this generator
 # (2 statuses + NULL): the columns are nullable)
 Q1_T, Q1_A = 12, 11
 Q1_N = round_capacity(LINEITEM_ROWS)
-ANSWER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "answers", "sf1", "answers")
+EXPECTED_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "answers", "sf1")
+ANSWER_DIR = os.path.join(EXPECTED_DIR, "answers")
+# warm medians (ms) of phases 4-8, by query, beside which phase 16 prints
+# the runner's times
+WARM_MS = {}
 # Q5's kernel call: sum and count of the revenue expression and count(*)
 # over 26 direct slots (25 nations + NULL), n = lineitem's capacity, which
 # an inner unique join keeps from its probe side
@@ -516,16 +548,21 @@ def phase_kernel():
 
 class spy_rows:
     """Records every masked_slot_sums_rows call the aggregate operator
-    makes while the block runs: (row_slot, rows, T)."""
+    makes while the block runs: (row_slot, rows, T). With `first_at` only
+    the first call at that T is kept (a sweep's later calls are not, so
+    their tensors can go)."""
 
-    def __init__(self):
+    def __init__(self, first_at=None):
+        self.first_at = first_at
         self.calls = []
 
     def __enter__(self):
         self.real = plan_mod.masked_slot_sums_rows
 
         def spy(row_slot, rows, T):
-            self.calls.append((row_slot, list(rows), T))
+            if self.first_at is None or (T == self.first_at
+                                         and not self.calls):
+                self.calls.append((row_slot, list(rows), T))
             return self.real(row_slot, rows, T)
 
         plan_mod.masked_slot_sums_rows = spy
@@ -628,60 +665,28 @@ def check_q1(got, schema, cols):
             raise AssertionError(f"group {key}: {row} != numpy {want[key]}")
 
 
-def _render(value, valid, dtype, places, rounding=decimal.ROUND_HALF_EVEN):
-    """One cell as the answer files print it (ballista_tpu.datagen.tbl
-    renders through pandas: dates as timestamps, decimals quantized to the
-    answer's scale)."""
-    if not valid:
-        return ""
-    if dtype.kind is TypeKind.DECIMAL:
-        return str(decimal.Decimal(int(value)).scaleb(-dtype.scale)
-                   .quantize(decimal.Decimal(1).scaleb(-places), rounding))
-    if dtype.kind is TypeKind.DATE32:
-        day = datetime.date(1970, 1, 1) + datetime.timedelta(days=int(value))
-        return f"{day.isoformat()} 00:00:00"
-    return str(value)
-
-
 def check_answers(got, schema, q):
-    """Exact match with answers/sf1/answers/q{q}.out at its printed scale:
+    """Exact match with answers/sf1/answers/q{q}.out, whose header must
+    name the result's columns: `datagen.tbl.diff_expected`, the rule the
+    runner's --expected applies (cells at the answer's printed scale,
     position-wise, or, where ORDER BY leaves ties, after sorting both
-    sides' rows (ballista_tpu.datagen.tbl.diff_expected's rule).
+    sides' rows).
 
     The answer files come from a float64 oracle, so an exact decimal that
     lies on the midpoint between two printed values (Q9's 22091132.2950 at
     two places) may be printed rounded either way: such a cell matches
     either neighbour, and each one is logged."""
     with open(os.path.join(ANSWER_DIR, f"q{q}.out")) as f:
-        lines = [line.rstrip("\n") for line in f if line.strip()]
-    header = lines[0].split("|")
-    rows = [line.split("|") for line in lines[1:]]
+        header = f.readline().rstrip("\n").split("|")
     names = [f.name for f in schema.fields]
     if header != names:
         raise AssertionError(f"q{q}: columns {names} != answer header {header}")
-    n = len(got[names[0]][0])
-    if len(rows) != n:
-        raise AssertionError(f"q{q}: {n} rows, answer has {len(rows)}")
-    places = [len(c.split(".")[1]) if "." in c else 0 for c in rows[0]] \
-        if rows else []
-    mine = [[_render(got[f.name][0][i], got[f.name][1][i], f.dtype, p)
-             for f, p in zip(schema.fields, places)] for i in range(n)]
-    for i in range(n):
-        for j, (f, p) in enumerate(zip(schema.fields, places)):
-            if mine[i][j] == rows[i][j] or f.dtype.kind is not TypeKind.DECIMAL:
-                continue
-            v, ok = got[f.name][0][i], got[f.name][1][i]
-            down = _render(v, ok, f.dtype, p, decimal.ROUND_HALF_DOWN)
-            up = _render(v, ok, f.dtype, p, decimal.ROUND_HALF_UP)
-            if down != up and rows[i][j] in (down, up):
-                log(f"q{q}.out row {i} {f.name}: the exact value "
-                    f"{decimal.Decimal(int(v)).scaleb(-f.dtype.scale)} is a "
-                    f"midpoint; the answer prints {rows[i][j]}")
-                mine[i][j] = rows[i][j]
-    if mine != rows and sorted(mine) != sorted(rows):
-        bad = next(i for i in range(n) if mine[i] != rows[i])
-        raise AssertionError(f"q{q}.out row {bad}: got {mine[bad]}, "
-                             f"answer {rows[bad]}")
+    notes = []
+    mismatch = diff_expected((got, schema), EXPECTED_DIR, q, notes)
+    for note in notes:
+        log(note)
+    if mismatch:
+        raise AssertionError(f"q{q}.out: {mismatch}")
 
 
 def phase_q1():
@@ -731,6 +736,7 @@ def phase_q1():
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
     med = statistics.median(warm)
+    WARM_MS[1] = med * 1e3
     log(f"phase 4: warm runs (s) {[round(w, 6) for w in warm]}")
     log(f"phase 4: warm median {med * 1e3:.3f} ms, "
         f"{LINEITEM_ROWS / med:.0f} rows/s")
@@ -828,6 +834,7 @@ def run_query(ctx, q, phase, with_sql=False):
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
     med = statistics.median(warm)
+    WARM_MS.setdefault(q, med * 1e3)
     log(f"phase {phase}: Q{q} warm runs (s) {[round(w, 6) for w in warm]}")
     log(f"phase {phase}: Q{q} warm median {med * 1e3:.3f} ms, "
         f"{LINEITEM_ROWS / med:.0f} lineitem rows/s")
@@ -3294,13 +3301,348 @@ def phase_raw_alone():
     return launches + more, held
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the TPC-H tools at full width (SF1)
+# ---------------------------------------------------------------------------
+
+TBL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "tpch_sf1_tbl")
+# the query whose answer file prints an exact midpoint at SF1 (Q9's JAPAN
+# 1998, 22091132.2950 at two places): the runner must report it
+MIDPOINT_Q = 9
+LOAD_QUERIES = (1, 3, 6)
+SCALING_P = (1, 2, 4, 8)
+CLI_QUERIES = "1,6,21"
+WIRE_TBL_QUERIES = (1, 6)
+AVRO_QUERIES = (13, 22)
+PLUGIN_SRC = '''BALLISTA_PLUGIN_API = 1
+
+
+def register(ctx):
+    from ballista_tpu_torch.schema import INT64
+    ctx.register_udf("smoke_triple_plus_one", lambda x: x * 3 + 1, INT64)
+'''
+
+
+def _repo_env():
+    here = os.path.dirname(os.path.abspath(__file__))
+    return here, dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+
+
+def tools_write():
+    """(a): the datagen CLI writes the eight SF1 tables as .tbl files."""
+    here, env = _repo_env()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "ballista_tpu_torch.datagen", "--sf", str(SF),
+         "--format", "tbl", "--out", TBL_DIR], cwd=here, env=env,
+        capture_output=True, text=True, timeout=600)
+    took = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"phase 16 (a): datagen exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    for line in (out.stderr + out.stdout).splitlines():
+        log(f"phase 16 (a): {line}")
+    sizes = {name: os.path.getsize(os.path.join(TBL_DIR, f"{name}.tbl"))
+             for name in TPCH_TABLES}
+    log(f"phase 16 (a): `python -m ballista_tpu_torch.datagen --sf 1 "
+        f"--format tbl` in {took:.2f} s; bytes per table {sizes}")
+
+
+def tools_read_back(source):
+    """(b): every column read back by read_tbl equals the generated host
+    column (values, validity, the strings behind the codes). Returns the
+    tables read."""
+    tables, secs = {}, {}
+    for name in TPCH_TABLES:
+        t0 = time.perf_counter()
+        fields, cols = read_tbl(os.path.join(TBL_DIR, f"{name}.tbl"), name)
+        secs[name] = round(time.perf_counter() - t0, 3)
+        want_fields, want = source[name]
+        if tuple(fields) != tuple(want_fields):
+            raise AssertionError(f"phase 16 (b): {name} fields {fields}")
+        for f in fields:
+            a, b = cols[f.name], want[f.name]
+            same = (np.array_equal(a.validity, b.validity)
+                    and a.values.dtype == b.values.dtype
+                    and np.array_equal(a.values, b.values)
+                    and (a.dictionary is None) == (b.dictionary is None)
+                    and (a.dictionary is None or np.array_equal(
+                        a.dictionary.astype(str), b.dictionary.astype(str))))
+            if not same:
+                raise AssertionError(f"phase 16 (b): {name}.{f.name} read "
+                                     "back differs from the generated column")
+        tables[name] = (fields, cols)
+    log(f"phase 16 (b): the eight tables read back equal to "
+        f"generate_tpch(1, {SEED}) column by column; read_tbl seconds per "
+        f"table {secs}, {sum(secs.values()):.2f} s in all")
+    return tables
+
+
+def tools_runner(source):
+    """(c): runner.run over the .tbl files, every query exact against
+    answers/sf1; Q1's kernel call held against its plain version. Returns
+    (kernel launches, the held call's numbers)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with spy_rows(first_at=Q1_T) as calls:
+        results = runner_mod.run(SF, list(range(1, 23)), 3, tbl_dir=TBL_DIR,
+                                 expected=EXPECTED_DIR, device="cuda")
+    took = time.perf_counter() - t0
+    launches = read_counts()
+    bad = {q: r for q, r in results.items() if r.get("match") is not True}
+    if bad:
+        raise AssertionError(f"phase 16 (c): runner results {bad}")
+    if not results[MIDPOINT_Q].get("midpoints"):
+        raise AssertionError(f"phase 16 (c): Q{MIDPOINT_Q}'s midpoint was "
+                             "not reported")
+    for q, r in results.items():
+        warm = WARM_MS.get(q)
+        log(f"phase 16 (c): Q{q} runner {r['ms']:.3f} ms warm (mean of 3 "
+            f"run_plan), first run {r['compile_s']:.3f} s, {r['rows']} rows, "
+            f"equals answers/sf1; phases 4-8 warm median "
+            + (f"{warm:.3f} ms" if warm is not None else "not run")
+            + "".join(f"; {note}" for note in r.get("midpoints", [])))
+    q1_n = round_capacity(len(source["lineitem"][1]["l_orderkey"].values))
+    if launches[0] < 1 or call_shapes(calls) != [((Q1_A, q1_n), Q1_T)]:
+        raise AssertionError(f"phase 16 (c): Q1's kernel calls "
+                             f"{call_shapes(calls)}")
+    held = hold_call(16, "tbl-ingested Q1 through runner.run", *calls[0])
+    del calls
+    log(f"phase 16 (c): runner.run of 22 queries over .tbl in {took:.1f} s; "
+        f"kernel launches {launches.tolist()}")
+    return launches, held
+
+
+def tools_runner_cli():
+    """(d): the runner's command line, distributed, against answers/sf1."""
+    here, env = _repo_env()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "ballista_tpu_torch.benchmarks.runner",
+         "--tbl-dir", TBL_DIR, "--queries", CLI_QUERIES, "--distributed",
+         "--expected", EXPECTED_DIR, "--iterations", "1", "--device",
+         "cuda"],
+        cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    took = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    if out.returncode or not lines:
+        raise AssertionError(f"phase 16 (d): runner exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    summary = json.loads(lines[-1])["queries"]
+    for line in lines[:-1]:
+        log(f"phase 16 (d): {line}")
+    if [int(q) for q in summary] != [int(q) for q in CLI_QUERIES.split(",")] \
+            or not all(r.get("match") is True for r in summary.values()):
+        raise AssertionError(f"phase 16 (d): {summary}")
+    log(f"phase 16 (d): `runner --tbl-dir --queries {CLI_QUERIES} "
+        f"--distributed --expected answers/sf1`: every match true; "
+        f"{took:.1f} s")
+
+
+def tools_wire(tbl_ctx):
+    """(e): a scheduler and one pull executor process over the .tbl data
+    environment. Returns the kernel launches in the executor."""
+    import tempfile
+    spec = {"kind": "tbl", "dir": TBL_DIR}
+    launches = np.zeros(2, dtype=np.int64)
+    t0 = time.perf_counter()
+    ex = httpd = None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            service, httpd, client = _wire_scheduler(os.path.join(tmp, "s"))
+            ex = _Executor(client.url, "tbl-a")
+            ex.wait_ready()
+            for q in WIRE_TBL_QUERIES:
+                t1 = time.perf_counter()
+                job_id = client.submit_sql(TPCH_QUERIES[q], spec,
+                                           options={"n_partitions": WIRE_P},
+                                           ctx=tbl_ctx)
+                batch, schema = client.wait_batch(job_id, timeout_s=600)
+                check_answers(to_numpy(batch, schema), schema, q)
+                j = _wire_job(service, client, job_id)
+                launches += j["launches"]
+                log(f"phase 16 (e): Q{q} over the wire on {spec}: equals "
+                    f"answers/sf1; {time.perf_counter() - t1:.3f} s from "
+                    f"submit to result; {j['stages']} stages; kernel "
+                    f"launches in the executor {j['launches'].tolist()}")
+        finally:
+            if ex is not None:
+                ex.kill()
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.server_close()
+    if launches.sum() < 1:
+        raise AssertionError("phase 16 (e): Q1 launched no kernel in the "
+                             "executor")
+    log(f"phase 16 (e): {time.perf_counter() - t0:.1f} s, the executor's "
+        "own .tbl parse included")
+    return launches
+
+
+def tools_load_scaling(tbl_ctx):
+    """(f): loadtest, scaling and the scheduler event bench. Returns the
+    kernel launches of the first two."""
+    reset_counts()
+    t0 = time.perf_counter()
+    load = runner_mod.loadtest(SF, 4, 4, list(LOAD_QUERIES), ctx=tbl_ctx)
+    if load["total_queries"] != 16:
+        raise AssertionError(f"phase 16 (f): loadtest {load}")
+    log(f"phase 16 (f): loadtest 4 clients x 4 requests over "
+        f"{LOAD_QUERIES}: {json.dumps(load)}; {time.perf_counter() - t0:.1f} s")
+    tbl_ctx.evict_device()
+    t0 = time.perf_counter()
+    answers = {}
+    points = scaling_mod.run(SF, 1, list(SCALING_P), 3, ctx=tbl_ctx,
+                             answers=answers)
+    for p in SCALING_P[1:]:
+        _same_answer(f"phase 16 (f) scaling P={p}", answers[p], answers[1])
+    for pt in points:
+        log(f"phase 16 (f): scaling Q1 at P = {pt['partitions']} on "
+            f"{pt['devices']} card(s): {pt['ms']:.3f} ms, "
+            f"{pt['rows_per_s']} input rows/s, efficiency "
+            f"{pt['efficiency_vs_linear']}; equals P = 1")
+    log(f"phase 16 (f): scaling {time.perf_counter() - t0:.1f} s")
+    launches = read_counts()
+    t0 = time.perf_counter()
+    events = [scheduler_events.bench_inproc(200, 8, 8, 4),
+              scheduler_events.bench_wire(200, 8, 8, device="cuda")]
+    for e in events:
+        log(f"phase 16 (f): scheduler_events {e['mode']}: {json.dumps(e)}")
+    log(f"phase 16 (f): scheduler_events {time.perf_counter() - t0:.1f} s")
+    tbl_ctx.evict_device()
+    return launches
+
+
+def tools_avro(tbl_ctx, source):
+    """(g): customer written as Avro (deflate) and registered in place of
+    the .tbl one; Q13 and Q22 exact. Returns the kernel launches."""
+    path = os.path.join(os.path.dirname(TBL_DIR), "customer_sf1.avro")
+    try:
+        t0 = time.perf_counter()
+        write_avro(path, source["customer"], codec="deflate")
+        wrote = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tbl_ctx.register_avro("customer", path,
+                              primary_key=TPCH_TABLES["customer"][1])
+        read = time.perf_counter() - t0
+        n = tbl_ctx.tables["customer"].num_rows
+        if n != len(source["customer"][1]["c_custkey"].values):
+            raise AssertionError(f"phase 16 (g): {n} customers")
+        log(f"phase 16 (g): customer ({n} rows) written with write_avro "
+            f"(deflate) in {wrote:.2f} s ({os.path.getsize(path)} bytes), "
+            f"registered with register_avro in {read:.2f} s")
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    reset_counts()
+    for q in AVRO_QUERIES:
+        t0 = time.perf_counter()
+        batch, schema = tbl_ctx.sql(TPCH_QUERIES[q]).collect()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        check_answers(to_numpy(batch, schema), schema, q)
+        log(f"phase 16 (g): Q{q} over the Avro customer equals "
+            f"answers/sf1; first run {took:.4f} s")
+    return read_counts()
+
+
+def tools_plugin(tbl_ctx):
+    """(h): a plugin directory with one UDF, loaded and run over lineitem,
+    against numpy. Returns the kernel launches."""
+    import shutil
+    import tempfile
+    plugin_dir = tempfile.mkdtemp(dir=os.path.dirname(TBL_DIR))
+    try:
+        with open(os.path.join(plugin_dir, "smoke_udf.py"), "w") as f:
+            f.write(PLUGIN_SRC)
+        loaded = tbl_ctx.load_plugins(plugin_dir)
+    finally:
+        shutil.rmtree(plugin_dir)
+    if loaded != ["smoke_udf"]:
+        raise AssertionError(f"phase 16 (h): loaded {loaded}")
+    reset_counts()
+    t0 = time.perf_counter()
+    batch, schema = tbl_ctx.sql(
+        "select sum(smoke_triple_plus_one(l_orderkey)) as s, count(*) as n "
+        "from lineitem where l_shipdate <= date '1998-09-02'").collect()
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    got = to_numpy(batch, schema)
+    cols = tbl_ctx.tables["lineitem"].host
+    live = cols["l_shipdate"].values <= parse_date("1998-09-02")
+    keys = cols["l_orderkey"].values[live]
+    want = (int((keys * 3 + 1).sum()), int(live.sum()))
+    mine = (int(got["s"][0][0]), int(got["n"][0][0]))
+    if mine != want:
+        raise AssertionError(f"phase 16 (h): {mine} != numpy {want}")
+    log(f"phase 16 (h): plugin {loaded} loaded; its UDF summed over "
+        f"{want[1]} lineitem rows equals numpy ({want[0]}); {took:.4f} s")
+    return read_counts()
+
+
+def phase_tools(source):
+    """Phase 16. `source` is the generated SF1 tables ({name: (fields,
+    host columns)}) the files are held to. Returns (kernel launches, the
+    held Q1 call's numbers)."""
+    import shutil
+    t_start = time.perf_counter()
+    launches = np.zeros(2, dtype=np.int64)
+    try:
+        t0 = time.perf_counter()
+        tools_write()
+        log(f"phase 16 (a): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tables = tools_read_back(source)
+        log(f"phase 16 (b): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        more, held = tools_runner(source)
+        launches += more
+        log(f"phase 16 (c): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tools_runner_cli()
+        log(f"phase 16 (d): {time.perf_counter() - t0:.1f} s")
+        tbl_ctx = SessionContext(device="cuda")
+        register_tpch(tbl_ctx, SF, data=tables)
+        del tables
+        t0 = time.perf_counter()
+        launches += tools_wire(tbl_ctx)
+        log(f"phase 16 (e): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches += tools_load_scaling(tbl_ctx)
+        log(f"phase 16 (f): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches += tools_avro(tbl_ctx, source)
+        log(f"phase 16 (g): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches += tools_plugin(tbl_ctx)
+        log(f"phase 16 (h): {time.perf_counter() - t0:.1f} s")
+        tbl_ctx.evict_device()
+    finally:
+        shutil.rmtree(TBL_DIR, ignore_errors=True)
+    log(f"phase 16: {time.perf_counter() - t_start:.1f} s; kernel launches "
+        f"in this process and the wire's executor {launches.tolist()}")
+    return launches, held
+
+
+def phase_tools_alone():
+    """Phase 16 without phases 3-15: the SF1 tables the files are held
+    to are generated here."""
+    t0 = time.perf_counter()
+    source = generate_tpch(SF, SEED)
+    log(f"phase 16: TPC-H SF1 generated in {time.perf_counter() - t0:.1f} s")
+    return phase_tools(source)
+
+
 def main():
     t_script = time.perf_counter()
     alone = sys.argv[1:] in (["--distributed-only"], ["--wire-only"],
-                             ["--raw-only"])
+                             ["--raw-only"], ["--tools-only"])
     if sys.argv[1:] and not alone:
         print("usage: python3 chip_smoke.py [--distributed-only | "
-              "--wire-only | --raw-only]", file=sys.stderr)
+              "--wire-only | --raw-only | --tools-only]", file=sys.stderr)
         sys.exit(2)
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -3333,6 +3675,9 @@ def main():
         elif sys.argv[1] == "--wire-only":
             launches, held = phase_wire_alone()
             err = held_err(held)
+        elif sys.argv[1] == "--tools-only":
+            launches, held = phase_tools_alone()
+            err = held_err(held)
         else:
             launches, held = phase_raw_alone()
             err = held_err(held)
@@ -3361,19 +3706,26 @@ def main():
     dist_launches, dist_err = phase_distributed(ctx)
     wire_launches, wire_held_numbers = phase_wire(ctx)
     raw_launches, raw_held = phase_raw(ctx)
+    ctx.evict_device()
+    tools_launches, tools_held = phase_tools(
+        {name: (tp.fields, tp.host) for name, tp in ctx.tables.items()
+         if name in TPCH_TABLES})
 
     # one record for the kernel file; its times and bound are those of
     # Q1's own call through the entry the queries use. `entry_points`
     # gives each wrapper's own numbers on that call; launches are those of
     # the 22 queries', the analytic slice's and the client slice's first
-    # runs, counted per wrapper, and those the executor processes of
-    # phases 14 and 15 reported.
+    # runs, counted per wrapper, those the executor processes of phases
+    # 14, 15 and 16 reported, and phase 16's runner, load test, scaling,
+    # Avro and plugin runs.
     launches = (launches + join_launches + rest_launches + part_launches
                 + analytic_launches + client_launches + sf10_launches
-                + dist_launches + wire_launches + raw_launches)
+                + dist_launches + wire_launches + raw_launches
+                + tools_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
                 part_err, analytic_err, client_err, sf10_err, dist_err,
-                held_err(wire_held_numbers), held_err(raw_held))
+                held_err(wire_held_numbers), held_err(raw_held),
+                held_err(tools_held))
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]

@@ -12,8 +12,8 @@ latest StageMetrics of each stage id in the port's, with the JAX
 package's fields (but compile_s) and the bytes the port moved; operator labels carry the
 group-table size each package chose (the port lowers the plan again with
 the rows each stage sent), so their output rows are compared as a
-multiset; `/api/file_metadata` answers 501 (`client/context.py
-file_metadata` is not ported)."""
+multiset. `/api/file_metadata` answers the dict of `client/context.py
+file_metadata`, which the JAX package's gives for the same file."""
 
 import json
 import os
@@ -180,12 +180,24 @@ def test_executors_stages_scaler_routes(apis):
         assert e.code == 501 and not shutil.which("dot")
 
 
-def test_file_metadata_is_not_ported(apis):
-    server = apis[0]
+def test_file_metadata_is_not_ported(apis, tmp_path):
+    """The route answers 200 with the file's metadata, the JAX package's
+    dict (the test's name is from when it answered 501), and 400 for a
+    file type it cannot read."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from ballista_tpu.client.context import file_metadata as jax_metadata
+    server, jax_server = apis[0], apis[2]
+    path = str(tmp_path / "f.parquet")
+    pq.write_table(pa.table({"a": [1, 2, 3], "b": ["x", "y", "z"]}), path)
+    code, body = get(server, f"/api/file_metadata?path={path}")
+    assert code == 200
+    assert json.loads(body) == jax_metadata(path) == json.loads(
+        get(jax_server, f"/api/file_metadata?path={path}")[1])
     with pytest.raises(urllib.error.HTTPError) as e:
-        get(server, "/api/file_metadata?path=x.parquet")
-    assert e.value.code == 501
-    assert "client/context.py file_metadata" in e.value.read().decode()
+        get(server, "/api/file_metadata?path=x.xlsx")
+    assert e.value.code == 400
+    assert "unsupported file type" in e.value.read().decode()
 
 
 def test_cancel_job(apis):

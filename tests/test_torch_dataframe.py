@@ -194,7 +194,8 @@ def test_session_warnings_functions_config_evict(ctxs):
         .max_group_table
     tctx.set_config(cfg)
     assert tctx.config is cfg
-    with pytest.raises(NotImplementedError, match="load_plugins"):
+    from ballista_tpu_torch.plugin import PluginError
+    with pytest.raises(PluginError, match="does not exist"):
         tctx.set_config(BallistaConfig({BALLISTA_PLUGIN_DIR: "/nowhere"}))
     with pytest.raises(KeyError):
         BallistaConfig({"ballista.nope": "1"})

@@ -1,6 +1,6 @@
 """The scheduler's control plane, the port against the JAX package: the
-classes of tests/test_scheduler.py (all but TestSchedulerEventBench: its
-benchmarks/scheduler_events.py is not ported) run the same event scripts
+classes of tests/test_scheduler.py (all but TestSchedulerEventBench, whose
+port is in tests/test_torch_bench_tools.py) run the same event scripts
 through both packages' ExecutionGraph, SchedulerServer and JobStore with virtual
 executors. Each script keeps the reference test's assertions and records a
 trace: every task handed out as (stage, partitions, executor, task id) in

@@ -32,6 +32,7 @@ from ballista_tpu_torch.benchmarks import TPCH_QUERIES
 from ballista_tpu_torch.client import SessionContext
 from ballista_tpu_torch.datagen import TPCH_TABLES, register_tpch
 from ballista_tpu_torch.parallel.mesh import make_mesh
+from ballista_tpu_torch.plugin import PluginError
 from ballista_tpu_torch.scheduler import standalone as S
 from ballista_tpu_torch.scheduler.distributed_planner import DistOptions
 from test_torch_distributed import assert_same
@@ -250,7 +251,7 @@ def test_cli_explain_shows_stages():
 @pytest.mark.parametrize("flag, error, match", [
     (["--connect", "http://localhost:50050"], SystemExit,
      "needs a data environment"),
-    (["--plugin-dir", "plugins"], NotImplementedError, "not ported")],
+    (["--plugin-dir", "no_such_plugin_dir"], PluginError, "does not exist")],
     ids=["flag0", "flag1"])
 def test_cli_unported_flags_raise(flag, error, match):
     with pytest.raises(error, match=match):
