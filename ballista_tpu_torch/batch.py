@@ -40,7 +40,8 @@ LANE = 128
 # Most distinct strings a column may have, by a sampled estimate, and
 # still get a sorted dictionary; above it the column is RAW (unsorted,
 # code == row index). BALLISTA_RAW_DICT_MAX overrides it, read at each
-# ingest as the reference reads it (`_estimate_high_cardinality`).
+# ingest as the reference reads it (`_estimate_high_cardinality`), or when
+# a lazily ingested table is registered (`raw_dict_max`).
 RAW_DICT_MAX = 1 << 21
 # rows sampled to guess a string column's distinct values (the RAW
 # estimate and `_sorted_distinct`)
@@ -371,15 +372,23 @@ def _sort_words(strs: np.ndarray, words: np.ndarray):
     return strs[perm[new].numpy()], inv.numpy()
 
 
-def _estimate_high_cardinality(n: int, sample_at) -> bool:
+def raw_dict_max() -> int:
+    """The RAW threshold in force: BALLISTA_RAW_DICT_MAX, else
+    RAW_DICT_MAX."""
+    return int(os.environ.get("BALLISTA_RAW_DICT_MAX", str(RAW_DICT_MAX)))
+
+
+def _estimate_high_cardinality(n: int, sample_at,
+                               limit: Optional[int] = None) -> bool:
     """Whether a string column of n rows goes RAW: its distinct count,
     estimated from the evenly stepped sample arange(0, n, max(1, n //
-    65536)) scaled to n, exceeds BALLISTA_RAW_DICT_MAX, else RAW_DICT_MAX
-    (the reference's verdict, bit for bit). `sample_at(idx)` gives the
+    65536)) scaled to n, exceeds `limit` (default `raw_dict_max()`; the
+    reference's verdict, bit for bit). `sample_at(idx)` gives the
     column's values at rows idx with "" for NULL. A skewed column's
     estimate runs high, so a column of genuinely few values keeps its
     sorted dictionary."""
-    limit = int(os.environ.get("BALLISTA_RAW_DICT_MAX", str(RAW_DICT_MAX)))
+    if limit is None:
+        limit = raw_dict_max()
     if n <= limit:
         return False
     idx = np.arange(0, n, max(1, n // _SAMPLE_ROWS), dtype=np.int64)
@@ -398,10 +407,11 @@ def _filled_strings(arr: np.ndarray, validity: np.ndarray) -> np.ndarray:
     return out
 
 
-def _ingest_strings(arr, validity, dictionary) -> HostColumn:
+def _ingest_strings(arr, validity, dictionary, raw_max=None) -> HostColumn:
     n = len(arr)
     if dictionary is None and _estimate_high_cardinality(
-            n, lambda idx: _filled_strings(arr[idx], validity[idx])):
+            n, lambda idx: _filled_strings(arr[idx], validity[idx]),
+            raw_max):
         # RAW: no sort, no distinct set; predicates evaluate over these
         # values and key uses re-encode on demand (exprs.sorted_recode)
         return HostColumn(np.arange(n, dtype=np.int32), validity,
@@ -430,7 +440,8 @@ def _ingest_strings(arr, validity, dictionary) -> HostColumn:
 
 
 def ingest_column(values, dtype: Optional[DataType] = None, validity=None,
-                  dictionary=None) -> HostColumn:
+                  dictionary=None, raw_max: Optional[int] = None
+                  ) -> HostColumn:
     """One column, as a numpy array or a Python list, to the host tuple
     the engine keeps: what the reference's `ingest_column_host` makes of
     the same column as an arrow array, without pyarrow.
@@ -444,7 +455,8 @@ def ingest_column(values, dtype: Optional[DataType] = None, validity=None,
     Integers, dates (datetime64 -> days) and decimals get
     (min, max) bounds of their valid values. A decimal column is declared
     by `dtype=decimal(p, s)`: integer values are taken as already scaled
-    by 10^s, Decimal objects are scaled here."""
+    by 10^s, Decimal objects are scaled here. `raw_max` is the RAW
+    threshold (default `raw_dict_max()`)."""
     arr = as_array(values)
     if dtype is None:
         dtype = column_dtype(arr)
@@ -456,7 +468,7 @@ def ingest_column(values, dtype: Optional[DataType] = None, validity=None,
         valid &= np.asarray(validity, dtype=bool)
     kind = dtype.kind
     if kind is TypeKind.STRING:
-        return _ingest_strings(arr, valid, dictionary)
+        return _ingest_strings(arr, valid, dictionary, raw_max)
     if arr.dtype.kind == "O":
         filled = np.where(valid, arr, _object_zero(arr, valid))
         if kind is TypeKind.DECIMAL:
@@ -498,6 +510,50 @@ def _object_zero(arr: np.ndarray, valid: np.ndarray):
                                pydecimal.Decimal)) else type(v)(0)
 
 
+def ingest_string_buffers(data: np.ndarray, offsets: np.ndarray,
+                          validity: Optional[np.ndarray] = None,
+                          dictionary=None, ends: Optional[np.ndarray] = None,
+                          raw_max: Optional[int] = None) -> HostColumn:
+    """A string column given as bytes and spans (n + 1 int64 offsets, or
+    n starts with `ends`; an arrow array's buffers, a `.tbl` column's
+    fields) as the HostColumn `ingest_column` makes of the same strings,
+    through the native encoder (`native.py`). A NULL row's span holds ""
+    (arrow's filled nulls). RAW above the threshold, else codes into the
+    sorted dictionary of the valid rows' values, or into `dictionary`
+    (a value it lacks keeps code 0)."""
+    from . import native
+    starts, ends = native._spans(offsets, ends)
+    data = native._data(data)
+    native._checked(data, starts, ends)
+    n = len(starts)
+    if validity is None:
+        validity = np.ones(n, dtype=bool)
+    if dictionary is None and _estimate_high_cardinality(
+            n, lambda idx: native.decode_rows(data, starts, ends, idx),
+            raw_max):
+        values = np.empty(n, dtype=object)
+        step = 1 << 20      # bounds the padded temporaries
+        for lo in range(0, n, step):
+            values[lo:lo + step] = native.decode_rows(
+                data, starts, ends, np.arange(lo, min(lo + step, n)))
+        return HostColumn(np.arange(n, dtype=np.int32), validity, values,
+                          None, raw=True)
+    if dictionary is not None:
+        codes = native.dict_encode_against(data, starts, dictionary, ends)
+        found = validity & (codes >= 0)
+        return HostColumn(np.where(found, codes, 0).astype(np.int32),
+                          validity, np.asarray(dictionary, dtype=object), None)
+    codes, uniq = native.dict_encode(data, starts, ends)
+    if not validity.all():
+        # "" stands in the NULL rows: it leaves the dictionary unless a
+        # valid row holds it (it sorts first)
+        if len(uniq) and uniq[0] == "" and not (validity
+                                                 & (codes == 0)).any():
+            uniq, codes = uniq[1:], codes - 1
+        codes = np.where(validity, codes, 0).astype(np.int32)
+    return HostColumn(codes, validity, uniq.astype(object), None)
+
+
 # ---------------------------------------------------------------------------
 # Arrow / pandas interop (each imports its library where it is used)
 # ---------------------------------------------------------------------------
@@ -530,9 +586,12 @@ def schema_from_arrow(arrow_schema) -> Schema:
     return Schema(tuple(fields))
 
 
-def ingest_arrow_column(arr, dtype: DataType, dictionary=None) -> HostColumn:
+def ingest_arrow_column(arr, dtype: DataType, dictionary=None,
+                        raw_max: Optional[int] = None) -> HostColumn:
     """An arrow Array or ChunkedArray of engine type `dtype` (from
-    `schema_from_arrow`) as a HostColumn: arrow -> numpy -> ingest_column."""
+    `schema_from_arrow`) as a HostColumn: strings from their buffers
+    through the native encoder (`ingest_string_buffers`), other types
+    arrow -> numpy -> ingest_column."""
     import pyarrow as pa
     import pyarrow.compute as pc
 
@@ -546,9 +605,12 @@ def ingest_arrow_column(arr, dtype: DataType, dictionary=None) -> HostColumn:
                 else np.ones(n, dtype=bool))
     kind = dtype.kind
     if kind is TypeKind.STRING:
+        from .native import arrow_buffers
         filled = arr.fill_null("") if arr.null_count else arr
-        values = np.asarray(filled, dtype=object)
-    elif kind is TypeKind.DECIMAL:
+        data, offsets = arrow_buffers(filled)
+        return ingest_string_buffers(data, offsets, validity, dictionary,
+                                     raw_max=raw_max)
+    if kind is TypeKind.DECIMAL:
         # decimal128 -> scaled int64: the low limb of the 128-bit
         # mantissa (|v| < 2^63 holds for precision <= 18)
         limbs = np.frombuffer(arr.buffers()[1], dtype=np.int64)
@@ -560,7 +622,7 @@ def ingest_arrow_column(arr, dtype: DataType, dictionary=None) -> HostColumn:
         if arr.null_count:
             arr = arr.fill_null(False if kind is TypeKind.BOOL else 0)
         values = np.asarray(arr)
-    return ingest_column(values, dtype, validity, dictionary)
+    return ingest_column(values, dtype, validity, dictionary, raw_max)
 
 
 def to_pandas(batch: Batch, schema: Schema):

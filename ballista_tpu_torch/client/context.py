@@ -5,10 +5,11 @@ One device. Tables are registered from numpy arrays (`register_numpy`,
 which needs no pyarrow), from Avro files (`register_avro`, no pyarrow
 either), from arrow tables, pandas frames, csv, parquet and json files
 (converted onto it), or from ready `HostColumn`s (`register_host`, e.g.
-from `datagen` or `datagen.tbl.read_tbl`); they are ingested on the host at
-registration and uploaded to the context's device column by column, on
-first use. A directory of parquet part files registers as a dataset that is
-read range by range (`register_parquet_dataset`).
+from `datagen` or `datagen.tbl.read_tbl`). Each column is ingested on the
+host when a query first needs it (`TableProvider`: per-column lazy ingest,
+a `LazyColumn` holds its source until then) and uploaded to the context's
+device on first use. A directory of parquet part files registers as a
+dataset that is read range by range (`register_parquet_dataset`).
 
 With `distributed=True` every query goes to the standalone cluster
 (`cluster()`: the scheduler's control plane and the partitioned runtime
@@ -29,7 +30,12 @@ import gc
 import glob
 import logging
 import os
-from typing import Dict, Optional, Sequence
+import re
+import threading
+from collections.abc import Mapping
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,23 +50,89 @@ from ..schema import STRING, Field, Schema, TypeKind
 from .dataframe import DataFrame
 
 
+class LazyColumn(NamedTuple):
+    """A registered column not ingested yet: its row count, and `make()`,
+    which ingests it from its source (a numpy array, an arrow column, a
+    `.tbl` column's field spans) into a `HostColumn`."""
+    n: int
+    make: Callable[[], B.HostColumn]
+
+
+class HostColumns(Mapping):
+    """A table's host columns by name: each ingested from its
+    `LazyColumn` at first access, once, and kept. A ready `HostColumn` is
+    taken as it is. `in` and iteration ingest nothing."""
+
+    def __init__(self, columns: Dict[str, object]):
+        self._sources = dict(columns)
+        self._done: Dict[str, B.HostColumn] = {
+            k: v for k, v in columns.items() if isinstance(v, B.HostColumn)}
+        self._locks = {k: threading.Lock() for k in columns}
+
+    def __getitem__(self, name: str) -> B.HostColumn:
+        h = self._done.get(name)
+        if h is None:
+            src = self._sources[name]
+            with self._locks[name]:
+                h = self._done.get(name)
+                if h is None:
+                    h = self._done[name] = src.make()
+                    # the source's buffers may go
+                    self._sources[name] = h
+        return h
+
+    def __contains__(self, name) -> bool:
+        return name in self._sources
+
+    def __iter__(self):
+        return iter(self._sources)
+
+    def __len__(self) -> int:
+        return len(self._sources)
+
+    def length(self, name: str) -> int:
+        src = self._sources[name]
+        return src.n if isinstance(src, LazyColumn) else len(src.values)
+
+    @property
+    def ingested(self) -> set:
+        """The names of the columns ingested so far."""
+        return set(self._done)
+
+
+def eager_meta_rows() -> int:
+    """Tables of at most this many rows ingest every string column when
+    their schema is first read (BALLISTA_EAGER_META_ROWS, default 5M)."""
+    return int(os.environ.get("BALLISTA_EAGER_META_ROWS", "5000000"))
+
+
 class TableProvider:
-    """A registered table: host columns plus the device columns uploaded
-    so far. A pruned scan uploads only the columns it reads."""
+    """A registered table: host columns, each ingested on first use
+    (`HostColumns`), plus the device columns uploaded so far. A pruned
+    scan ingests and uploads only the columns it reads.
+
+    Ingest is per column, as the reference's (`ensure_meta` /
+    `ensure_columns`): eagerly encoding every string column cost the
+    reference ~80 s of every SF10 query (lineitem's unread l_comment et
+    al). A table of at most `eager_meta_rows()` rows ingests its string
+    columns when its schema is first read, since expression binding at
+    logical planning may need any dictionary; a bigger one ingests the
+    columns that `SessionContext.sql`'s lexical pre-pass and
+    `rebind_scans` name."""
 
     def __init__(self, name: str, fields: Sequence[Field],
-                 columns: Dict[str, B.HostColumn], device: torch.device,
+                 columns: Dict[str, object], device: torch.device,
                  primary_key=None):
         missing = [f.name for f in fields if f.name not in columns]
         if missing:
             raise ValueError(f"table {name!r}: no host data for {missing}")
-        lengths = {len(columns[f.name].values) for f in fields}
+        self.host = HostColumns({f.name: columns[f.name] for f in fields})
+        lengths = {self.host.length(f.name) for f in fields}
         if len(lengths) > 1:
             raise ValueError(f"table {name!r}: columns differ in length "
                              f"{sorted(lengths)}")
         self.name = name
         self.fields = tuple(fields)
-        self.host = dict(columns)
         self.device = device
         self.primary_key = tuple(primary_key) if primary_key else None
         self.num_rows = lengths.pop() if lengths else 0
@@ -73,12 +145,42 @@ class TableProvider:
 
     @property
     def schema(self) -> Schema:
-        dicts = {f.name: self.host[f.name].dictionary for f in self.fields
-                 if self.host[f.name].dictionary is not None}
-        bounds = {f.name: self.host[f.name].bounds for f in self.fields
-                  if self.host[f.name].bounds is not None}
-        return Schema(self.fields, dicts, bounds,
-                      {f.name for f in self.fields if self.host[f.name].raw})
+        """The fields, with the dictionaries, bounds and RAW flags of the
+        columns ingested so far (every string column's, for a table of at
+        most `eager_meta_rows()` rows)."""
+        if self.num_rows <= eager_meta_rows():
+            self.ensure_meta([f.name for f in self.fields
+                              if f.dtype.kind is TypeKind.STRING])
+        done = self.host.ingested
+        cols = {f.name: self.host[f.name] for f in self.fields
+                if f.name in done}
+        return Schema(self.fields,
+                      {n: h.dictionary for n, h in cols.items()
+                       if h.dictionary is not None},
+                      {n: h.bounds for n, h in cols.items()
+                       if h.bounds is not None},
+                      {n for n, h in cols.items() if h.raw})
+
+    def ensure_meta(self, names) -> None:
+        """Ingest the host half of the columns in `names` that are not
+        yet ingested (dictionaries, bounds, RAW flags: what binding
+        needs), in a pool of BALLISTA_INGEST_WORKERS threads (default 4;
+        numpy and the native encoder let go of the GIL)."""
+        done = self.host.ingested
+        todo = [n for n in dict.fromkeys(names) if n not in done]
+        workers = min(int(os.environ.get("BALLISTA_INGEST_WORKERS", "4")),
+                      len(todo))
+        if workers > 1:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                list(pool.map(self.host.__getitem__, todo))
+        else:
+            for n in todo:
+                self.host[n]
+
+    def ensure_columns(self, names) -> None:
+        """Ingest and upload the columns in `names`."""
+        self.ensure_meta(names)
+        self.column_batch(names)
 
     def evict_device(self) -> None:
         """Drop the device columns; the host columns stay, and a column
@@ -331,8 +433,10 @@ class SessionContext:
 
     # -- registration (BallistaContext::register_* parity) --
     def register_host(self, name: str, fields: Sequence[Field],
-                      columns: Dict[str, B.HostColumn],
+                      columns: Dict[str, object],
                       primary_key=None) -> None:
+        """Register `HostColumn`s, or `LazyColumn`s ingested on first
+        use."""
         self.tables[name] = TableProvider(name, fields, columns, self.device,
                                           primary_key)
 
@@ -345,12 +449,14 @@ class SessionContext:
         declares the types where they cannot be read off the arrays
         (decimals: `decimal(p, s)` over scaled integers) and the column
         order; without it every column has the type `batch.column_dtype`
-        infers. The columns are ingested on the host
-        (`batch.ingest_column`) and reach the context's device on first
+        infers. Each column is ingested on the host
+        (`batch.ingest_column`, with the RAW threshold in force now) when
+        a query first needs it, and reaches the context's device on first
         use. Ready `HostColumn`s go to `register_host`."""
         declared = {f.name: f for f in fields or ()}
         order = [f.name for f in fields] if fields else list(columns)
         out_fields, host = [], {}
+        raw_max = B.raw_dict_max()
         for cname in order:
             value, validity = columns[cname], None
             if _is_masked_pair(value):
@@ -358,14 +464,21 @@ class SessionContext:
             value = B.as_array(value)
             f = declared.get(cname) or Field(cname, B.column_dtype(value))
             out_fields.append(f)
-            host[cname] = B.ingest_column(value, f.dtype, validity)
+            host[cname] = LazyColumn(len(value), partial(
+                B.ingest_column, value, f.dtype, validity, raw_max=raw_max))
         self.register_host(name, out_fields, host, primary_key)
 
     def register_arrow(self, name: str, table, primary_key=None) -> None:
+        """An arrow table, each column ingested on first use
+        (`batch.ingest_arrow_column`; strings through the native
+        encoder)."""
         fields = B.schema_from_arrow(table.schema).fields
+        raw_max = B.raw_dict_max()
         self.register_host(
             name, fields,
-            {f.name: B.ingest_arrow_column(table.column(i), f.dtype)
+            {f.name: LazyColumn(table.num_rows, partial(
+                B.ingest_arrow_column, table.column(i), f.dtype,
+                raw_max=raw_max))
              for i, f in enumerate(fields)}, primary_key)
 
     def register_pandas(self, name: str, df, primary_key=None) -> None:
@@ -481,6 +594,21 @@ class SessionContext:
             name, tp.schema,
             unique_cols=tuple(tuple(k) for k in self.unique_keys(name))))
 
+    def _ensure_referenced_meta(self, query: str) -> None:
+        """The lexical pre-pass for tables above `eager_meta_rows()`,
+        whose schema ingests nothing: a column whose name is a word of
+        the query is ingested before planning, so that binding at logical
+        planning finds its dictionary; unreferenced columns stay as they
+        are."""
+        words = set(re.findall(r"[a-zA-Z_][a-zA-Z0-9_]*", query.lower()))
+        eager = eager_meta_rows()
+        for name, tp in self.tables.items():
+            if tp.num_rows <= eager or name.lower() not in words:
+                continue
+            cols = [f.name for f in tp.fields if f.name.lower() in words]
+            if cols:
+                tp.ensure_meta(cols)
+
     def sql(self, query: str) -> DataFrame:
         """Run a SQL script: SELECTs, CREATE / DROP VIEW (the TPC-H Q15
         shape), CREATE TABLE AS, CREATE EXTERNAL TABLE, EXPLAIN, SHOW
@@ -493,6 +621,7 @@ class SessionContext:
                                   ShowColumns, ShowTables, parse_statements)
         from ..sql.planner import SqlPlanner
 
+        self._ensure_referenced_meta(query)
         last = None
         for stmt in parse_statements(query):
             if isinstance(stmt, CreateView):
@@ -612,8 +741,11 @@ class SessionContext:
 
     def physical_plan(self, plan: L.LogicalPlan,
                       options: Optional[PhysicalOptions] = None):
+        """The physical plan of `plan`, its scans rebound first
+        (`rebind_scans`): the columns it reads are ingested, so their
+        bounds and dictionaries shape the plan."""
         capacities = {name: tp.capacity for name, tp in self.tables.items()}
-        return create_physical_plan(plan, capacities,
+        return create_physical_plan(rebind_scans(plan, self), capacities,
                                     options or self.options, self.device)
 
     def collect(self, plan: L.LogicalPlan, max_retries: int = 5):
@@ -761,24 +893,42 @@ def file_metadata(path: str) -> dict:
 
 def rebind_scans(plan: L.LogicalPlan, ctx: SessionContext) -> L.LogicalPlan:
     """The plan with every scan's table schema taken anew from its table,
-    after the table read the metadata (dictionaries, bounds) of the
-    columns the scan projects (a parquet dataset reads it on demand)."""
+    after the table ingested the metadata (dictionaries, bounds) of the
+    columns the pruned plan reads from it, and those only: a column no
+    query reads is never ingested (a parquet dataset reads its metadata
+    on demand the same way)."""
+    from ..planner.optimizer import prune_columns
+    needed: Dict[str, list] = {}
+    _scan_columns(prune_columns(plan), ctx, needed)
+    for name, cols in needed.items():
+        ctx.tables[name].ensure_meta(cols)
+    return _rebind(plan, ctx)
+
+
+def _scan_columns(plan: L.LogicalPlan, ctx, needed: Dict[str, list]) -> None:
     if isinstance(plan, L.TableScan):
         tp = ctx.tables[plan.table_name]
-        if hasattr(tp, "ensure_meta"):
-            tp.ensure_meta(plan.projection
-                           or [f.name for f in tp.fields])
-        return dataclasses.replace(plan, table_schema=tp.schema)
+        needed.setdefault(plan.table_name, []).extend(
+            plan.projection or [f.name for f in tp.fields])
+        return
+    for child in plan.children():
+        _scan_columns(child, ctx, needed)
+
+
+def _rebind(plan: L.LogicalPlan, ctx: SessionContext) -> L.LogicalPlan:
+    if isinstance(plan, L.TableScan):
+        return dataclasses.replace(
+            plan, table_schema=ctx.tables[plan.table_name].schema)
     if not plan.children():
         return plan
     new = {f.name: getattr(plan, f.name) for f in dataclasses.fields(plan)}
     for key, val in new.items():
         if isinstance(val, L.LogicalPlan):
-            new[key] = rebind_scans(val, ctx)
+            new[key] = _rebind(val, ctx)
         elif isinstance(val, (list, tuple)) and \
                 any(isinstance(v, L.LogicalPlan) for v in val):
             # list-valued children (Union.inputs)
-            new[key] = type(val)(rebind_scans(v, ctx)
+            new[key] = type(val)(_rebind(v, ctx)
                                  if isinstance(v, L.LogicalPlan) else v
                                  for v in val)
     return type(plan)(**new)

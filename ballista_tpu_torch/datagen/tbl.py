@@ -20,7 +20,9 @@ from __future__ import annotations
 import datetime
 import decimal
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,7 +30,7 @@ import torch
 
 from .. import batch as B
 from ..schema import Field, TypeKind
-from .tpch import TPCH_TABLES, as_ingested
+from .tpch import TPCH_TABLES
 
 _PIPE, _NL, _DOT, _MINUS, _PLUS, _ZERO = (ord(c) for c in "|\n.-+0")
 # days of each month (index 1-12) in a common year
@@ -47,9 +49,18 @@ def tpch_schema(name: str) -> Tuple[Field, ...]:
 # ---------------------------------------------------------------------------
 
 def _field_spans(buf: np.ndarray, n_fields: int, path: str):
-    """(starts, ends) int64 arrays of shape (rows, n_fields): the byte
-    span of every field. Each non-empty line holds n_fields fields, each
-    followed by '|'; what follows the last '|' is dropped."""
+    """(buf, starts, ends), starts and ends int64 arrays of shape (rows,
+    n_fields): the byte span of every field (`_separators`)."""
+    buf, line_start, ends = _separators(buf, n_fields, path)
+    starts = np.concatenate((line_start[:, None], ends[:, :-1] + 1), axis=1)
+    return buf, starts, ends
+
+
+def _separators(buf: np.ndarray, n_fields: int, path: str):
+    """(buf, line starts (rows,), ends (rows, n_fields)) int64: field j of
+    a row spans [ends[:, j - 1] + 1, ends[:, j]), field 0 starts at its
+    line's start. Each non-empty line holds n_fields fields, each followed
+    by '|'; what follows the last '|' is dropped."""
     if len(buf) and buf[-1] != _NL:
         buf = np.append(buf, np.uint8(_NL))
     t = torch.from_numpy(buf)     # torch's scan runs on every host core
@@ -80,9 +91,7 @@ def _field_spans(buf: np.ndarray, n_fields: int, path: str):
         before = kept.reshape(n_rows, n_fields + 1)[:, 0] - 1
         line_start = np.where(before >= 0, every[np.maximum(before, 0)] + 1,
                               0)
-    starts = np.concatenate((line_start[:, None], sep[:, :n_fields - 1] + 1),
-                            axis=1)
-    return buf, starts, sep[:, :n_fields]
+    return buf, line_start, sep[:, :n_fields]
 
 
 def _field_bytes(buf: np.ndarray, start: np.ndarray, end: np.ndarray):
@@ -181,15 +190,18 @@ def _bounded(values: np.ndarray, valid: np.ndarray) -> B.HostColumn:
     return B.HostColumn(np.ascontiguousarray(values), valid, None, bounds)
 
 
-def _parse_column(buf, start, end, field: Field, what: str) -> B.HostColumn:
-    mat, lens, inside = _field_bytes(buf, start, end)
+def _parse_column(buf, start, end, field: Field, what: str,
+                  raw_max: Optional[int] = None) -> B.HostColumn:
+    """One column from its fields' spans. A string column goes through
+    the native encoder (`batch.ingest_string_buffers`): RAW where its
+    estimated distinct count exceeds `raw_max`, else sorted (`raw_max`
+    None: always sorted)."""
     kind = field.dtype.kind
     if kind is TypeKind.STRING:
-        strs = np.ascontiguousarray(mat).view(f"S{mat.shape[1]}").ravel()
-        uniq, inv = B._sorted_distinct(strs)
-        return B.HostColumn(inv.astype(np.int32),
-                            np.ones(len(strs), dtype=bool),
-                            uniq.astype(object), None)
+        return B.ingest_string_buffers(
+            buf, start, ends=end,
+            raw_max=np.iinfo(np.int64).max if raw_max is None else raw_max)
+    mat, lens, inside = _field_bytes(buf, start, end)
     if kind is TypeKind.DATE32:
         return _bounded(*_parse_dates(mat, lens, what))
     if kind in (TypeKind.INT32, TypeKind.INT64, TypeKind.DECIMAL):
@@ -206,39 +218,75 @@ def _parse_column(buf, start, end, field: Field, what: str) -> B.HostColumn:
     raise TypeError(f"{what}: no .tbl parse for {field.dtype}")
 
 
+class TblFile:
+    """A dbgen `.tbl` file of TPC-H table `name` whose separators were
+    found once (`_separators`); a column is parsed from its fields' spans
+    when asked for (`column`). `seconds` is the time spent finding the
+    separators, `parse_seconds` each parsed column's."""
+
+    def __init__(self, path: str, name: str):
+        t0 = time.perf_counter()
+        self.path = path
+        self.fields = tpch_schema(name)
+        buf, self.line_start, self.ends = _separators(
+            np.fromfile(path, dtype=np.uint8), len(self.fields), path)
+        self.num_rows = len(self.line_start)
+        width = self.ends - np.concatenate(
+            (self.line_start[:, None], self.ends[:, :-1] + 1), axis=1)
+        pad = max(int(width.max(initial=0)), 1)
+        # the windows of `_field_bytes` read up to `pad` bytes past a field
+        self.buf = np.concatenate((buf, np.zeros(pad, dtype=np.uint8)))
+        self.seconds = time.perf_counter() - t0
+        self.parse_seconds: Dict[str, float] = {}
+
+    def column(self, j: int, raw_max: Optional[int] = None) -> B.HostColumn:
+        """Column j parsed (`_parse_column`; `raw_max` as there)."""
+        t0 = time.perf_counter()
+        start = (self.line_start if j == 0 else self.ends[:, j - 1] + 1)
+        f = self.fields[j]
+        col = _parse_column(self.buf, start, self.ends[:, j], f,
+                            f"{self.path} column {f.name}", raw_max)
+        self.parse_seconds[f.name] = time.perf_counter() - t0
+        return col
+
+    def lazy_columns(self, raw_max: int) -> dict:
+        """{name: LazyColumn} parsing each column at first use, each
+        string column RAW where ingest would make it so."""
+        from ..client.context import LazyColumn
+        return {f.name: LazyColumn(self.num_rows,
+                                   partial(self.column, j, raw_max))
+                for j, f in enumerate(self.fields)}
+
+
 def read_tbl(path: str, name: str):
     """A dbgen `.tbl` file of TPC-H table `name` as (fields, {column:
     HostColumn}), the shape `generate_tpch` gives: decimals as int64
     scaled to the field's scale (parsed exactly, never through a float),
     dates as int32 days since the epoch, strings as int32 codes into the
     sorted dictionary of the values present."""
-    fields = tpch_schema(name)
-    buf, starts, ends = _field_spans(np.fromfile(path, dtype=np.uint8),
-                                     len(fields), path)
-    pad = max(int((ends - starts).max(initial=0)), 1)
-    buf = np.concatenate((buf, np.zeros(pad, dtype=np.uint8)))
-    # numpy lets go of the GIL in the bulk of each column's parse
-    with ThreadPoolExecutor(min(len(fields), os.cpu_count() or 1)) as pool:
-        cols = list(pool.map(
-            lambda j: _parse_column(buf, starts[:, j], ends[:, j], fields[j],
-                                    f"{path} column {fields[j].name}"),
-            range(len(fields))))
-    return fields, {f.name: c for f, c in zip(fields, cols)}
+    tbl = TblFile(path, name)
+    # numpy and the encoder let go of the GIL in the bulk of each parse
+    with ThreadPoolExecutor(min(len(tbl.fields), os.cpu_count() or 1)) as pool:
+        cols = list(pool.map(tbl.column, range(len(tbl.fields))))
+    return tbl.fields, {f.name: c for f, c in zip(tbl.fields, cols)}
 
 
 def register_tpch_tbl(ctx, directory: str) -> List[str]:
     """Register every `<table>.tbl` found in `directory` (a dbgen output
-    directory) on the session, with the TPC-H fields and primary keys and
-    each string column RAW where ingest would make it so (`as_ingested`,
-    as `register_tpch` does). Returns the names registered."""
+    directory) on the session, with the TPC-H fields and primary keys.
+    The separators are found here; each column is parsed when a query
+    first reads it, each string column RAW where ingest would make it so
+    (the threshold in force now, as `register_tpch`). Returns the names
+    registered; `ctx.tables[name].tbl` is the `TblFile`."""
     found = []
+    raw_max = B.raw_dict_max()
     for name in TPCH_TABLES:
         path = os.path.join(directory, f"{name}.tbl")
         if os.path.exists(path):
-            fields, cols = read_tbl(path, name)
-            ctx.register_host(name, fields,
-                              {c: as_ingested(h) for c, h in cols.items()},
+            tbl = TblFile(path, name)
+            ctx.register_host(name, tbl.fields, tbl.lazy_columns(raw_max),
                               primary_key=TPCH_TABLES[name][1])
+            ctx.tables[name].tbl = tbl
             found.append(name)
     if not found:
         raise FileNotFoundError(f"no .tbl files in {directory}")

@@ -10,18 +10,24 @@ dictionary of the values present. No pyarrow. `register_tpch` then takes
 ingest's RAW decision (`batch._estimate_high_cardinality`) on every
 string column, as the reference's arrow ingest does.
 
+The chunked datagen (`generate_tpch_parquet`, `datagen --chunks`) draws
+each row range of a table from its own stream, as the JAX package's does,
+and writes parquet part files; pyarrow is imported by the writer alone.
+
 Every field is nullable, as the reference's arrow schemas declare it.
 """
 
 from __future__ import annotations
 
 import datetime
+import os
 import zlib
+from functools import partial
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..batch import HostColumn, _estimate_high_cardinality
+from ..batch import HostColumn, _estimate_high_cardinality, raw_dict_max
 from ..schema import (DATE32, INT32, INT64, STRING, DataType, Field, decimal)
 
 EPOCH = datetime.date(1970, 1, 1)
@@ -158,10 +164,11 @@ def from_ingested(values, validity, dictionary, bounds,
                       else (int(bounds[0]), int(bounds[1])), bool(is_raw))
 
 
-def as_ingested(col: HostColumn) -> HostColumn:
+def as_ingested(col: HostColumn, raw_max: Optional[int] = None
+                ) -> HostColumn:
     """A generated string column as ingest takes it: RAW (the values in
     row order, code == row index) where its estimated distinct count
-    exceeds BALLISTA_RAW_DICT_MAX, else as it is."""
+    exceeds `raw_max` (default BALLISTA_RAW_DICT_MAX), else as it is."""
     if col.dictionary is None or col.raw:
         return col
 
@@ -170,7 +177,7 @@ def as_ingested(col: HostColumn) -> HostColumn:
                         "")
 
     n = len(col.values)
-    if not _estimate_high_cardinality(n, values_at):
+    if not _estimate_high_cardinality(n, values_at, raw_max):
         return col
     return HostColumn(np.arange(n, dtype=np.int32), col.validity,
                       values_at(np.arange(n)), None, raw=True)
@@ -259,10 +266,16 @@ def _nation(sf: float, seed: int) -> Table:
     return TPCH_TABLES["nation"][2], cols
 
 
-def _supplier(sf: float, seed: int) -> Table:
-    rng = _rng("supplier", seed)
-    n = N_SUPP(sf)
-    keys = np.arange(1, n + 1)
+def _range(full_n: int, lo, hi):
+    """(lo, hi) of a chunk, or of the whole table when lo is None."""
+    return (0, full_n) if lo is None else (lo, hi)
+
+
+def _supplier(sf: float, seed: int, lo=None, hi=None, rng=None) -> Table:
+    rng = rng or _rng("supplier", seed)
+    lo, hi = _range(N_SUPP(sf), lo, hi)
+    n = hi - lo
+    keys = np.arange(lo + 1, hi + 1)
     nk = rng.integers(0, 25, n)
     pool = _comment_pool(rng, 1000)
     # dbgen: some suppliers have 'Customer ... Complaints' comments (Q16)
@@ -281,10 +294,11 @@ def _supplier(sf: float, seed: int) -> Table:
     return TPCH_TABLES["supplier"][2], cols
 
 
-def _customer(sf: float, seed: int) -> Table:
-    rng = _rng("customer", seed)
-    n = N_CUST(sf)
-    keys = np.arange(1, n + 1)
+def _customer(sf: float, seed: int, lo=None, hi=None, rng=None) -> Table:
+    rng = rng or _rng("customer", seed)
+    lo, hi = _range(N_CUST(sf), lo, hi)
+    n = hi - lo
+    keys = np.arange(lo + 1, hi + 1)
     nk = rng.integers(0, 25, n)
     pool = _comment_pool(rng, 1000)
     cols = {
@@ -300,10 +314,11 @@ def _customer(sf: float, seed: int) -> Table:
     return TPCH_TABLES["customer"][2], cols
 
 
-def _part(sf: float, seed: int) -> Table:
-    rng = _rng("part", seed)
-    n = N_PART(sf)
-    keys = np.arange(1, n + 1)
+def _part(sf: float, seed: int, lo=None, hi=None, rng=None) -> Table:
+    rng = rng or _rng("part", seed)
+    lo, hi = _range(N_PART(sf), lo, hi)
+    n = hi - lo
+    keys = np.arange(lo + 1, hi + 1)
     # the reference's draw order: five colour words per name, the three
     # type words, the two container words, the comment pool, then (its
     # dict literal's key order) mfgr, brand's two digits, size, comment
@@ -338,12 +353,14 @@ def _part(sf: float, seed: int) -> Table:
     return TPCH_TABLES["part"][2], cols
 
 
-def _partsupp(sf: float, seed: int) -> Table:
-    rng = _rng("partsupp", seed)
-    n_part, n_supp = N_PART(sf), N_SUPP(sf)
+def _partsupp(sf: float, seed: int, lo=None, hi=None, rng=None) -> Table:
+    """A chunk's range indexes part rows (four partsupp rows each)."""
+    rng = rng or _rng("partsupp", seed)
+    n_supp = N_SUPP(sf)
+    lo, hi = _range(N_PART(sf), lo, hi)
     # four suppliers per part, the ones lineitem draws from
-    pk = np.repeat(np.arange(1, n_part + 1), 4)
-    sk = ((pk + np.tile(np.arange(4), n_part) * (n_supp // 4 + 1))
+    pk = np.repeat(np.arange(lo + 1, hi + 1), 4)
+    sk = ((pk + np.tile(np.arange(4), hi - lo) * (n_supp // 4 + 1))
           % n_supp) + 1
     n = len(pk)
     pool = _comment_pool(rng, 1000)
@@ -357,11 +374,12 @@ def _partsupp(sf: float, seed: int) -> Table:
     return TPCH_TABLES["partsupp"][2], cols
 
 
-def _orders(sf: float, seed: int) -> Table:
-    rng = _rng("orders", seed)
-    n = TPCH_TABLES["orders"][0](sf)
+def _orders(sf: float, seed: int, lo=None, hi=None, rng=None) -> Table:
+    rng = rng or _rng("orders", seed)
+    lo, hi = _range(TPCH_TABLES["orders"][0](sf), lo, hi)
+    n = hi - lo
     # dbgen: order keys are sparse (8 of each 32)
-    base = np.arange(n)
+    base = np.arange(lo, hi)
     keys = (base // 8) * 32 + (base % 8) + 1
     n_cust = N_CUST(sf)
     # only 2/3 of customers have orders (dbgen skips custkey % 3 == 0)
@@ -396,8 +414,8 @@ def _orders(sf: float, seed: int) -> Table:
     return TPCH_TABLES["orders"][2], cols
 
 
-def _lineitem(sf: float, seed: int, orders: Table) -> Table:
-    rng = _rng("lineitem", seed)
+def _lineitem(sf: float, seed: int, orders: Table, rng=None) -> Table:
+    rng = rng or _rng("lineitem", seed)
     okeys = orders[1]["o_orderkey"].values
     odates = orders[1]["o_orderdate"].values.astype(np.int64)
     per = rng.integers(1, 8, len(okeys))  # 1..7 lineitems per order
@@ -470,13 +488,123 @@ def generate_tpch(sf: float, seed: int = 19940101,
     return out
 
 
+def _chunk_rng(name: str, seed: int, lo: int, hi: int) -> np.random.Generator:
+    """The stream of one chunk of a table: any process builds any chunk
+    on its own and gets the same rows."""
+    return np.random.default_rng(
+        [seed + zlib.crc32(name.encode()) % 100000, lo, hi])
+
+
+def chunk_ranges(name: str, sf: float, n_chunks: int):
+    """Row ranges of the table's driving index (orders rows for lineitem,
+    part rows for partsupp: four partsupp rows per part, 1-7 lineitems
+    per order)."""
+    base = {"lineitem": "orders", "partsupp": "part"}.get(name, name)
+    full = TPCH_TABLES[base][0](sf)
+    bounds = [round(i * full / n_chunks) for i in range(n_chunks + 1)]
+    return [(bounds[c], bounds[c + 1]) for c in range(n_chunks)
+            if bounds[c + 1] > bounds[c]]
+
+
+def generate_chunk(name: str, sf: float, lo: int, hi: int,
+                   seed: int = 19940101) -> Table:
+    """One row range of a table from its own stream (`_chunk_rng`; a
+    lineitem chunk regenerates its orders chunk, so keys and dates agree).
+    Chunked streams differ from the whole-table stream: check chunked data
+    against an oracle on the same data, not against whole-table answer
+    files."""
+    if name == "lineitem":
+        orders = _orders(sf, seed, lo, hi, _chunk_rng("orders", seed, lo, hi))
+        return _lineitem(sf, seed, orders,
+                         _chunk_rng("lineitem", seed, lo, hi))
+    base = "part" if name == "partsupp" else name
+    return _GENERATORS[name](sf, seed, lo, hi, _chunk_rng(base, seed, lo, hi))
+
+
+def generate_table_chunks(name: str, sf: float, n_chunks: int,
+                          seed: int = 19940101):
+    """Yield (chunk index, (fields, {column: HostColumn})): bounded-RAM
+    generation for scale factors whose tables do not fit in host memory
+    (dbgen's -C/-S chunking). region and nation come whole, as chunk 0."""
+    if name in ("region", "nation"):
+        yield 0, _GENERATORS[name](sf, seed)
+        return
+    for c, (lo, hi) in enumerate(chunk_ranges(name, sf, n_chunks)):
+        yield c, generate_chunk(name, sf, lo, hi, seed)
+
+
+def _write_chunk(args) -> tuple:
+    """One (table, chunk) part file, self-contained (a worker process's
+    task): written under a temporary name and renamed into place."""
+    sf, out_dir, name, c, lo, hi, seed, row_group_rows = args
+    import pyarrow.parquet as pq
+
+    from ..batch import columns_to_arrow, host_to_numpy
+    fields, cols = (_GENERATORS[name](sf, seed) if lo is None
+                    else generate_chunk(name, sf, lo, hi, seed))
+    t = columns_to_arrow(fields, host_to_numpy(fields, cols))
+    path = os.path.join(out_dir, name, f"part_{c:04d}.parquet")
+    tmp = f"{path}.tmp{os.getpid()}"
+    pq.write_table(t, tmp, row_group_size=row_group_rows)
+    os.replace(tmp, path)
+    return name, t.num_rows
+
+
+def generate_tpch_parquet(sf: float, out_dir: str, n_chunks: int = 1,
+                          seed: int = 19940101, tables=None,
+                          row_group_rows: int = 1 << 20,
+                          workers: int = 1) -> dict:
+    """Write every table as parquet part files with bounded RAM,
+    out_dir/<table>/part_<c>.parquet (what `register_parquet_dataset`
+    reads), and return each table's row count. The chunks are numpy;
+    pyarrow writes the files. `workers` > 1 builds chunks in that many
+    processes: the chunks draw from independent streams, so the files are
+    the same bytes for any count."""
+    try:
+        import pyarrow.parquet  # noqa: F401
+    except ImportError as e:
+        raise ImportError("generate_tpch_parquet (datagen --chunks) writes "
+                          "parquet through pyarrow, which is not "
+                          "installed") from e
+    names = list(tables or TPCH_TABLES)
+    counts = {n: 0 for n in names}
+    tasks = []
+    for name in names:
+        os.makedirs(os.path.join(out_dir, name), exist_ok=True)
+        if name in ("region", "nation"):
+            tasks.append((sf, out_dir, name, 0, None, None, seed,
+                          row_group_rows))
+            continue
+        for c, (lo, hi) in enumerate(chunk_ranges(name, sf, n_chunks)):
+            tasks.append((sf, out_dir, name, c, lo, hi, seed,
+                          row_group_rows))
+    if workers > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        # spawned, not forked: the parent may run torch's threads
+        with ProcessPoolExecutor(
+                max_workers=workers,
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            done = list(ex.map(_write_chunk, tasks))
+    else:
+        done = [_write_chunk(t) for t in tasks]
+    for name, rows in done:
+        counts[name] += rows
+    return counts
+
+
 def register_tpch(ctx, sf: float, seed: int = 19940101,
                   tables: Optional[Sequence[str]] = None,
                   data: Optional[Dict[str, Table]] = None) -> None:
     """Register the tables (`data`, else generated) in `ctx`, each string
-    column RAW where ingest would make it so (`as_ingested`)."""
+    column RAW where ingest would make it so (`as_ingested`, with the
+    threshold in force now, applied when the column is first used)."""
+    from ..client.context import LazyColumn
     data = data or generate_tpch(sf, seed, tables)
+    raw_max = raw_dict_max()
     for name, (fields, cols) in data.items():
         ctx.register_host(name, fields,
-                          {c: as_ingested(h) for c, h in cols.items()},
+                          {c: LazyColumn(len(h.values),
+                                         partial(as_ingested, h, raw_max))
+                           for c, h in cols.items()},
                           primary_key=TPCH_TABLES[name][1])

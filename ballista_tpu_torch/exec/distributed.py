@@ -111,12 +111,16 @@ class ExchangeExec(ExecNode):
     def exchange(self, batches: Sequence[Batch], devices=None):
         """The P partitions' outputs of the stage body -> (received
         batches, per-sender overflow flags, per-sender pre-clamp counts)
-        (`parallel.shuffle.hash_partition_exchange`)."""
-        keyed = [self.hash_input(b) for b in batches]
+        (`parallel.shuffle.hash_partition_exchange`; None for a partition
+        another process holds)."""
+        keyed = [(None, None) if b is None else self.hash_input(b)
+                 for b in batches]
+        key_idx = next((k for _, k in keyed if k is not None), self._key_idx)
         outs, ovs, counts = hash_partition_exchange(
-            [b for b, _ in keyed], keyed[0][1] if keyed else self._key_idx,
-            self.n_parts, self.quota, devices, self.salt, self.salt_mode)
-        return [self.drop_hash_columns(b) for b in outs], ovs, counts
+            [b for b, _ in keyed], key_idx, self.n_parts, self.quota, devices,
+            self.salt, self.salt_mode)
+        return ([None if b is None else self.drop_hash_columns(b)
+                 for b in outs], ovs, counts)
 
     def _label(self):
         s = f", salt={self.salt}:{self.salt_mode}" if self.salt > 1 else ""

@@ -1,2 +1,2 @@
-"""The partition mesh, partitioned batches and the shuffle (port of
-ballista_tpu/parallel)."""
+"""The partition mesh, partitioned batches, the shuffle and multi-process
+execution on torch.distributed (port of ballista_tpu/parallel)."""

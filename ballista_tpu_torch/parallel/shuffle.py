@@ -19,8 +19,13 @@ take the P partitions' batches as a list, each on its partition's device:
 receiver d reads chunk d of every sender's fixed send buffer, copied to its
 own device where the devices differ, and compacts the received slots to the
 reference's row order (sender-major, slot order within a sender: the
-stable sort on ~keep of `hash_partition_exchange`). Neither reads a count
-on the host.
+stable sort on ~keep of `hash_partition_exchange`). In one process neither
+reads a count on the host. Over a mesh that spans processes
+(`multihost.GlobalMesh`) a process holds its own partitions only (the
+others' entries of the list are None): the send counts or row counts are
+summed over the processes on the host first, and then each process sends
+every other the live rows its partitions bound for that process's ones
+(`multihost.swap`), which land in the same segments and the same order.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 from ..batch import Batch, Column, row_mask
 from ..ops.gather import gather_columns
 from ..ops.hash import MASK32, hash_columns
+from . import multihost
 
 SHUFFLE_SEED = 0x7F4A7C15
 
@@ -189,6 +195,9 @@ def hash_partition_exchange(batches: Sequence[Batch],
     if len(batches) != P:
         raise ValueError(f"hash_partition_exchange: {len(batches)} batches "
                          f"for {P} partitions")
+    if multihost.spans_processes(devices):
+        return _exchange_across(batches, key_indices, P, quota, devices,
+                                salt, salt_mode)
     devices = _devices_of(batches, devices)
     sends, send_counts, overflows, counts = [], [], [], []
     for b in batches:
@@ -223,6 +232,8 @@ def all_gather_batch(batches: Sequence[Batch], n_parts: int,
     if len(batches) != n_parts:
         raise ValueError(f"all_gather_batch: {len(batches)} batches for "
                          f"{n_parts} partitions")
+    if multihost.spans_processes(devices):
+        return _gather_across(batches, devices)
     devices = _devices_of(batches, devices)
     made = {}
     for dev in devices:
@@ -235,3 +246,129 @@ def all_gather_batch(batches: Sequence[Batch], n_parts: int,
         nrows = torch.stack([b.num_rows.to(dev) for b in batches])
         made[str(dev)] = _compact_segments(cols, nrows, batches[0].capacity)
     return [made[str(dev)] for dev in devices]
+
+
+def _padded(parts, seg: int, like: torch.Tensor) -> torch.Tensor:
+    """Segments of `seg` slots, segment k holding parts[k] first and zeros
+    (False for a validity) after it."""
+    out = torch.zeros(len(parts) * seg, dtype=like.dtype, device=like.device)
+    for k, t in enumerate(parts):
+        out[k * seg:k * seg + t.shape[0]] = t
+    return out
+
+
+def _segment_batch(chunks, counts: torch.Tensor, seg: int, template: Batch,
+                   device) -> Batch:
+    """`_compact_segments` over the columns of P segments whose k-th holds
+    the rows chunks[k] (a list of (data, validity) per column)."""
+    cols = [Column(_padded([c[i][0] for c in chunks], seg,
+                           template.columns[i].data.to(device)),
+                   _padded([c[i][1] for c in chunks], seg,
+                           template.columns[i].validity.to(device)))
+            for i in range(len(template.columns))]
+    return _compact_segments(cols, counts.to(device), seg)
+
+
+def _specs(template: Batch, n: int):
+    return [spec for c in template.columns
+            for spec in ((c.data.dtype, n), (c.validity.dtype, n))]
+
+
+def _chunks(parts, n_cols: int):
+    """A flat [data, validity, data, ...] list as [(data, validity)]."""
+    return [(parts[2 * i], parts[2 * i + 1]) for i in range(n_cols)]
+
+
+def _exchange_across(batches, key_indices, P: int, quota: int, mesh,
+                     salt: int, salt_mode):
+    """`hash_partition_exchange` over a mesh that spans processes: this
+    process's senders lay out their send buffers, the (senders,
+    destinations) send counts are summed over the processes, and every
+    process sends each other the rows its senders bound for that
+    process's destinations, sender by sender, destination by
+    destination. Receivers and flags of other processes' partitions are
+    None."""
+    local = mesh.local_partitions
+    sends, ovs, counts = {}, [None] * P, [None] * P
+    for p in local:
+        send, sc, ov, cnt = exchange_send_layout(batches[p], key_indices, P,
+                                                 quota, salt, salt_mode)
+        sends[p] = (send, sc)
+        ovs[p], counts[p] = ov, cnt
+    sc_all = torch.zeros((P, P), dtype=torch.int64)
+    for p, (_, sc) in sends.items():
+        sc_all[p] = sc.cpu().to(torch.int64)
+    sc_all = multihost.all_reduce_sum(sc_all)
+    n = sc_all.tolist()
+    template = sends[local[0]][0]
+    device = template.device
+
+    def rows(s, d):
+        send = sends[s][0]
+        lo = d * quota
+        return [t[lo:lo + n[s][d]] for c in send.columns
+                for t in (c.data, c.validity)]
+
+    others = [r for r in range(mesh.world) if r != mesh.rank]
+    got = multihost.swap(
+        {r: [t for s in local for d in mesh.partitions_of(r)
+             for t in rows(s, d)] for r in others},
+        {r: [spec for s in mesh.partitions_of(r) for d in local
+             for spec in _specs(template, n[s][d])] for r in others},
+        device)
+    # from each sender s, the (data, validity) per column bound for d
+    n_cols = len(template.columns)
+    per = {}
+    for r in others:
+        parts, at = got[r], 0
+        for s in mesh.partitions_of(r):
+            for d in local:
+                per[s, d] = _chunks(parts[at:at + 2 * n_cols], n_cols)
+                at += 2 * n_cols
+    for s in local:
+        for d in local:
+            per[s, d] = _chunks([t.to(device) for t in rows(s, d)], n_cols)
+    out = [None] * P
+    for d in local:
+        out[d] = _segment_batch([per[s, d] for s in range(P)],
+                                sc_all[:, d], quota, template,
+                                mesh[d])
+    return out, ovs, counts
+
+
+def _gather_across(batches, mesh) -> List[Batch]:
+    """`all_gather_batch` over a mesh that spans processes: the row counts
+    are summed over the processes, every process sends each other its
+    partitions' live rows, and each process builds the gathered batch once
+    for its partitions (None for other processes')."""
+    P = len(batches)
+    local = mesh.local_partitions
+    template = batches[local[0]]
+    seg = template.capacity
+    nrows = torch.zeros(P, dtype=torch.int64)
+    for p in local:
+        nrows[p] = batches[p].num_rows.cpu().to(torch.int64)
+    nrows = multihost.all_reduce_sum(nrows)
+    n = nrows.tolist()
+
+    def rows(p):
+        return [t[:n[p]] for c in batches[p].columns
+                for t in (c.data, c.validity)]
+
+    others = [r for r in range(mesh.world) if r != mesh.rank]
+    device = template.device
+    got = multihost.swap(
+        {r: [t for p in local for t in rows(p)] for r in others},
+        {r: [spec for p in mesh.partitions_of(r)
+             for spec in _specs(template, n[p])] for r in others},
+        device)
+    n_cols = len(template.columns)
+    per = {p: _chunks([t.to(device) for t in rows(p)], n_cols) for p in local}
+    for r in others:
+        parts = got[r]
+        for k, p in enumerate(mesh.partitions_of(r)):
+            per[p] = _chunks(parts[2 * n_cols * k:2 * n_cols * (k + 1)],
+                             n_cols)
+    made = _segment_batch([per[p] for p in range(P)], nrows, seg, template,
+                          device)
+    return [made if mesh.is_local(p) else None for p in range(P)]

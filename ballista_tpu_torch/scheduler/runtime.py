@@ -21,6 +21,12 @@ plan and syncs once (`drain`); that plan sizes every exchange from its
 sender's capacity, which doubles at each shuffle join, and at TPC-H SF1 on
 P = 8 partitions of one card Q21 ran out of the card's 80 GB with it.
 
+Over a mesh that spans processes (`parallel.multihost.GlobalMesh`) every
+process runs the same job and evaluates the stage body for its own
+partitions only; `StageRun.read` sums the run's counts over the processes
+before any of them is read, so each process lowers, trims and escalates
+alike.
+
 Not ported: the reference's piece splitting and ahead-of-time compilation
 of stage programs and BALLISTA_STAGE_SYNC, which answer TPU compile
 times; eager torch compiles nothing.
@@ -169,6 +175,9 @@ class StageRun(NamedTuple):
     labels: List[str]
     quota: int
     salt_kind: Optional[str]
+    # the counts are summed over the processes of a mesh that spans them
+    # (each process fills its own partitions' entries, zeros elsewhere)
+    across_processes: bool = False
 
     def summary(self) -> torch.Tensor:
         """Every count of the run as one int64 vector (`read` splits it
@@ -187,8 +196,13 @@ class StageRun(NamedTuple):
         return torch.cat(parts)
 
     def read(self) -> "StageCounts":
-        """The run's counts on the host, in one device-to-host copy."""
-        vector = self.summary().cpu().numpy()
+        """The run's counts on the host, in one device-to-host copy (and,
+        across processes, one all-reduce: the same counts everywhere)."""
+        vector = self.summary()
+        if self.across_processes:
+            from ..parallel.multihost import all_reduce_sum
+            vector = all_reduce_sum(vector.cpu())
+        vector = vector.cpu().numpy()
         (P, g), k = self.growth.shape, len(self.labels)
         growth = vector[:P * g].reshape(P, g)
         vector = vector[P * g:]
@@ -317,17 +331,28 @@ class DistributedRuntime:
 
     def run_stage(self, stage, inputs: dict) -> StageRun:
         """Run the stage body once per partition, then the root's
-        collective across the P outputs. Reads nothing on the host."""
+        collective across the P outputs. Reads nothing on the host in one
+        process. Over a mesh that spans processes only this process's
+        partitions run; the others' counts stay 0 here (their growth too)
+        until `StageRun.read` sums them."""
         from ..exec.distributed import ExchangeExec, GatherExec
         from ..exec.plan import GROWTH_KINDS, Run
+        from ..parallel.multihost import spans_processes
         from ..parallel.partitioned import PartitionedBatch
         root = stage.root
         body = (root.children[0] if isinstance(root, (ExchangeExec, GatherExec))
                 else root)
         P = len(self.mesh)
         dev0 = self.mesh[0]
+        local = getattr(self.mesh, "is_local", lambda p: True)
         outs, growths, rows, labels = [], [], [], None
         for p in range(P):
+            if not local(p):
+                outs.append(None)
+                growths.append(torch.zeros(len(GROWTH_KINDS),
+                                           dtype=torch.int64, device=dev0))
+                rows.append(None)
+                continue
             run = Run({lid: pb.batches[p] for lid, pb in inputs.items()},
                       partition=p, trace=True, device=self.mesh[p])
             outs.append(run.eval(body))
@@ -342,16 +367,22 @@ class DistributedRuntime:
         quota, salt_kind = 0, None
         if isinstance(root, ExchangeExec):
             outs, ovs, cnts = root.exchange(outs, self.mesh)
-            ex_overflow = torch.stack([o.to(dev0) for o in ovs])
-            counts = torch.stack([c.to(dev0) for c in cnts])
+            ex_overflow = torch.stack([
+                torch.zeros((), dtype=torch.bool, device=dev0) if o is None
+                else o.to(dev0) for o in ovs])
+            counts = torch.stack([
+                torch.zeros(P, dtype=torch.int32, device=dev0) if c is None
+                else c.to(dev0) for c in cnts])
             quota, salt_kind = root.quota, root.salt_kind
         elif isinstance(root, GatherExec):
             outs = root.gather(outs, self.mesh)
-        op_rows = (torch.stack([torch.stack(r) for r in rows]) if labels
+        zero = torch.zeros(len(labels or ()), dtype=torch.int64, device=dev0)
+        op_rows = (torch.stack([zero if r is None else torch.stack(r)
+                                for r in rows]) if labels
                    else torch.zeros((P, 0), dtype=torch.int64, device=dev0))
         return StageRun(PartitionedBatch(tuple(outs)), torch.stack(growths),
                         ex_overflow, counts, op_rows, labels or [], quota,
-                        salt_kind)
+                        salt_kind, spans_processes(self.mesh))
 
     @staticmethod
     def trim(pb, capacity: int):
@@ -362,7 +393,7 @@ class DistributedRuntime:
         from ..parallel.partitioned import PartitionedBatch
         if pb.capacity <= capacity:
             return pb
-        made = {}
+        made = {id(None): None}
         for b in pb.batches:
             if id(b) not in made:
                 made[id(b)] = Batch(tuple(
@@ -409,7 +440,7 @@ class DistributedRuntime:
         m.output_rows = int(counts.num_rows.sum())
         if isinstance(stage.root, ExchangeExec):
             m.bytes_exchanged = out.n_partitions * out.capacity * _row_bytes(
-                out.batches[0])
+                out.first)
         elif isinstance(stage.root, GatherExec):
             m.bytes_exchanged = out.nbytes
         return m

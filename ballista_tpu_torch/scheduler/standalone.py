@@ -260,7 +260,8 @@ class JobContext:
     def final_batch(self):
         from ..parallel.partitioned import gather_partitions
         return (gather_partitions(self.outputs[str(self.dplan.final_stage)],
-                                  self.dplan.final_schema),
+                                  self.dplan.final_schema,
+                                  mesh=self.runtime.mesh),
                 self.dplan.final_schema)
 
 

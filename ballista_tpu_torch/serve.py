@@ -7,12 +7,15 @@ the data plane of its own executor, single controller).
   python -m ballista_tpu_torch.serve --port 8080 [--device cuda|cpu] \
       [--init init.sql] [--sf-demo 0.01] [--work-dir /data/spill] \
       [--policy push|pull] [--job-store /data/jobs.db] \
-      [--scheduler-rpc-port 50050]
+      [--scheduler-rpc-port 50050] [--flight-port 8815]
 
 Executor processes (`python -m ballista_tpu_torch.scheduler.executor_process
 --scheduler http://HOST:RPC_PORT --device cuda --partitions N`) register
-with the RPC wire. Arrow Flight SQL (`--flight-port`) needs flight.py,
-which is not ported: the port defaults it to 0 and refuses another value.
+with the RPC wire. `--flight-port N` serves Arrow Flight SQL (`flight.py`,
+what JDBC / ODBC and BI clients speak) over the cluster. It needs pyarrow,
+so the port defaults it to 0 where the reference serves 8815: a machine
+without pyarrow runs the rest, and asking for Flight there raises an
+ImportError before any socket opens.
 """
 
 from __future__ import annotations
@@ -27,8 +30,7 @@ def main(argv=None):
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8080, help="REST/UI port")
     ap.add_argument("--flight-port", type=int, default=0,
-                    help="Arrow Flight SQL port (flight.py is not ported: "
-                         "only 0 is accepted)")
+                    help="Arrow Flight SQL port (0 disables; needs pyarrow)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="the device of the in-process executor's partitions "
                          "and of the planning contexts")
@@ -60,8 +62,12 @@ def main(argv=None):
                          "'info,ballista_tpu_torch.scheduler=debug'")
     args = ap.parse_args(argv)
     if args.flight_port:
-        raise NotImplementedError("--flight-port: flight.py (Arrow Flight "
-                                  "SQL) is not ported yet")
+        try:
+            import pyarrow.flight  # noqa: F401
+        except ImportError as e:
+            raise ImportError("serve --flight-port needs pyarrow (with "
+                              "pyarrow.flight), which is not installed; "
+                              "run without --flight-port") from e
 
     handlers = None
     if args.log_file:
@@ -145,6 +151,14 @@ def main(argv=None):
         logging.info("scheduler RPC wire on http://%s:%d/rpc/*", args.host,
                      rpc_httpd.server_address[1])
 
+    flight = None
+    if args.flight_port:
+        from .flight import BallistaFlightServer
+        flight = BallistaFlightServer(
+            cluster=cluster,
+            location=f"grpc://{args.host}:{args.flight_port}")
+        logging.info("Flight SQL on grpc://%s:%d", args.host, flight.port)
+
     try:
         while True:
             time.sleep(3600)
@@ -153,6 +167,8 @@ def main(argv=None):
         api.stop()
         if rpc_httpd is not None:
             rpc_httpd.shutdown()
+        if flight is not None:
+            flight.shutdown()
 
 
 if __name__ == "__main__":

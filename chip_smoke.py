@@ -1567,9 +1567,9 @@ SUM_RTOL = 1e-9     # f64 sums and averages: the card adds in no fixed order
 
 
 def _register_numpy_timed(ctx, name, table, label):
-    """`ctx.register_numpy` of a dict of numpy arrays, with the seconds
-    each column spent in `batch.ingest_column` read off from inside that
-    one call."""
+    """`ctx.register_numpy` of a dict of numpy arrays and the ingest of
+    every column, one after another (registration itself ingests
+    nothing), with the seconds each column spent in `batch.ingest_column`."""
     import ballista_tpu_torch.batch as batch_mod
     ingest, took = batch_mod.ingest_column, []
 
@@ -1583,6 +1583,8 @@ def _register_numpy_timed(ctx, name, table, label):
     t0 = time.perf_counter()
     try:
         ctx.register_numpy(name, table)
+        for cname in table:
+            ctx.tables[name].host[cname]
     finally:
         batch_mod.ingest_column = ingest
     total = time.perf_counter() - t0
@@ -2464,6 +2466,12 @@ SKEW_SQL = ("select k, sum(v + w) as s, count(*) c from fact join dim "
 # the in-core answer of each query, from phases 4-8 (phase 13 alone
 # computes the ones it lacks)
 INCORE_ANSWERS = {}
+# phase 13 (a)'s answers, by query (phase 17 (c) holds its own to them)
+DIST_ANSWERS = {}
+# phase 13 (c)'s options of each attempt (phase 17 (c) holds its to them)
+DIST_SKEW_SEQ = []
+# seconds g++ took for the native encoder in phase 2
+NATIVE_BUILD_S = [0.0]
 # the numbers of the partition call phase 13 holds (the kernels line of
 # --distributed-only)
 LAST_HELD = {}
@@ -2563,11 +2571,14 @@ def dist_default_mesh(sf1_ctx, answers):
     return launches
 
 
-def dist_skew(mesh):
-    """(c): tests/test_skew.py's shape at 10^7 fact rows, 85 % on one key,
-    joined to a 100-row unique dimension through a shuffle join on tiny
-    quotas: the overflow must escalate to salt; the answer is checked
-    against numpy on the host arrays."""
+def skew_run(mesh, label):
+    """Phase 13 (c): tests/test_skew.py's shape at 10^7 fact rows, 85 % on
+    one key, joined to a 100-row unique dimension through a shuffle join
+    on tiny quotas, over `mesh` (one process's, or a global mesh that
+    spans processes: phase 17 (c)): the overflow must escalate to salt;
+    the answer is checked against numpy on the host arrays. Returns
+    (kernel launches, the options of each attempt as (headroom,
+    join_salt, max_group_table))."""
     rng = np.random.default_rng(SEED)
     keys = np.where(rng.random(SKEW_N) < 0.85, 7,
                     rng.integers(0, 100, SKEW_N)).astype(np.int64)
@@ -2587,23 +2598,24 @@ def dist_skew(mesh):
     took = time.perf_counter() - t0
     launches = read_counts()
     seq = ctx.dist_attempts
-    log("phase 13 (c): options of each attempt: " + "; ".join(
+    log(f"{label}: options of each attempt: " + "; ".join(
         f"headroom {o.quota_headroom:.4f}, join_salt {o.join_salt}, "
         f"max_group_table {o.max_group_table}" for o in seq))
     if len(seq) < 2 or seq[-1].join_salt < 2:
-        raise AssertionError("phase 13 (c): the skewed join did not "
-                             "escalate to salt")
+        raise AssertionError(f"{label}: the skewed join did not escalate "
+                             "to salt")
     got = to_numpy(batch, schema)
     uk, cnt = np.unique(keys, return_counts=True)
     sums = np.zeros(100, dtype=np.int64)
     np.add.at(sums, keys, v + w[keys])
     for name, want in (("k", uk), ("c", cnt), ("s", sums[uk])):
         if not np.array_equal(got[name][0], want) or not got[name][1].all():
-            raise AssertionError(f"phase 13 (c): column {name} != numpy")
-    log(f"phase 13 (c): {SKEW_N} fact rows, {int(cnt.max())} on key 7: equals "
+            raise AssertionError(f"{label}: column {name} != numpy")
+    log(f"{label}: {SKEW_N} fact rows, {int(cnt.max())} on key 7: equals "
         f"numpy; {took:.4f} s for {len(seq)} attempts; stages "
         f"{[(round(m.run_s, 4), m.output_rows) for m in ctx.dist_metrics]}")
-    return launches
+    return launches, [(o.quota_headroom, o.join_salt, o.max_group_table)
+                      for o in seq]
 
 
 def dist_control_plane(ctx, sf1_ctx, mesh):
@@ -2656,6 +2668,7 @@ def phase_distributed(sf1_ctx):
     ctx = _dist_ctx(sf1_ctx, mesh)
     t0 = time.perf_counter()
     answers, launches, q1_calls = dist_queries(ctx, sf1_ctx)
+    DIST_ANSWERS.update(answers)
     log(f"phase 13 (a): {time.perf_counter() - t0:.1f} s")
     sf1_ctx.evict_device()
     # one partition's partial aggregate of Q1: the largest call at T = 12
@@ -2669,7 +2682,9 @@ def phase_distributed(sf1_ctx):
     del call
     launches = launches + dist_default_mesh(sf1_ctx, answers)
     t0 = time.perf_counter()
-    launches = launches + dist_skew(mesh)
+    more, seq = skew_run(mesh, "phase 13 (c)")
+    launches = launches + more
+    DIST_SKEW_SEQ[:] = seq
     log(f"phase 13 (c): {time.perf_counter() - t0:.1f} s with generation")
     launches = launches + dist_control_plane(ctx, sf1_ctx, mesh)
     ctx.evict_device()
@@ -3074,6 +3089,8 @@ def raw_tpch(sf1_ctx):
     for name, tp in ctx.tables.items():
         strings = {f.name for f in tp.fields
                    if f.dtype.kind is TypeKind.STRING}
+        # lineitem is above the eager-metadata threshold: ingest its strings
+        tp.ensure_meta(sorted(strings))
         if tp.schema.unsorted != strings:
             raise AssertionError(f"phase 15 (a): {name} RAW columns "
                                  f"{tp.schema.unsorted} != {strings}")
@@ -3583,10 +3600,11 @@ def tools_plugin(tbl_ctx):
     return read_counts()
 
 
-def phase_tools(source):
+def phase_tools(source, keep_files=False):
     """Phase 16. `source` is the generated SF1 tables ({name: (fields,
-    host columns)}) the files are held to. Returns (kernel launches, the
-    held Q1 call's numbers)."""
+    host columns)}) the files are held to. With `keep_files` the .tbl
+    files stay for phase 17, which deletes them. Returns (kernel
+    launches, the held Q1 call's numbers)."""
     import shutil
     t_start = time.perf_counter()
     launches = np.zeros(2, dtype=np.int64)
@@ -3621,7 +3639,8 @@ def phase_tools(source):
         log(f"phase 16 (h): {time.perf_counter() - t0:.1f} s")
         tbl_ctx.evict_device()
     finally:
-        shutil.rmtree(TBL_DIR, ignore_errors=True)
+        if not keep_files:
+            shutil.rmtree(TBL_DIR, ignore_errors=True)
     log(f"phase 16: {time.perf_counter() - t_start:.1f} s; kernel launches "
         f"in this process and the wire's executor {launches.tolist()}")
     return launches, held
@@ -3636,13 +3655,446 @@ def phase_tools_alone():
     return phase_tools(source)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the last modules (lazy ingest, the native encoder, multi-process
+# execution on torch.distributed, the Flight SQL codecs)
+# ---------------------------------------------------------------------------
+
+# partitions per process of (c): two processes of four, P = 8 on cuda:0
+MP_PER = 4
+MP_WORLD = 2
+# seconds a worker's collective waits for a lost peer, and a whole
+# worker's limit
+MP_PEER_TIMEOUT_S = 60
+MP_LIMIT_S = 400
+
+
+def rest_lazy(out):
+    """(a): the 22 through runner.run(lazy_ingest=True) over the .tbl
+    files: every query exact; parse + ingest seconds per column ingested,
+    the columns never ingested; Q1's kernel call held. Returns (kernel
+    launches, the held call's numbers)."""
+    from ballista_tpu_torch.datagen.tbl import register_tpch_tbl
+    ctx = SessionContext(device="cuda")
+    t0 = time.perf_counter()
+    register_tpch_tbl(ctx, TBL_DIR)
+    reg_s = time.perf_counter() - t0
+    log(f"phase 17 (a): register_tpch_tbl (separators only) {reg_s:.2f} s: "
+        + ", ".join(f"{n} {tp.tbl.seconds:.2f} s"
+                    for n, tp in ctx.tables.items()))
+    reset_counts()
+    t0 = time.perf_counter()
+    with spy_rows(first_at=Q1_T) as calls:
+        results = runner_mod.run(SF, list(range(1, 23)), 1, ctx=ctx,
+                                 expected=EXPECTED_DIR, lazy_ingest=True)
+    took = time.perf_counter() - t0
+    launches = read_counts()
+    bad = {q: r for q, r in results.items() if r.get("match") is not True}
+    if bad:
+        raise AssertionError(f"phase 17 (a): runner results {bad}")
+    parsed, never = 0.0, {}
+    for name, tp in ctx.tables.items():
+        secs = tp.tbl.parse_seconds
+        parsed += sum(secs.values())
+        log(f"phase 17 (a): {name}: parse + ingest s per column ingested "
+            + json.dumps({c: round(v, 3) for c, v in secs.items()}))
+        never[name] = [f.name for f in tp.fields
+                       if f.name not in tp.host.ingested]
+    log(f"phase 17 (a): the 22 through runner.run(lazy_ingest=True) all "
+        f"equal answers/sf1 in {took:.1f} s; parse + ingest of the columns "
+        f"read {parsed:.2f} s in all (phase 16 (c) ingests every column in "
+        f"its warm pass: its '# ingest' line); never ingested "
+        f"({sum(map(len, never.values()))}): {json.dumps(never)}")
+    if "l_comment" not in never["lineitem"]:
+        raise AssertionError("phase 17 (a): l_comment was ingested")
+    if launches[0] < 1 or call_shapes(calls) != [((Q1_A, Q1_N), Q1_T)]:
+        raise AssertionError(f"phase 17 (a): Q1's kernel calls "
+                             f"{call_shapes(calls)}")
+    held = hold_call(17, "lazily ingested .tbl Q1 through runner.run",
+                     *calls[0])
+    del calls
+    out["tables"] = {n: tp.tbl for n, tp in ctx.tables.items()}
+    ctx.evict_device()
+    return launches, held
+
+
+def rest_native(tbls):
+    """(b): the native encoder over every string column of the SF1 .tbl
+    files against the plain path (`batch._sorted_distinct` over the
+    fields' bytes): codes and dictionaries equal, seconds of both."""
+    from ballista_tpu_torch import native
+    from ballista_tpu_torch.batch import _sorted_distinct
+    from ballista_tpu_torch.datagen.tbl import _field_bytes
+    tot_native = tot_plain = 0.0
+    for name, tbl in tbls.items():
+        for j, f in enumerate(tbl.fields):
+            if f.dtype.kind is not TypeKind.STRING:
+                continue
+            start = tbl.line_start if j == 0 else tbl.ends[:, j - 1] + 1
+            end = tbl.ends[:, j]
+            t0 = time.perf_counter()
+            codes, dictionary = native.dict_encode(tbl.buf, start, end)
+            t_native = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mat, _, _ = _field_bytes(tbl.buf, start, end)
+            uniq, inv = _sorted_distinct(
+                np.ascontiguousarray(mat).view(f"S{mat.shape[1]}").ravel())
+            t_plain = time.perf_counter() - t0
+            if not (np.array_equal(codes, inv.astype(np.int32))
+                    and np.array_equal(dictionary, uniq.astype(str))):
+                raise AssertionError(f"phase 17 (b): {name}.{f.name}: native "
+                                     "!= plain")
+            tot_native += t_native
+            tot_plain += t_plain
+            log(f"phase 17 (b): {name}.{f.name} ({len(codes)} rows, "
+                f"{len(dictionary)} distinct): native {t_native:.3f} s, "
+                f"plain {t_plain:.3f} s, codes and dictionary equal")
+    log(f"phase 17 (b): every string column: native {tot_native:.2f} s, "
+        f"plain {tot_plain:.2f} s; g++ build {NATIVE_BUILD_S[0]:.2f} s "
+        "(phase 2)")
+
+
+def mp_worker(pid, nproc, port, scenario, out_dir):
+    """One process of (c), run as `python3 chip_smoke.py --mp-worker pid
+    nproc port scenario out_dir`: joins the group over gloo, makes the
+    global mesh of MP_PER partitions per process on cuda:0 and runs the
+    scenario through execute_distributed (every process the same driver).
+    Prints one line `MP_RESULT {json}` and pickles its answers."""
+    import pickle
+
+    from ballista_tpu_torch.parallel.multihost import (init_multihost,
+                                                       make_global_mesh)
+    t0 = time.perf_counter()
+    init_multihost(f"127.0.0.1:{port}", nproc, pid)
+    mesh = make_global_mesh(MP_PER, device="cuda:0")
+    if os.environ.get("BALLISTA_CRASH_WORKER") == str(pid):
+        os._exit(17)     # dies without a word: the peer must notice
+    masked_sums.load()
+    result = {"pid": pid, "scenario": scenario,
+              "join_s": round(time.perf_counter() - t0, 3)}
+    launches = np.zeros(2, dtype=np.int64)
+    answers = {}
+    if scenario == "skew":
+        more, result["attempts"] = skew_run(mesh, f"phase 17 (c) p{pid} skew")
+        launches += more
+    else:
+        t0 = time.perf_counter()
+        ctx = SessionContext(device="cuda")
+        register_tpch(ctx, SF)
+        result["datagen_s"] = round(time.perf_counter() - t0, 3)
+        queries = [1] if scenario == "rerun" else list(range(1, 23))
+        firsts = {}
+        for q in queries:
+            reset_counts()
+            with spy_rows(first_at=Q1_T) as calls:
+                t0 = time.perf_counter()
+                batch, schema = execute_distributed(
+                    ctx, ctx.sql(TPCH_QUERIES[q]).plan, mesh,
+                    DistOptions(n_partitions=len(mesh)))
+                torch.cuda.synchronize()
+                firsts[q] = round(time.perf_counter() - t0, 4)
+            launches += read_counts()
+            got = to_numpy(batch, schema)
+            check_answers(got, schema, q)
+            answers[q] = got
+            if q == 1 and pid == 0 and scenario == "basic":
+                if not calls or call_shapes(calls)[0][0][0] != Q1_A:
+                    raise AssertionError(f"Q1's kernel calls "
+                                         f"{call_shapes(calls)}")
+                result["held"] = hold_call(
+                    17, f"p{pid}'s partition of Q1 at P = {len(mesh)} over "
+                    f"{nproc} processes", *calls[0])
+            del calls, batch
+        result["first_s"] = firsts
+        log(f"phase 17 (c) p{pid}: the {len(queries)} queries equal "
+            f"answers/sf1; first runs {json.dumps(firsts)}")
+    result["launches"] = launches.tolist()
+    with open(os.path.join(out_dir, f"p{pid}.pkl"), "wb") as f:
+        pickle.dump(answers, f)
+    print("MP_RESULT " + json.dumps(result), flush=True)
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mp_pair(scenario, out_dir, extra_env=None, limit=MP_LIMIT_S):
+    """Start MP_WORLD worker processes of `scenario` and wait for both
+    (each with a time limit; every process is killed in a finally).
+    Returns [(exit code, output lines, its MP_RESULT or None)]."""
+    here, env = _repo_env()
+    env = dict(env, BALLISTA_PEER_TIMEOUT=str(MP_PEER_TIMEOUT_S),
+               **(extra_env or {}))
+    port = _free_port()
+    procs = []
+    try:
+        for pid in range(MP_WORLD):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-worker",
+                 str(pid), str(MP_WORLD), str(port), scenario, out_dir],
+                cwd=here, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        out = []
+        deadline = time.perf_counter() + limit
+        for p in procs:
+            text = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))[0]
+            lines = text.splitlines()
+            res = [json.loads(l[len("MP_RESULT "):]) for l in lines
+                   if l.startswith("MP_RESULT ")]
+            out.append((p.returncode, lines, res[0] if res else None))
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def _mp_check(label, runs):
+    for pid, (rc, lines, res) in enumerate(runs):
+        for line in lines:
+            if not line.startswith("MP_RESULT "):
+                log(f"phase 17 (c) {label} p{pid}| {line}")
+        if rc != 0 or res is None:
+            raise AssertionError(f"phase 17 (c) {label}: worker {pid} exited "
+                                 f"{rc}")
+
+
+def rest_multiprocess():
+    """(c): two processes on cuda:0 over gloo, four partitions each: the
+    22 at SF1 (exact, and equal to phase 13's where it ran), the skew
+    scenario (phase 13 (c)'s sequence of options), the crash of one
+    worker (the survivor exits non-zero within its timeout) and a fresh
+    pair's Q1. Returns (kernel launches in the workers, p0's held Q1
+    call)."""
+    import pickle
+    import shutil
+    import tempfile
+    launches = np.zeros(2, dtype=np.int64)
+    out_dir = tempfile.mkdtemp(dir=os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build"))
+    try:
+        t0 = time.perf_counter()
+        runs = mp_pair("basic", out_dir)
+        _mp_check("basic", runs)
+        took = time.perf_counter() - t0
+        for pid, (_, _, res) in enumerate(runs):
+            launches += res["launches"]
+            with open(os.path.join(out_dir, f"p{pid}.pkl"), "rb") as f:
+                answers = pickle.load(f)
+            for q, got in answers.items():
+                if q in DIST_ANSWERS:
+                    _same_answer(f"phase 17 (c) p{pid} Q{q} against phase 13",
+                                 got, DIST_ANSWERS[q])
+        held = runs[0][2]["held"]
+        log(f"phase 17 (c): the 22 at SF1 over {MP_WORLD} processes x "
+            f"{MP_PER} partitions on cuda:0: every answer equals "
+            f"answers/sf1" + (" and phase 13's" if DIST_ANSWERS else "")
+            + f" in both processes; {took:.1f} s in all (join "
+            f"{[r[2]['join_s'] for r in runs]} s, datagen "
+            f"{[r[2]['datagen_s'] for r in runs]} s); kernel launches per "
+            f"process {[r[2]['launches'] for r in runs]}")
+        t0 = time.perf_counter()
+        runs = mp_pair("skew", out_dir)
+        _mp_check("skew", runs)
+        seqs = [r[2]["attempts"] for r in runs]
+        if seqs[0] != seqs[1] or (DIST_SKEW_SEQ and [tuple(a) for a in
+                                                     seqs[0]] != DIST_SKEW_SEQ):
+            raise AssertionError(f"phase 17 (c) skew: attempts {seqs} vs "
+                                 f"phase 13 {DIST_SKEW_SEQ}")
+        for _, _, res in runs:
+            launches += res["launches"]
+        log(f"phase 17 (c): skew at {SKEW_N} rows: both processes equal "
+            f"numpy and took the same options"
+            + (" as phase 13 (c)" if DIST_SKEW_SEQ else "")
+            + f" {seqs[0]}; {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        runs = mp_pair("basic", out_dir, {"BALLISTA_CRASH_WORKER": "1"},
+                       limit=MP_PEER_TIMEOUT_S + 120)
+        (rc0, lines0, res0), (rc1, _, _) = runs
+        lost = time.perf_counter() - t0
+        if rc1 != 17 or rc0 == 0 or res0 is not None:
+            raise AssertionError(f"phase 17 (c) crash: exit codes {rc0}, "
+                                 f"{rc1}: {lines0[-20:]}")
+        log(f"phase 17 (c): crash: worker 1 exited 17 after joining; worker "
+            f"0 exited {rc0} without an answer after {lost:.1f} s (peer "
+            f"timeout {MP_PEER_TIMEOUT_S} s): {lines0[-1] if lines0 else ''}")
+        t0 = time.perf_counter()
+        runs = mp_pair("rerun", out_dir)
+        _mp_check("rerun", runs)
+        for _, _, res in runs:
+            launches += res["launches"]
+        log(f"phase 17 (c): a fresh pair answers Q1 exactly; "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return launches, held
+
+
+def rest_flightsql():
+    """(d): the Flight SQL codecs round-trip (pure Python, no pyarrow);
+    then, without pyarrow, `serve --flight-port` and `datagen --chunks`
+    raise an ImportError that names it; with it, they run."""
+    from ballista_tpu_torch import flightsql as fsql
+    from ballista_tpu_torch import serve
+    from ballista_tpu_torch.datagen.__main__ import main as datagen
+    t0 = time.perf_counter()
+    q = "select l_returnflag, count(*) from lineitem group by 1 -- é"
+    checks = [
+        (fsql.parse_statement_query(
+            fsql.unpack_any(fsql.command_statement_query(q))[1]), q),
+        (fsql.parse_ticket_statement(fsql.unpack_any(
+            fsql.ticket_statement_query(b"h\x00\xff"))[1]), b"h\x00\xff"),
+        (fsql.parse_get_tables(fsql.unpack_any(fsql.command_get_tables(
+            "ballista", "pub%", "line%", ("TABLE",), True))[1]),
+         {"catalog": "ballista", "db_schema_filter": "pub%",
+          "table_name_filter": "line%", "table_types": ("TABLE",),
+          "include_schema": True}),
+        (fsql.parse_get_sql_info(fsql.unpack_any(
+            fsql.command_get_sql_info((0, 1, 500)))[1]), (0, 1, 500)),
+        (fsql.parse_do_put_update_result(fsql.do_put_update_result(2 ** 40)),
+         2 ** 40),
+        (fsql.unpack_any(fsql.command_get_catalogs()),
+         ("CommandGetCatalogs", b"")),
+    ]
+    for got, want in checks:
+        if got != want:
+            raise AssertionError(f"phase 17 (d): {got!r} != {want!r}")
+    log(f"phase 17 (d): {len(checks)} Flight SQL messages round-trip "
+        f"through ballista_tpu_torch.flightsql on this host "
+        f"({(time.perf_counter() - t0) * 1000:.2f} ms)")
+    try:
+        import pyarrow.flight  # noqa: F401
+        import pyarrow.parquet  # noqa: F401
+    except ImportError as e:
+        log(f"phase 17 (d): no pyarrow here ({e})")
+        rest_without_pyarrow(serve, datagen)
+    else:
+        rest_with_pyarrow(datagen)
+
+
+def rest_without_pyarrow(serve, datagen):
+    """(d) without pyarrow: `serve --flight-port` and `datagen --chunks`
+    raise an ImportError naming it, before serving or writing anything."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, call in (
+                ("serve --flight-port", lambda: serve.main(
+                    ["--flight-port", "8815", "--device", "cuda", "--port",
+                     "0"])),
+                ("datagen --chunks", lambda: datagen(
+                    ["--sf", "0.01", "--chunks", "2", "--out",
+                     os.path.join(tmp, "chunks")]))):
+            try:
+                call()
+            except ImportError as e:
+                if "pyarrow" not in str(e):
+                    raise
+                log(f"phase 17 (d): {what} raises ImportError: {e}")
+            else:
+                raise AssertionError(f"phase 17 (d): {what} did not raise")
+        if os.listdir(tmp):
+            raise AssertionError("phase 17 (d): datagen --chunks wrote "
+                                 f"{os.listdir(tmp)}")
+
+
+def rest_with_pyarrow(datagen):
+    """(d) where pyarrow is installed: `datagen --chunks 3 --workers 2`
+    writes orders at SF 0.1, it registers as a parquet dataset on the
+    card, and a Flight SQL server over that context answers as the
+    context does."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from ballista_tpu_torch.flight import BallistaFlightServer, flight_query
+    out = os.path.join(os.path.dirname(TBL_DIR), "chunks_sf01")
+    sql = ("select o_orderpriority, count(*) n, sum(o_totalprice) p from "
+           "orders group by o_orderpriority order by o_orderpriority")
+    server = None
+    try:
+        t0 = time.perf_counter()
+        datagen(["--sf", "0.1", "--chunks", "3", "--workers", "2",
+                 "--tables", "orders", "--out", out])
+        wrote = time.perf_counter() - t0
+        ctx = SessionContext(device="cuda")
+        ctx.register_parquet_dataset("orders", os.path.join(out, "orders"),
+                                     TPCH_TABLES["orders"][1])
+        rows = pq.read_table(os.path.join(out, "orders")).num_rows
+        if not ctx.tables["orders"].num_rows == rows == 150_000:
+            raise AssertionError(f"phase 17 (d): {rows} orders")
+        direct = to_numpy(*ctx.sql(sql).collect())
+        server = BallistaFlightServer(ctx=ctx)
+        t0 = time.perf_counter()
+        got = flight_query(f"grpc://127.0.0.1:{server.port}", sql)
+        took = time.perf_counter() - t0
+        if got.column("n").to_pylist() != direct["n"][0].tolist() or \
+                sum(got.column("n").to_pylist()) != rows:
+            raise AssertionError(f"phase 17 (d): Flight {got} != {direct}")
+        log(f"phase 17 (d): pyarrow {pa.__version__} is installed here: "
+            f"datagen --chunks 3 --workers 2 wrote orders at SF 0.1 in "
+            f"{wrote:.2f} s; registered as a dataset on the card, a Flight "
+            f"SQL server over it answers as the context does ({took:.3f} s)")
+    finally:
+        if server is not None:
+            server.shutdown()
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_last(write_files):
+    """Phase 17. `write_files`: the .tbl files are written here (phase 16
+    did not run and leave them). Returns (kernel launches, the held
+    numbers of (a)'s Q1 call, those of (c)'s worker call)."""
+    import shutil
+    t_start = time.perf_counter()
+    launches = np.zeros(2, dtype=np.int64)
+    out = {}
+    try:
+        if write_files:
+            t0 = time.perf_counter()
+            tools_write()
+            log(f"phase 17: .tbl files written in "
+                f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        more, held = rest_lazy(out)
+        launches += more
+        log(f"phase 17 (a): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rest_native(out.pop("tables"))
+        log(f"phase 17 (b): {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(TBL_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    more, mp_held = rest_multiprocess()
+    launches += more
+    log(f"phase 17 (c): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rest_flightsql()
+    log(f"phase 17 (d): {time.perf_counter() - t0:.1f} s")
+    log(f"phase 17: {time.perf_counter() - t_start:.1f} s; kernel launches "
+        f"in this process and the workers {launches.tolist()}")
+    return launches, held, mp_held
+
+
 def main():
     t_script = time.perf_counter()
+    if sys.argv[1:2] == ["--mp-worker"]:
+        pid, nproc, port, scenario, out_dir = sys.argv[2:7]
+        mp_worker(int(pid), int(nproc), port, scenario, out_dir)
+        return
     alone = sys.argv[1:] in (["--distributed-only"], ["--wire-only"],
-                             ["--raw-only"], ["--tools-only"])
+                             ["--raw-only"], ["--tools-only"],
+                             ["--rest-only"])
     if sys.argv[1:] and not alone:
         print("usage: python3 chip_smoke.py [--distributed-only | "
-              "--wire-only | --raw-only | --tools-only]", file=sys.stderr)
+              "--wire-only | --raw-only | --tools-only | --rest-only]",
+              file=sys.stderr)
         sys.exit(2)
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -3653,10 +4105,28 @@ def main():
                          text=True, timeout=60, check=True).stdout.strip()
     log(smi)
 
+    # nvcc for the kernel and g++ for the native encoder, started together
+    from ballista_tpu_torch import native
+    built = {}
+
+    def build_native():
+        try:
+            built["native"] = native.build()
+        except Exception as e:  # noqa: BLE001 - raised below, in order
+            built["error"] = e
+
     t0 = time.perf_counter()
+    encoder = threading.Thread(target=build_native)
+    encoder.start()
     lib = masked_sums.build()
     log(f"phase 2: built {os.path.relpath(lib)} in "
         f"{time.perf_counter() - t0:.2f} s")
+    encoder.join()
+    if "error" in built:
+        raise built["error"]
+    NATIVE_BUILD_S[0] = native.build.seconds
+    log(f"phase 2: built {os.path.relpath(built['native'])} with g++ in "
+        f"{NATIVE_BUILD_S[0]:.2f} s (0: it was there), beside nvcc")
     # ptxas -v: registers and spills of every kernel instance
     entry = None
     for line in masked_sums.build.log.splitlines():
@@ -3678,6 +4148,9 @@ def main():
         elif sys.argv[1] == "--tools-only":
             launches, held = phase_tools_alone()
             err = held_err(held)
+        elif sys.argv[1] == "--rest-only":
+            launches, held, mp_held = phase_last(write_files=True)
+            err = max(held_err(held), held_err(mp_held))
         else:
             launches, held = phase_raw_alone()
             err = held_err(held)
@@ -3709,7 +4182,8 @@ def main():
     ctx.evict_device()
     tools_launches, tools_held = phase_tools(
         {name: (tp.fields, tp.host) for name, tp in ctx.tables.items()
-         if name in TPCH_TABLES})
+         if name in TPCH_TABLES}, keep_files=True)
+    last_launches, last_held, mp_held = phase_last(write_files=False)
 
     # one record for the kernel file; its times and bound are those of
     # Q1's own call through the entry the queries use. `entry_points`
@@ -3717,15 +4191,16 @@ def main():
     # the 22 queries', the analytic slice's and the client slice's first
     # runs, counted per wrapper, those the executor processes of phases
     # 14, 15 and 16 reported, and phase 16's runner, load test, scaling,
-    # Avro and plugin runs.
+    # Avro and plugin runs, and phase 17's, its worker processes' included.
     launches = (launches + join_launches + rest_launches + part_launches
                 + analytic_launches + client_launches + sf10_launches
                 + dist_launches + wire_launches + raw_launches
-                + tools_launches)
+                + tools_launches + last_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
                 part_err, analytic_err, client_err, sf10_err, dist_err,
                 held_err(wire_held_numbers), held_err(raw_held),
-                held_err(tools_held))
+                held_err(tools_held), held_err(last_held),
+                held_err(mp_held))
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]

@@ -165,10 +165,13 @@ def test_main_prints_table_and_json(data):
 
 
 def test_unported_flags_and_cuda_raise():
-    with pytest.raises(NotImplementedError, match="lazy"):
-        runner.run(SF, (1,), 1, lazy_ingest=True, device="cpu")
+    """--capacity-mode raises; --lazy-ingest is ported (it runs in
+    tests/test_torch_lazy_ingest.py) and, like every run, raises on a
+    device="cuda" without a card."""
     with pytest.raises(NotImplementedError, match="no effect"):
         runner.main(["--device", "cpu", "--capacity-mode", "exact"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             runner.run(SF, (1,), 1)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            runner.run(SF, (1,), 1, lazy_ingest=True)

@@ -109,9 +109,12 @@ def test_cli_arrow_formats_are_the_jax_cli_tables(tmp_path, fmt):
 
 @pytest.mark.parametrize("flag", [["--chunks", "2"], ["--workers", "2"]])
 def test_cli_chunked_flags_raise(tmp_path, flag):
+    """--chunks and --workers are ported (tests/test_torch_datagen_chunked.py);
+    they write parquet part files, so with another format they raise."""
     from ballista_tpu_torch.datagen.__main__ import main as port_main
-    with pytest.raises(NotImplementedError, match="generate_tpch_parquet"):
-        port_main(["--sf", str(SF), "--out", str(tmp_path), *flag])
+    with pytest.raises(ValueError, match="parquet part files"):
+        port_main(["--sf", str(SF), "--out", str(tmp_path), "--format",
+                   "tbl", "--chunks", "2", *flag])
 
 
 def _arrow_values(column, dtype):
