@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from .schema import (BOOL, DATE32, FLOAT32, FLOAT64, INT32, INT64, STRING,
-                     DataType, Field, Schema, TypeKind)
+                     DataType, Field, Schema, TypeKind, wide_to_decimal128,
+                     wide_to_ints)
 
 LANE = 128
 
@@ -48,8 +49,18 @@ RAW_DICT_MAX = 1 << 21
 _SAMPLE_ROWS = 1 << 16
 
 
+# most rows a batch may hold: row indices and counts are int32
+MAX_CAPACITY = (1 << 31) - LANE
+
+
 def round_capacity(n: int) -> int:
-    return max(LANE, -(-int(n) // LANE) * LANE)
+    """n rounded up to whole lanes; past int32 row indices it raises
+    (a capacity grown that far must not wrap)."""
+    cap = max(LANE, -(-int(n) // LANE) * LANE)
+    if cap > MAX_CAPACITY:
+        raise ValueError(f"capacity {cap} rows exceeds {MAX_CAPACITY}: row "
+                         "indices and counts are int32")
+    return cap
 
 
 class HostColumn(NamedTuple):
@@ -132,14 +143,16 @@ def row_mask(batch: Batch) -> torch.Tensor:
 
 
 def padded_upload(host: np.ndarray, capacity: int, device) -> torch.Tensor:
-    """A 1-D host array on `device`, zero-padded to `capacity` there: only
-    its own rows cross to the device."""
+    """A host array of rows (1-D, or (n, 2) words of a wide decimal) on
+    `device`, zero-padded to `capacity` rows there: only its own rows
+    cross to the device."""
     if len(host) > capacity:
         raise ValueError(f"{len(host)} rows exceed capacity {capacity}")
     if not host.flags.writeable:
         host = host.copy()
     src = torch.from_numpy(np.ascontiguousarray(host))
-    out = torch.zeros(capacity, dtype=src.dtype, device=device)
+    out = torch.zeros((capacity,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=device)
     out[:len(host)].copy_(src)
     return out
 
@@ -147,7 +160,7 @@ def padded_upload(host: np.ndarray, capacity: int, device) -> torch.Tensor:
 def make_column(values: np.ndarray, validity: np.ndarray, dtype: DataType,
                 capacity: int, device) -> Column:
     """Upload one host column, zero-padded to `capacity`."""
-    return Column(padded_upload(np.asarray(values, dtype=dtype.np_dtype),
+    return Column(padded_upload(host_values(values, dtype),
                                 capacity, device),
                   padded_upload(np.asarray(validity, dtype=bool), capacity,
                                 device))
@@ -184,21 +197,32 @@ def host_range_batch(columns, dtypes, lo: int, hi: int, capacity: int,
     dictionary, so every row range of a table shares one code space (a
     join or GROUP BY across ranges agrees); the table-wide dictionary and
     bounds stay in the table's schema."""
-    return upload_parts([([c.values[lo:hi]], [c.validity[lo:hi]], dt.np_dtype)
+    return upload_parts([([host_values(c.values[lo:hi], dt)],
+                          [c.validity[lo:hi]], dt.np_dtype)
                          for c, dt in zip(columns, dtypes)], capacity, device)
+
+
+def host_values(values, dtype: DataType) -> np.ndarray:
+    """A host column's values as the array its device column is made
+    from: a wide decimal's as (n, 2) int64 words."""
+    values = np.asarray(values, dtype=dtype.np_dtype)
+    return values.reshape(-1, 2) if dtype.is_wide else values
 
 
 def to_numpy(batch: Batch, schema: Schema) -> dict:
     """Live rows host-side: name -> (values ndarray, validity ndarray).
 
     Strings are decoded through the schema dictionary into object arrays;
-    decimals stay scaled int64."""
+    decimals stay scaled int64, wide decimals become Python ints (scaled;
+    an object array)."""
     n = int(batch.num_rows)
     out = {}
     for f, col in zip(schema.fields, batch.columns):
         data = col.data[:n].cpu().numpy()
         valid = col.validity[:n].cpu().numpy()
-        if f.dtype.kind is TypeKind.STRING:
+        if f.dtype.is_wide:
+            out[f.name] = (wide_to_ints(data), valid)
+        elif f.dtype.kind is TypeKind.STRING:
             d = schema.dictionary(f.name)
             if d is None:
                 d = np.array([], dtype=object)
@@ -635,7 +659,9 @@ def to_pandas(batch: Batch, schema: Schema):
     for f in schema.fields:
         data, valid = raw[f.name]
         if f.dtype.kind is TypeKind.DECIMAL:
-            vals = data.astype(np.float64) / (10 ** f.dtype.scale)
+            vals = np.asarray([float(v) for v in data], dtype=np.float64) \
+                if f.dtype.is_wide else data.astype(np.float64)
+            vals = vals / (10 ** f.dtype.scale)
             cols[f.name] = pd.Series(np.where(valid, vals, np.nan))
         elif f.dtype.kind is TypeKind.STRING:
             cols[f.name] = pd.Series(data, dtype=object)
@@ -699,12 +725,17 @@ def columns_to_arrow(fields, raw: dict):
         mask = ~valid
         if f.dtype.kind is TypeKind.DECIMAL:
             # decimal128: 16-byte little-endian two's complement, the
-            # scaled int64 and its sign extension
-            v = np.asarray(data, dtype=np.int64)
+            # scaled int64 and its sign extension (a wide decimal's Python
+            # ints: their low and high 64 bits)
+            if f.dtype.is_wide:
+                words = wide_to_decimal128(_ints_to_words(data))
+            else:
+                v = np.asarray(data, dtype=np.int64)
+                words = np.stack([v, v >> 63], axis=1)
             arrays.append(pa.Array.from_buffers(
-                af.type, len(v),
+                af.type, len(words),
                 [pa.array(np.asarray(valid, dtype=bool)).buffers()[1],
-                 pa.py_buffer(np.stack([v, v >> 63], axis=1).tobytes())]))
+                 pa.py_buffer(np.ascontiguousarray(words).tobytes())]))
         elif f.dtype.kind is TypeKind.STRING:
             arrays.append(pa.array(data, type=pa.string()))
         elif f.dtype.kind is TypeKind.DATE32:
@@ -713,6 +744,14 @@ def columns_to_arrow(fields, raw: dict):
         else:
             arrays.append(pa.array(data, type=af.type, mask=mask))
     return pa.Table.from_arrays(arrays, schema=arrow_schema)
+
+
+def _ints_to_words(values) -> np.ndarray:
+    """Python ints (a wide decimal's `to_numpy` values) as (n, 2) int64
+    words hi, lo with value = hi * 2^32 + lo."""
+    ints = [int(v) for v in values]
+    return np.array([[v >> 32, v & 0xFFFFFFFF] for v in ints],
+                    dtype=np.int64).reshape(-1, 2)
 
 
 def to_arrow(batch: Batch, schema: Schema):

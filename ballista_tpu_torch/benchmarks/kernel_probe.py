@@ -15,7 +15,15 @@ work alone (the calls queued behind a spinning kernel), and the host time
 of one call. A variant is a comma-separated list of NAME=VALUE over the
 `constexpr int NAME = VALUE;` lines of csrc/masked_slot_sums.cu; the
 variant sources are written beside the built libraries and nothing in the
-package changes.
+package changes. `--source PATH` (repeatable) times another source file
+after them, in the order given: to hold a change against its parent on one
+card, unpack the parent's source (`git show
+PARENT:ballista_tpu_torch/csrc/masked_slot_sums.cu > build/parent.cu`) and
+pass `--source build/parent.cu --source
+ballista_tpu_torch/csrc/masked_slot_sums.cu --source build/parent.cu`
+(change, parent, change, parent). A source with
+the half-word read mode is also timed on Q1's rows with the fifth sum read
+as HI and LO (a wide sum, twelve rows). `--n` sets the rows.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from __future__ import annotations
 import argparse
 import re
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -50,7 +59,11 @@ def main():
                          "constexpr ints")
     ap.add_argument("--slots", type=int, nargs="+",
                     default=[1, 2, 4, 6, 8, 12, 16, 26])
+    ap.add_argument("--source", action="append", default=[],
+                    help="another kernel source file to time, in order")
+    ap.add_argument("--n", type=int, default=N, help="rows per call")
     args = ap.parse_args()
+    n = args.n
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -59,29 +72,35 @@ def main():
     source = m.SOURCE.read_text()
 
     g = torch.Generator().manual_seed(1)
-    contribs = torch.randint(-2 ** 40, 2 ** 40, (11, N), generator=g,
+    contribs = torch.randint(-2 ** 40, 2 ** 40, (11, n), generator=g,
                              dtype=torch.int64).cuda()
-    uniform = torch.randint(0, 2 ** 20, (N,), generator=g,
+    uniform = torch.randint(0, 2 ** 20, (n,), generator=g,
                             dtype=torch.int32).cuda()
-    valid = [torch.ones(N, dtype=torch.bool).cuda() for _ in range(5)]
+    valid = [torch.ones(n, dtype=torch.bool).cuda() for _ in range(5)]
     rows = [(None, None)] + [(None, v) for v in valid] \
         + [(contribs[i], v) for i, v in enumerate(valid)]
-    pick = torch.rand(N, generator=g).cuda()
+    halves = rows[:-1] + [(contribs[4], valid[4], m.HI),
+                          (contribs[4], valid[4], m.LO)]
+    pick = torch.rand(n, generator=g).cuda()
     sparse = {"T=1, 2 % live": (torch.where(pick < 0.02, 0, 1), 1),
               "T=1, 0.002 % live": (torch.where(pick < 0.00002, 0, 1), 1),
               "T=26, 0.125 % live": (torch.where(pick < 0.00125, 3, 26), 26)}
     three = contribs[:3]
 
-    for spec in [""] + args.variant:
-        text = source
-        for pair in filter(None, spec.split(",")):
-            name, value = pair.split("=")
-            text, hits = re.subn(rf"(constexpr int {name} = )\d+;",
-                                 rf"\g<1>{value};", text)
-            if hits != 1:
-                raise SystemExit(f"no constexpr int {name} in the source")
+    runs = [("", source)] + [(spec, None) for spec in args.variant] + [
+        (path, Path(path).read_text()) for path in args.source]
+    for k, (spec, text) in enumerate(runs):
+        if text is None:
+            text = source
+            for pair in filter(None, spec.split(",")):
+                name, value = pair.split("=")
+                text, hits = re.subn(rf"(constexpr int {name} = )\d+;",
+                                     rf"\g<1>{value};", text)
+                if hits != 1:
+                    raise SystemExit(f"no constexpr int {name} in the "
+                                     "source")
         label = spec or "source"
-        regs = _build(text, re.sub(r"\W", "_", label))
+        regs = _build(text, f"{k}_" + re.sub(r"\W", "_", label))
         print(f"{label}: ptxas {regs}", flush=True)
 
         def report(what, fn):
@@ -99,6 +118,13 @@ def main():
                    lambda: m.masked_slot_sums(slot, contribs, T))
             report(f"rows Q1-shaped T={T} dense",
                    lambda: m.masked_slot_sums_rows(slot, rows, T))
+            if "half_of" in text:
+                if not torch.equal(
+                        m.masked_slot_sums_rows(slot, halves, T),
+                        m.masked_slot_sums_rows_reference(slot, halves, T)):
+                    raise SystemExit(f"{label}: half rows != plain at T={T}")
+                report(f"rows Q1-shaped, a sum as HI and LO, T={T} dense",
+                       lambda: m.masked_slot_sums_rows(slot, halves, T))
         for what, (slot, T) in sparse.items():
             slot = slot.to(torch.int32)
             if not torch.equal(m.masked_slot_sums(slot, three, T),

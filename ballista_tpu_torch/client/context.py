@@ -144,11 +144,18 @@ class TableProvider:
         return B.round_capacity(self.num_rows)
 
     @property
+    def eager_meta(self) -> bool:
+        """Whether reading the schema ingests every string column (a
+        table of at most `eager_meta_rows()` rows); otherwise the lexical
+        pre-pass and `rebind_scans` name what is ingested."""
+        return self.num_rows <= eager_meta_rows()
+
+    @property
     def schema(self) -> Schema:
         """The fields, with the dictionaries, bounds and RAW flags of the
         columns ingested so far (every string column's, for a table of at
         most `eager_meta_rows()` rows)."""
-        if self.num_rows <= eager_meta_rows():
+        if self.eager_meta:
             self.ensure_meta([f.name for f in self.fields
                               if f.dtype.kind is TypeKind.STRING])
         done = self.host.ingested
@@ -159,7 +166,8 @@ class TableProvider:
                        if h.dictionary is not None},
                       {n: h.bounds for n, h in cols.items()
                        if h.bounds is not None},
-                      {n for n, h in cols.items() if h.raw})
+                      {n for n, h in cols.items() if h.raw}, self.num_rows,
+                      {f.name for f in self.fields} - done)
 
     def ensure_meta(self, names) -> None:
         """Ingest the host half of the columns in `names` that are not
@@ -220,12 +228,17 @@ class ParquetDatasetProvider(TableProvider):
     reference's out-of-core scan plane, `datagen --chunks` layout).
 
     Row counts and types come from parquet metadata. A column's
-    dictionary and bounds (what binding needs) are read one part file at a
-    time, on first use (`ensure_meta`). The serial runtime reads one row
-    range at a time (`range_table`), encoding strings against the
-    table-wide dictionaries. A query that runs in-core reads whole columns
-    through `arrow_table`, the escape hatch, which materializes the table
-    (and logs that it did). pyarrow is imported where it is used."""
+    dictionary and bounds (what binding needs) are read on first use
+    (`ensure_meta`): bounds from the part files' column statistics where
+    every row group has them, else one part file at a time; a string
+    column's dictionary one part file at a time. A query that runs in-core
+    reads each column it needs across the part files, one column at a
+    time (`_host_column`: a single column fits host memory at scales where
+    the whole table does not); the serial runtime reads one row range at a
+    time (`range_table`). Strings are encoded against the table-wide
+    dictionaries. `read_bytes` counts the decoded bytes read so far.
+    `arrow_table` materializes the whole table: an escape hatch that no
+    query path takes. pyarrow is imported where it is used."""
 
     def __init__(self, name: str, directory: str, device: torch.device,
                  primary_key=None):
@@ -242,46 +255,115 @@ class ParquetDatasetProvider(TableProvider):
         # column -> (table-wide dictionary or None, bounds or None)
         self._meta: Dict[str, tuple] = {}
         self._materialized = None
+        self.read_bytes = 0
+        # column -> seconds its metadata took to read (`ensure_meta`;
+        # columns read together share their call's seconds)
+        self.meta_seconds: Dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    # reading the schema reads nothing, whatever the row count
+    eager_meta = False
 
     @property
     def schema(self) -> Schema:
         """The fields, with the dictionaries and bounds read so far."""
         dicts = {n: d for n, (d, _) in self._meta.items() if d is not None}
         bounds = {n: b for n, (_, b) in self._meta.items() if b is not None}
-        return Schema(self.fields, dicts, bounds)
+        return Schema(self.fields, dicts, bounds, rows=self.num_rows,
+                      pending={f.name for f in self.fields} - set(self._meta))
+
+    def _read(self, path: str, columns):
+        """One part file's `columns` as an arrow table, counted; string
+        columns as dictionary arrays (what the writer stored), so that no
+        value is decoded per row."""
+        import pyarrow.parquet as pq
+        strings = {f.name for f in self.fields
+                   if f.dtype.kind is TypeKind.STRING}
+        t = pq.read_table(path, columns=list(columns),
+                          read_dictionary=[c for c in columns
+                                           if c in strings])
+        with self._lock:
+            self.read_bytes += t.nbytes
+        return t
+
+    def _per_file(self, fn, files=None):
+        """fn(file index) for every part file (or the indices `files`), in
+        a pool of BALLISTA_INGEST_WORKERS threads (default: one per core;
+        parquet decoding lets go of the GIL); the results in order."""
+        files = range(len(self.files)) if files is None else list(files)
+        workers = min(int(os.environ.get("BALLISTA_INGEST_WORKERS",
+                                         os.cpu_count() or 1)), len(files))
+        if workers <= 1:
+            return [fn(i) for i in files]
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(fn, files))
+
+    def _stat_bounds(self, name: str, dtype):
+        """(min, max) of a numeric column from the part files' column
+        statistics, in the engine's representation; None unless every
+        row group of every file has them."""
+        import pyarrow.parquet as pq
+        lo = hi = None
+        idx = self._arrow_schema.get_field_index(name)
+        for f in self.files:
+            md = pq.ParquetFile(f).metadata
+            for g in range(md.num_row_groups):
+                col = md.row_group(g).column(idx)
+                st = col.statistics
+                all_null = (st is not None and st.has_null_count
+                            and st.null_count == col.num_values)
+                if col.num_values == 0 or all_null:
+                    continue
+                if st is None or not st.has_min_max:
+                    return None
+                a, b = (_stat_value(v, dtype) for v in (st.min, st.max))
+                if a is None or b is None:
+                    return None
+                lo = a if lo is None else min(lo, a)
+                hi = b if hi is None else max(hi, b)
+        return None if lo is None else (lo, hi)
 
     def ensure_meta(self, names) -> None:
         """Read the dictionary and bounds of each column in `names` that
-        has none yet, one part file at a time. A string column's
-        dictionary is the sorted union of the part files' distinct
-        values, whatever their count: the dataset is never read whole, so
-        it has no RAW columns (a RAW code is a row index into the whole
-        column)."""
-        import pyarrow.compute as pc
-        import pyarrow.parquet as pq
+        has none yet. A string column's dictionary is the sorted union of
+        the part files' distinct values, whatever their count: the dataset
+        is never read whole, so it has no RAW columns (a RAW code is a row
+        index into the whole column). Nothing of a file is kept past it."""
+        import time
         dtypes = {f.name: f.dtype for f in self.fields}
         todo = [n for n in dict.fromkeys(names) if n not in self._meta]
+        for n in [n for n in todo if dtypes[n].kind in B._BOUNDED]:
+            t0 = time.perf_counter()
+            bounds = self._stat_bounds(n, dtypes[n])
+            if bounds is not None:
+                self._meta[n] = (None, bounds)
+                self.meta_seconds[n] = time.perf_counter() - t0
+        todo = [n for n in todo if n not in self._meta]
         if not todo:
             return
-        parts = {n: [] for n in todo}
-        for f in self.files:
-            t = pq.read_table(f, columns=todo)
-            for n in todo:
-                parts[n].append(
-                    np.asarray(pc.unique(pc.drop_null(t.column(n))),
-                               dtype=object).astype(str)
-                    if dtypes[n].kind is TypeKind.STRING
-                    else B.ingest_arrow_column(t.column(n), dtypes[n]))
-        for n, cols in parts.items():
-            dictionary = None
+        t0 = time.perf_counter()
+
+        def one(i):
+            t = self._read(self.files[i], todo)
+            return {n: (_distinct_strings(t.column(n))
+                        if dtypes[n].kind is TypeKind.STRING
+                        else B.ingest_arrow_column(t.column(n),
+                                                   dtypes[n]).bounds)
+                    for n in todo}
+        parts = self._per_file(one)
+        for n in todo:
+            dictionary, bounds = None, None
             if dtypes[n].kind is TypeKind.STRING:
                 dictionary = np.unique(np.concatenate(
-                    [np.zeros(0, dtype=str)] + cols)).astype(object)
-                cols = []
-            spans = [c.bounds for c in cols if c.bounds is not None]
-            bounds = ((min(b[0] for b in spans), max(b[1] for b in spans))
-                      if spans else None)
+                    [np.zeros(0, dtype=str)] + [p[n] for p in parts])
+                ).astype(object)
+            else:
+                spans = [p[n] for p in parts if p[n] is not None]
+                if spans:
+                    bounds = (min(b[0] for b in spans),
+                              max(b[1] for b in spans))
             self._meta[n] = (dictionary, bounds)
+            self.meta_seconds[n] = time.perf_counter() - t0
 
     def dataset_dictionaries(self, columns=None) -> dict:
         """The table-wide sorted dictionary of each string column in
@@ -296,18 +378,16 @@ class ParquetDatasetProvider(TableProvider):
         """Global row range [lo, hi) as an arrow table, reading only the
         part files that overlap it."""
         import pyarrow as pa
-        import pyarrow.parquet as pq
-        pieces, start = [], 0
-        for f, n in zip(self.files, self._file_rows):
-            end = start + n
-            if end > lo and start < hi:
-                t = pq.read_table(f, columns=list(columns) if columns
-                                  else None)
-                pieces.append(t.slice(max(lo - start, 0),
-                                      min(hi, end) - max(lo, start)))
-            start = end
-            if start >= hi:
-                break
+        names = list(columns) if columns else self._arrow_schema.names
+        starts = np.concatenate([[0], np.cumsum(self._file_rows)])
+        overlap = [i for i in range(len(self.files))
+                   if starts[i + 1] > lo and starts[i] < hi]
+
+        def one(i):
+            return self._read(self.files[i], names).slice(
+                max(lo - starts[i], 0),
+                min(hi, starts[i + 1]) - max(lo, starts[i]))
+        pieces = self._per_file(one, overlap)
         if not pieces:
             sch = self._arrow_schema if columns is None else pa.schema(
                 [self._arrow_schema.field(c) for c in columns])
@@ -316,27 +396,69 @@ class ParquetDatasetProvider(TableProvider):
 
     @property
     def arrow_table(self):
-        """The whole table, read once: the escape hatch for a query that
-        runs in-core; the serial runtime reads ranges instead."""
+        """The whole table, read once: an escape hatch for a caller that
+        wants it; no query path reads it (in-core queries read column by
+        column, the serial runtime range by range)."""
         if self._materialized is None:
             import pyarrow as pa
             import pyarrow.parquet as pq
             logging.getLogger("ballista_tpu_torch.context").warning(
-                "materializing the parquet dataset %s (%d rows); the serial "
-                "runtime would read it range by range", self.name,
+                "materializing the parquet dataset %s (%d rows)", self.name,
                 self.num_rows)
             self._materialized = pa.concat_tables(
                 pq.read_table(f) for f in self.files)
         return self._materialized
 
     def _encode(self, table, name: str) -> B.HostColumn:
+        """Column `name` of `table` encoded against the table-wide
+        dictionary: a dictionary array through its dictionary (one lookup
+        per distinct value), any other column through ingest."""
+        import pyarrow as pa
         dtypes = {f.name: f.dtype for f in self.fields}
         self.ensure_meta([name])
-        return B.ingest_arrow_column(table.column(name), dtypes[name],
-                                     dictionary=self._meta[name][0])
+        col = table.column(name)
+        dictionary = self._meta[name][0]
+        if not pa.types.is_dictionary(col.type):
+            return B.ingest_arrow_column(col, dtypes[name],
+                                         dictionary=dictionary)
+        from ..exprs import dict_str
+        table_wide = dict_str(dictionary)
+        codes, valid = [], []
+        for chunk in col.chunks:
+            local = np.asarray(chunk.dictionary.to_pylist(), dtype=object)
+            lut = np.searchsorted(table_wide, local.astype(str)).astype(
+                np.int32) if len(local) else np.zeros(1, dtype=np.int32)
+            idx = np.asarray(chunk.indices.fill_null(0))
+            codes.append(lut[idx])
+            valid.append(np.asarray(chunk.is_valid()) if chunk.null_count
+                         else np.ones(len(chunk), dtype=bool))
+        validity = (np.concatenate(valid) if valid
+                    else np.zeros(0, dtype=bool))
+        values = (np.concatenate(codes) if codes
+                  else np.zeros(0, dtype=np.int32))
+        return B.HostColumn(np.where(validity, values, 0).astype(np.int32),
+                            validity, dictionary, None)
 
     def _host_column(self, name: str) -> B.HostColumn:
-        return self._encode(self.arrow_table, name)
+        """Column `name` across the part files, each file read and encoded
+        alone into its rows of one preallocated array: the host holds the
+        column once, plus a pool's worth of part files."""
+        from ..exprs import dict_str
+        dtype = {f.name: f.dtype for f in self.fields}[name]
+        self.ensure_meta([name])
+        dictionary, bounds = self._meta[name]
+        if dictionary is not None:
+            dict_str(dictionary)    # made once, before the pool uses it
+        values = np.empty(self.num_rows, dtype=dtype.np_dtype)
+        validity = np.empty(self.num_rows, dtype=bool)
+        starts = np.concatenate([[0], np.cumsum(self._file_rows)])
+
+        def one(i):
+            h = self._encode(self._read(self.files[i], [name]), name)
+            values[starts[i]:starts[i + 1]] = h.values
+            validity[starts[i]:starts[i + 1]] = h.validity
+        self._per_file(one)
+        return B.HostColumn(values, validity, dictionary, bounds)
 
     def range_batch(self, names, lo: int, hi: int, capacity: int,
                     device) -> B.Batch:
@@ -345,6 +467,39 @@ class ParquetDatasetProvider(TableProvider):
         return B.host_range_batch([self._encode(t, n) for n in names],
                                   [dtypes[n] for n in names], 0, hi - lo,
                                   capacity, device)
+
+
+def _distinct_strings(col) -> np.ndarray:
+    """The distinct non-NULL values of an arrow string column (dictionary
+    chunks: the values their indices use) as a numpy str array."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    parts = []
+    for chunk in col.chunks:
+        if pa.types.is_dictionary(chunk.type):
+            chunk = chunk.dictionary.take(pc.unique(pc.drop_null(
+                chunk.indices)))
+        parts.append(np.asarray(pc.unique(pc.drop_null(chunk)),
+                                dtype=object).astype(str))
+    return (np.unique(np.concatenate(parts)) if parts
+            else np.zeros(0, dtype=str))
+
+
+def _stat_value(v, dtype):
+    """A parquet statistics value in the engine's representation (scaled
+    integer for a decimal, days for a date), or None where its type is not
+    the one expected."""
+    import datetime
+    import decimal as pydecimal
+    if dtype.kind is TypeKind.DECIMAL:
+        if isinstance(v, pydecimal.Decimal):
+            return int(v.scaleb(dtype.scale))
+        return None
+    if dtype.kind is TypeKind.DATE32:
+        if isinstance(v, datetime.date):
+            return (v - datetime.date(1970, 1, 1)).days
+        return None
+    return int(v) if isinstance(v, (int, np.integer)) else None
 
 
 def _is_masked_pair(value) -> bool:
@@ -595,15 +750,14 @@ class SessionContext:
             unique_cols=tuple(tuple(k) for k in self.unique_keys(name))))
 
     def _ensure_referenced_meta(self, query: str) -> None:
-        """The lexical pre-pass for tables above `eager_meta_rows()`,
-        whose schema ingests nothing: a column whose name is a word of
-        the query is ingested before planning, so that binding at logical
-        planning finds its dictionary; unreferenced columns stay as they
-        are."""
+        """The lexical pre-pass for tables whose schema ingests nothing
+        (above `eager_meta_rows()`, and parquet datasets): a column whose
+        name is a word of the query is ingested before planning, so that
+        binding at logical planning finds its dictionary; unreferenced
+        columns stay as they are."""
         words = set(re.findall(r"[a-zA-Z_][a-zA-Z0-9_]*", query.lower()))
-        eager = eager_meta_rows()
         for name, tp in self.tables.items():
-            if tp.num_rows <= eager or name.lower() not in words:
+            if tp.eager_meta or name.lower() not in words:
                 continue
             cols = [f.name for f in tp.fields if f.name.lower() in words]
             if cols:

@@ -14,7 +14,11 @@
 // that reads the same column. Both run the same two kernels.
 //
 // Exactness: sums are unsigned 64-bit adds, which wrap mod 2^64. Two's
-// complement makes that exact for signed int64 sums.
+// complement makes that exact for signed int64 sums whose total fits. A
+// decimal sum that may pass int64 (a "wide" sum) is described twice over
+// its one column, in the half-word read modes: HI adds v >> 32 (signed),
+// LO adds v & (2^32 - 1). Each half's sum over fewer than 2^31 rows fits
+// int64, and the caller joins them, (sum HI) * 2^32 + (sum LO), exactly.
 //
 // Bound: bytes. A live row needs its 4-byte slot and, per column, its data
 // element and validity byte; a dead row needs its slot only. On an H100
@@ -24,12 +28,14 @@
 // card's 64 integer lanes per multiprocessor are the second limit: twelve
 // compare-and-add pairs per value cost more than the value's load.
 //
-// Design (`slot_sums_tiles<TR>`): no atomic operation in the row loop.
-// A block walks tiles of TILE rows. A tile's slots are copied once into
-// shared memory with 16-byte asynchronous copies, one tile ahead of the
-// tile being summed (two buffers, one barrier per tile). Each warp owns one
-// described column (and, where there are fewer columns than 8, one of S
-// interleaved shares of the tile's rows): a lane takes two neighbouring
+// Design (`slot_sums_tiles<TR, HALVES>`): no atomic operation in the row
+// loop. A launch without half-word rows takes the HALVES = false instance,
+// in which every read is WHOLE at compile time. A block walks tiles of
+// TILE rows. A tile's slots are copied once into shared memory with
+// 16-byte asynchronous copies, one tile ahead of the tile being summed
+// (two buffers, one barrier per tile). Each warp owns one described
+// column (and, where there are fewer columns than 8, one of S interleaved
+// shares of the tile's rows): a lane takes two neighbouring
 // rows at a time, so an int64 column is read with 16-byte loads, four of
 // them in flight per lane, through the streaming path (`__ldcs`) so that
 // the columns do not evict the slots. Dead rows stay free: a lane first
@@ -102,21 +108,29 @@ struct Rows {
   const void* data[MAX_ROWS];            // null: every contribution is 1
   const unsigned char* valid[MAX_ROWS];  // null: every row is valid
   int width[MAX_ROWS];                   // bytes per data element: 8, 4 or 0
+  int half[MAX_ROWS];                    // WHOLE, HI or LO of each value
   int sum_cell[MAX_ROWS];
   int count_cell[MAX_ROWS];
   int out_col[2 * MAX_ROWS];
   int outputs;
 };
 
+// the part of a value a row adds: all of it, or one half of its 64 bits
+enum Half { WHOLE = 0, HI = 1, LO = 2 };
+__device__ __forceinline__ long long half_of(long long v, int half) {
+  return half == WHOLE ? v : half == HI ? (v >> 32) : (v & 0xffffffffLL);
+}
+
 // contribution of one row, scalar loads; `ok` is the row's validity
 __device__ __forceinline__ long long contribution(const void* data, int width,
+                                                  int half,
                                                   const unsigned char* valid,
                                                   int64_t i, int& ok) {
   long long v = 1;
   if (width == 8) {
-    v = __ldcs(static_cast<const long long*>(data) + i);
+    v = half_of(__ldcs(static_cast<const long long*>(data) + i), half);
   } else if (width == 4) {
-    v = __ldcs(static_cast<const int*>(data) + i);
+    v = half_of(__ldcs(static_cast<const int*>(data) + i), half);
   }
   ok = valid == nullptr || __ldcs(valid + i) != 0;
   return ok ? v : 0;
@@ -156,7 +170,9 @@ __device__ __forceinline__ void stage_slots(
 
 // TR > 0: T == TR accumulators in registers. TR == 0: T at run time, the
 // accumulators in shared memory, a column of T for every lane.
-template <int TR>
+// HALVES: a launch with half-word rows; without, the read mode is WHOLE
+// at compile time and the instance is the plain one
+template <int TR, bool HALVES>
 __global__ void slot_sums_tiles(const int32_t* __restrict__ row_slot,
                                 const Rows rows, int64_t n, int T, int A,
                                 int S, int fused, int ldo,
@@ -205,6 +221,7 @@ __global__ void slot_sums_tiles(const int32_t* __restrict__ row_slot,
   const void* data = rows.data[a];
   const unsigned char* valid = rows.valid[a];
   const int width = rows.width[a];
+  const int half = HALVES ? rows.half[a] : WHOLE;
   // rows are taken in pairs (2p - odd, 2p - odd + 1), aligned for `data`
   const int odd = width == 8 ? (reinterpret_cast<uintptr_t>(data) >> 3) & 1
                 : width == 4 ? (reinterpret_cast<uintptr_t>(data) >> 2) & 1
@@ -303,6 +320,14 @@ __global__ void slot_sums_tiles(const int32_t* __restrict__ row_slot,
             y[u] = 1;
           }
         }
+        if (half != WHOLE) {
+          // a wide sum's half: one warp-uniform branch per round
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            x[u] = half_of(x[u], half);
+            y[u] = half_of(y[u], half);
+          }
+        }
         if (valid_pairs) {
 #pragma unroll
           for (int u = 0; u < UNROLL; ++u) {
@@ -365,11 +390,13 @@ __global__ void slot_sums_tiles(const int32_t* __restrict__ row_slot,
         const int64_t i0 = r0 + c * CHUNK + 2 * lane - odd;
         int ok = 0;
         if (static_cast<unsigned>(s0) < static_cast<unsigned>(T)) {
-          const long long v = contribution(data, width, valid, i0, ok);
+          const long long v =
+              contribution(data, width, half, valid, i0, ok);
           add(s0, v, ok);
         }
         if (static_cast<unsigned>(s1) < static_cast<unsigned>(T)) {
-          const long long v = contribution(data, width, valid, i0 + 1, ok);
+          const long long v =
+              contribution(data, width, half, valid, i0 + 1, ok);
           add(s1, v, ok);
         }
       }
@@ -469,7 +496,7 @@ __global__ void slot_sums_matched(const int32_t* __restrict__ row_slot,
             v[k] = a0 + k < A
                        ? static_cast<u64>(contribution(
                              rows.data[a0 + k], rows.width[a0 + k],
-                             rows.valid[a0 + k], i, ok[k]))
+                             rows.half[a0 + k], rows.valid[a0 + k], i, ok[k]))
                        : 0ULL;
           }
 #pragma unroll
@@ -509,7 +536,7 @@ inline bool fused(const Rows& rows, int A) {
   return false;
 }
 
-// shared memory of a slot_sums_tiles<0> block beyond its static part
+// shared memory of a slot_sums_tiles<0, *> block beyond its static part
 inline size_t column_bytes(const Rows& rows, int T, int A) {
   const size_t warps = A * row_shares(A);
   const size_t depth = fused(rows, A) ? 2 * T : T;
@@ -518,7 +545,7 @@ inline size_t column_bytes(const Rows& rows, int T, int A) {
 }
 constexpr size_t STATIC_BYTES = STAGES * SLOT_BUF * sizeof(int32_t) + 64;
 
-template <int TR>
+template <int TR, bool HALVES>
 cudaError_t launch_tiles(const int32_t* row_slot, const Rows& rows, int64_t n,
                          int T, int A, int ldo, u64* out, int sms,
                          int smem_limit, cudaStream_t stream) {
@@ -527,7 +554,7 @@ cudaError_t launch_tiles(const int32_t* row_slot, const Rows& rows, int64_t n,
   const size_t smem = TR > 0 ? 0 : column_bytes(rows, T, A);
   cudaError_t err = cudaSuccess;
   if (smem + STATIC_BYTES > 48 * 1024) {
-    err = cudaFuncSetAttribute(slot_sums_tiles<TR>,
+    err = cudaFuncSetAttribute(slot_sums_tiles<TR, HALVES>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_limit - static_cast<int>(STATIC_BYTES));
     if (err != cudaSuccess) return err;
@@ -537,14 +564,15 @@ cudaError_t launch_tiles(const int32_t* row_slot, const Rows& rows, int64_t n,
   int& per_sm = resident[{threads, smem}];
   if (per_sm == 0) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, slot_sums_tiles<TR>, threads, smem);
+        &per_sm, slot_sums_tiles<TR, HALVES>, threads, smem);
     if (err != cudaSuccess) return err;
   }
   const int64_t tiles = (n / 2 + 1 + TILE / 2 - 1) / (TILE / 2);
   int64_t grid = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   if (grid > tiles) grid = tiles;
-  slot_sums_tiles<TR><<<static_cast<int>(grid), threads, smem, stream>>>(
-      row_slot, rows, n, T, A, S, fused(rows, A), ldo, out);
+  slot_sums_tiles<TR, HALVES>
+      <<<static_cast<int>(grid), threads, smem, stream>>>(
+          row_slot, rows, n, T, A, S, fused(rows, A), ldo, out);
   return cudaGetLastError();
 }
 
@@ -576,19 +604,31 @@ cudaError_t launch_matched(const int32_t* row_slot, const Rows& rows,
 }
 
 // launch_tiles<T> for T in [1, TR]: one kernel instance per such T
-template <int TR>
+template <int TR, bool HALVES>
 cudaError_t launch_registers(const int32_t* row_slot, const Rows& rows,
                              int64_t n, int T, int A, int ldo, u64* out,
                              int sms, int smem_limit, cudaStream_t stream) {
   if (T == TR) {
-    return launch_tiles<TR>(row_slot, rows, n, T, A, ldo, out, sms, smem_limit,
-                            stream);
-  }
-  if constexpr (TR > 1) {
-    return launch_registers<TR - 1>(row_slot, rows, n, T, A, ldo, out, sms,
+    return launch_tiles<TR, HALVES>(row_slot, rows, n, T, A, ldo, out, sms,
                                     smem_limit, stream);
   }
+  if constexpr (TR > 1) {
+    return launch_registers<TR - 1, HALVES>(row_slot, rows, n, T, A, ldo, out,
+                                            sms, smem_limit, stream);
+  }
   return cudaErrorInvalidValue;
+}
+
+template <bool HALVES>
+cudaError_t launch_tiled(const int32_t* row_slot, const Rows& rows, int64_t n,
+                         int T, int A, int ldo, u64* out, int sms,
+                         int smem_limit, cudaStream_t stream) {
+  if (T <= REGISTER_T) {
+    return launch_registers<REGISTER_T, HALVES>(row_slot, rows, n, T, A, ldo,
+                                                out, sms, smem_limit, stream);
+  }
+  return launch_tiles<0, HALVES>(row_slot, rows, n, T, A, ldo, out, sms,
+                                 smem_limit, stream);
 }
 
 // Zeroes the whole T x ldo output first where `zero` says so (a call's
@@ -601,14 +641,14 @@ cudaError_t launch(const int32_t* row_slot, const Rows& rows, int64_t n, int T,
         out, 0, sizeof(u64) * static_cast<size_t>(T) * ldo, stream);
     if (err != cudaSuccess) return err;
   }
-  if (T <= REGISTER_T) {
-    return launch_registers<REGISTER_T>(row_slot, rows, n, T, A, ldo, out,
+  if (T <= REGISTER_T || column_bytes(rows, T, A) + STATIC_BYTES <=
+                             static_cast<size_t>(smem_limit)) {
+    bool halves = false;
+    for (int a = 0; a < A; ++a) halves = halves || rows.half[a] != WHOLE;
+    return halves ? launch_tiled<true>(row_slot, rows, n, T, A, ldo, out, sms,
+                                       smem_limit, stream)
+                  : launch_tiled<false>(row_slot, rows, n, T, A, ldo, out,
                                         sms, smem_limit, stream);
-  }
-  if (column_bytes(rows, T, A) + STATIC_BYTES <=
-      static_cast<size_t>(smem_limit)) {
-    return launch_tiles<0>(row_slot, rows, n, T, A, ldo, out, sms, smem_limit,
-                           stream);
   }
   return launch_matched(row_slot, rows, n, T, A, ldo, out, sms, smem_limit,
                         stream);
@@ -650,6 +690,7 @@ extern "C" int masked_slot_sums(const void* row_slot, const void* contribs,
     rows.data[a] = static_cast<const long long*>(contribs) + a * n;
     rows.valid[a] = nullptr;
     rows.width[a] = 8;
+    rows.half[a] = WHOLE;
     rows.sum_cell[a] = a;
     rows.count_cell[a] = -1;
     rows.out_col[a] = col0 + a;
@@ -663,9 +704,10 @@ extern "C" int masked_slot_sums(const void* row_slot, const void* contribs,
 
 // Contributions described by columns. `desc` holds five values per row:
 // the data column's address (0 for a row of ones), the validity column's
-// address (bytes; 0 for all valid), the bytes per data element (8 or 4),
-// the output column of the sum of data * valid, and the output column of
-// the sum of valid itself (negative for none).
+// address (bytes; 0 for all valid), the bytes per data element (8 or 4)
+// plus 256 times the half-word read mode (WHOLE, HI or LO), the output
+// column of the sum of data * valid, and the output column of the sum of
+// valid itself (negative for none).
 extern "C" int masked_slot_sums_rows(const void* row_slot,
                                      const long long* desc, long long n,
                                      int T, int A, void* out, int ldo,
@@ -677,7 +719,8 @@ extern "C" int masked_slot_sums_rows(const void* row_slot,
     const long long* d = desc + 5 * a;
     rows.data[a] = reinterpret_cast<const void*>(d[0]);
     rows.valid[a] = reinterpret_cast<const unsigned char*>(d[1]);
-    rows.width[a] = d[0] == 0 ? 0 : static_cast<int>(d[2]);
+    rows.width[a] = d[0] == 0 ? 0 : static_cast<int>(d[2] & 0xff);
+    rows.half[a] = static_cast<int>(d[2] >> 8);
     rows.out_col[rows.outputs] = static_cast<int>(d[3]);
     rows.sum_cell[a] = rows.outputs++;
     rows.count_cell[a] = -1;

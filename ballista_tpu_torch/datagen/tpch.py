@@ -28,7 +28,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from ..batch import HostColumn, _estimate_high_cardinality, raw_dict_max
-from ..schema import (DATE32, INT32, INT64, STRING, DataType, Field, decimal)
+from ..schema import (DATE32, INT32, INT64, STRING, DataType, Field, Schema,
+                      TypeKind, decimal)
 
 EPOCH = datetime.date(1970, 1, 1)
 
@@ -539,15 +540,41 @@ def _write_chunk(args) -> tuple:
     sf, out_dir, name, c, lo, hi, seed, row_group_rows = args
     import pyarrow.parquet as pq
 
-    from ..batch import columns_to_arrow, host_to_numpy
     fields, cols = (_GENERATORS[name](sf, seed) if lo is None
                     else generate_chunk(name, sf, lo, hi, seed))
-    t = columns_to_arrow(fields, host_to_numpy(fields, cols))
+    t = _chunk_table(fields, cols)
     path = os.path.join(out_dir, name, f"part_{c:04d}.parquet")
     tmp = f"{path}.tmp{os.getpid()}"
-    pq.write_table(t, tmp, row_group_size=row_group_rows)
+    # decimals of precision <= 18 as INT64, not 16-byte fixed-length
+    # arrays (the same logical type); strings handed over as dictionary
+    # arrays, so the writer hashes no row; no arrow schema stored, so they
+    # read back as plain strings
+    pq.write_table(t, tmp, row_group_size=row_group_rows,
+                   store_decimal_as_integer=True, store_schema=False)
     os.replace(tmp, path)
     return name, t.num_rows
+
+
+def _chunk_table(fields, cols):
+    """A chunk's host columns as an arrow table: strings as dictionary
+    arrays of their codes (no Python string per row), the other columns
+    through `batch.columns_to_arrow`."""
+    import pyarrow as pa
+
+    from ..batch import columns_to_arrow, host_to_numpy
+    plain = [f for f in fields if f.dtype.kind is not TypeKind.STRING]
+    rest = columns_to_arrow(plain, host_to_numpy(plain, cols))
+    arrays = []
+    for f in fields:
+        if f.dtype.kind is not TypeKind.STRING:
+            arrays.append(rest.column(f.name))
+            continue
+        h = cols[f.name]
+        codes = pa.array(h.values, mask=None if h.validity.all()
+                         else ~h.validity)
+        arrays.append(pa.DictionaryArray.from_arrays(
+            codes, pa.array(list(h.dictionary), pa.string())))
+    return pa.Table.from_arrays(arrays, names=[f.name for f in fields])
 
 
 def generate_tpch_parquet(sf: float, out_dir: str, n_chunks: int = 1,

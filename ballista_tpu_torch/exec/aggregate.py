@@ -15,7 +15,11 @@ import torch
 
 from ..batch import Batch, Column
 from ..exprs import Bound, Expr, _div_scaled, bind_expr, expr_name
-from ..schema import DataType, Field, FLOAT32, FLOAT64, INT64, Schema, TypeKind, decimal
+from ..schema import (MAX_WIDE, DataType, Field, FLOAT32, FLOAT64, INT64,
+                      Schema, TypeKind, decimal, join_wide, refuse_wide,
+                      split_wide, wide_decimal)
+
+INT64_MAX = (1 << 63) - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +32,10 @@ class AggExpr:
     distinct: bool = False
     arg2: Optional[Expr] = None     # corr's second argument
     frac: Optional[float] = None    # percentile fraction (median = 0.5)
+    # a decimal SUM whose exact total may pass int64 (`wide_sum`): its
+    # state and output are a wide decimal. Set when a plan is lowered
+    # (`planner.logical.Aggregate.sized_aggs`), never by the SQL planner
+    wide: bool = False
 
     @property
     def name(self) -> str:
@@ -54,6 +62,28 @@ def _sum_dtype(dt: DataType) -> DataType:
     return dt
 
 
+def wide_sum(arg_dtype: DataType, arg_bound: Optional[tuple],
+             rows: Optional[int]) -> bool:
+    """Whether a SUM over a decimal argument is wide: `rows` (the most
+    rows it may add; None when unknown) times the largest magnitude of
+    the argument's bound can pass 2^63 - 1, or either is unknown. Integer
+    sums stay int64 (as in the reference and DataFusion)."""
+    if arg_dtype.kind is not TypeKind.DECIMAL or arg_dtype.is_wide:
+        return False
+    if rows == 0:
+        return False
+    if rows is None or arg_bound is None:
+        return True
+    return rows * max(abs(int(arg_bound[0])), abs(int(arg_bound[1]))) \
+        > INT64_MAX
+
+
+def _wide_sum_dtype(dt: DataType) -> DataType:
+    """DataFusion's type of sum(decimal(p, s)): decimal(min(38, p + 10),
+    s), here in two words (at least 19 digits)."""
+    return wide_decimal(min(MAX_WIDE, max(dt.precision + 10, 19)), dt.scale)
+
+
 def _avg_dtype(dt: DataType) -> DataType:
     if dt.kind is TypeKind.DECIMAL:
         return decimal(18, min(dt.scale + 4, 12))
@@ -72,11 +102,14 @@ class BoundAgg:
         self.arg: Optional[Bound] = (
             bind_expr(spec.arg, in_schema) if spec.arg is not None else None)
         k = spec.kind
+        if self.arg is not None and k not in ("count", "count_star"):
+            refuse_wide(self.arg.dtype, f"{k}({expr_name(spec.arg)})")
         if k == "count_star" or k == "count":
             self.state_dtypes = [INT64]
             self.out_field = Field(spec.name, INT64, nullable=False)
         elif k == "sum":
-            st = _sum_dtype(self.arg.dtype)
+            st = (_wide_sum_dtype(self.arg.dtype) if spec.wide
+                  else _sum_dtype(self.arg.dtype))
             self.state_dtypes = [st]
             self.out_field = Field(spec.name, st, nullable=True)
         elif k in ("min", "max", "carry"):
@@ -126,37 +159,60 @@ class BoundAgg:
             data = data.to(torch.int64)
         return data, col.validity
 
+    @property
+    def wide(self) -> bool:
+        """A sum whose state is a wide decimal (two words)."""
+        return self.state_dtypes[0].is_wide
+
     def fused_requests(self, batch: Batch):
-        """(reqs, assemble) for an aggregate with `exact_sums`: reqs is a
-        list of (kind, data, validity) with kind 'sum' or 'count' ('count'
-        with data=None counts live rows); assemble maps the per-request
-        output Columns to this aggregate's state columns, with the values
-        and validities partial() gives."""
+        """(reqs, tags, assemble) for an aggregate with `exact_sums`: reqs
+        is a list of (kind, data, validity, half) with kind 'sum' or
+        'count' ('count' with data=None counts live rows) and half the
+        kernel's read mode of `data` (`masked_sums.WHOLE`, `HI`, `LO`: a
+        wide sum adds its argument's two halves apart); tags[i] names the
+        column request i reads (its argument), so requests of several
+        aggregates over one column share a row; assemble maps the
+        per-request output Columns to this aggregate's state columns, with
+        the values and validities partial() gives."""
+        from ..ops.masked_sums import HI, LO, WHOLE
         k = self.spec.kind
         if k == "count_star":
-            return [("count", None, None)], list
+            return [("count", None, None, WHOLE)], [None], list
         data, validity = self._arg_data(batch, keep_int32=True)
-        if k in ("count", "sum"):
-            return [(k, data, validity)], list
+        tag = self.spec.arg
+        if k == "count":
+            return [(k, data, validity, WHOLE)], [tag], list
+        if k == "sum" and self.wide:
+            return ([("sum", data, validity, HI), ("sum", data, validity, LO)],
+                    [tag, tag], _assemble_wide)
+        if k == "sum":
+            return [(k, data, validity, WHOLE)], [tag], list
         # avg
-        return ([("sum", data, validity), ("count", data, validity)],
+        return ([("sum", data, validity, WHOLE),
+                 ("count", data, validity, WHOLE)], [tag, tag],
                 lambda outs: [outs[0], _ones(outs[1])])
 
-    def fused_merge_requests(self, state_cols: List[Column]):
+    def fused_merge_requests(self, state_cols: List[Column], state_idx):
         """fused_requests for the final mode of an aggregate with
-        `exact_sums`: every state is an int64 sum or count, and merging it
-        is a sum over the partial states. Kind 'sum' is NULL where no
-        state of the group is valid; 'total' (a merged count) is always
-        valid."""
+        `exact_sums`: every state is an int64 sum or count (a wide sum's
+        state, two words), and merging it is a sum over the partial
+        states. Kind 'sum' is NULL where no state of the group is valid;
+        'total' (a merged count) is always valid. The tags are the state
+        columns' indices in the child (and a word's index)."""
+        from ..ops.masked_sums import WHOLE
         k = self.spec.kind
         s = state_cols[0]
         if k in ("count", "count_star"):
-            return [("total", s.data, s.validity)], list
+            return [("total", s.data, s.validity, WHOLE)], state_idx, list
+        if k == "sum" and self.wide:
+            return ([("sum", s.data[:, w], s.validity, WHOLE)
+                     for w in (0, 1)],
+                    [(state_idx[0], w) for w in (0, 1)], _assemble_wide)
         if k == "sum":
-            return [("sum", s.data, s.validity)], list
+            return [("sum", s.data, s.validity, WHOLE)], state_idx, list
         c = state_cols[1]   # avg
-        return ([("sum", s.data, s.validity), ("total", c.data, c.validity)],
-                list)
+        return ([("sum", s.data, s.validity, WHOLE),
+                 ("total", c.data, c.validity, WHOLE)], state_idx, list)
 
     def partial(self, batch: Batch, layout) -> List[Column]:
         """Raw rows -> per-group states over a layout (ops.segagg)."""
@@ -166,6 +222,11 @@ class BoundAgg:
         data, validity = self._arg_data(batch)
         if k == "count":
             return [Column(*layout.count(data, validity))]
+        if k == "sum" and self.wide:
+            hi, lo = split_wide(data)
+            (s_hi, v), (s_lo, _) = (layout.sum(hi, validity),
+                                    layout.sum(lo, validity))
+            return [Column(join_wide(s_hi, s_lo), v)]
         if k in ("sum", "min", "max", "carry"):
             return [Column(*getattr(layout, k)(data, validity))]
         if k == "avg":
@@ -204,6 +265,11 @@ class BoundAgg:
         if k in ("min", "max", "carry"):
             s = state_cols[0]
             return [Column(*getattr(layout, k)(s.data, s.validity))]
+        if k == "sum" and self.wide:
+            s = state_cols[0]
+            (s_hi, v), (s_lo, _) = (layout.sum(s.data[:, w].contiguous(),
+                                               s.validity) for w in (0, 1))
+            return [Column(join_wide(s_hi, s_lo), v)]
         merged = [layout.sum(sc.data, sc.validity) for sc in state_cols]
         if k == "sum":
             return [Column(*merged[0])]
@@ -231,6 +297,11 @@ class BoundAgg:
         td = out.torch_dtype
         d = s.data.to(td) / c.data.clamp(min=1).to(td)
         return Column(d, s.validity & (c.data > 0))
+
+
+def _assemble_wide(outs: List[Column]) -> List[Column]:
+    """A wide sum's state from its two word sums (hi, lo)."""
+    return [Column(join_wide(outs[0].data, outs[1].data), outs[0].validity)]
 
 
 def _finalize_moment(k: str, s1, s2, nn) -> Column:

@@ -45,6 +45,12 @@ _DTYPE_BYTES = {
     TypeKind.STRING: 4,      # dictionary codes (int32) on device
 }
 
+
+def _dtype_bytes(dtype) -> int:
+    """Device bytes per value (a wide decimal's two words)."""
+    return 16 if dtype.is_wide else _DTYPE_BYTES[dtype.kind]
+
+
 # Share of the card's memory a plan may allocate: the caching allocator
 # reserved at most 1.131x what the 16 TPC-H SF10 queries above 4 GiB
 # allocated at their peaks (`chip_smoke.py` phase 12 (a) on the H100;
@@ -61,7 +67,7 @@ ROUTE_FACTOR = 1.1
 
 def row_bytes(schema: Schema) -> int:
     """Per-row device bytes of one batch: data plane + validity bool."""
-    return sum(_DTYPE_BYTES[f.dtype.kind] + 1 for f in schema.fields)
+    return sum(_dtype_bytes(f.dtype) + 1 for f in schema.fields)
 
 
 def batch_bytes(schema: Schema, capacity: int) -> int:
@@ -82,7 +88,7 @@ def _out_bytes(node) -> int:
     if isinstance(node, ProjectExec):
         # every column gets a new validity; a bare column keeps its data
         return node.capacity * sum(
-            1 + (0 if _is_col(e) else _DTYPE_BYTES[f.dtype.kind])
+            1 + (0 if _is_col(e) else _dtype_bytes(f.dtype))
             for e, f in zip(node.exprs, node.schema.fields))
     if isinstance(node, FilterExec) and node.emit_sparse:
         return node.capacity                 # the keep mask
@@ -165,7 +171,7 @@ def _leaf_bytes(root) -> int:
             table = n.input_id.partition("::")[0]
             for f in n.schema.fields:
                 cols[(table, f.name)] = n.capacity * (
-                    _DTYPE_BYTES[f.dtype.kind] + 1)
+                    _dtype_bytes(f.dtype) + 1)
         for c in n.children:
             walk(c)
 

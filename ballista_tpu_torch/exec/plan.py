@@ -29,11 +29,11 @@ from ..ops.compact import compaction_perm, filter_batch, gather_batch
 from ..ops.expand_join import expand_join
 from ..ops.gather import gather_columns
 from ..ops.hash import _norm_keys, pack_key_columns, plan_key_packing
-from ..ops.masked_sums import masked_slot_sums_rows
+from ..ops.masked_sums import WHOLE, masked_slot_sums_rows
 from ..ops.merge_join import merge_full_unique, probe_unique
 from ..ops.sort import SortKeySpec, sort_batch
 from ..ops.vsort import compact_batch, sort_batch_columns
-from ..schema import FLOAT64, INT64, Field, Schema
+from ..schema import FLOAT64, INT64, Field, Schema, refuse_wide
 from .aggregate import AggExpr, BoundAgg, _avg_dtype
 
 # sorted-layout sentinel: dead rows sort behind every normalised key
@@ -322,6 +322,8 @@ class HashAggregateExec(ExecNode):
         # the value)
         self._group_bounds = [sorted_recode(bind_expr(e, in_schema))
                               for e in group_exprs]
+        for e, gb in zip(group_exprs, self._group_bounds):
+            refuse_wide(gb.dtype, f"GROUP BY {expr_name(e)}")
         self._group_names = (list(group_names) if group_names
                              else [expr_name(e) for e in group_exprs])
         self._key_nullables = [b.nullable for b in self._group_bounds]
@@ -528,29 +530,27 @@ class HashAggregateExec(ExecNode):
         child's int64 state columns, each summed once. Dead rows carry
         slot T, so a row only needs its argument's validity applied."""
         count_star = ("count", None)
-        rows = {count_star: (None, None)}   # key -> (data, validity)
+        rows = {count_star: (None, None)}   # key -> (data, validity[, half])
         plans = []
         for i, ba in enumerate(self._bound_aggs):
             if not ba.exact_sums:
                 plans.append((ba, None, None))
                 continue
             if self.mode == "final":
-                reqs, assemble = ba.fused_merge_requests(
-                    self._child_states(b, i))
-                tags = self._state_idx[i]
+                reqs, tags, assemble = ba.fused_merge_requests(
+                    self._child_states(b, i), self._state_idx[i])
             else:
-                reqs, assemble = ba.fused_requests(b)
-                tags = [ba.spec.arg if data is not None else None
-                        for _, data, _ in reqs]
+                reqs, tags, assemble = ba.fused_requests(b)
             # per request: (the row that holds its value, the count row
             # that says where it is valid, or None for everywhere)
             keys = []
-            for (kind, data, validity), tag in zip(reqs, tags):
-                count, total = ("count", tag), ("sum", tag)
+            for (kind, data, validity, half), tag in zip(reqs, tags):
+                count, total = ("count", tag), ("sum", tag, half)
                 if kind != "total":
                     rows.setdefault(count, (None, validity))
                 if kind != "count":
-                    rows.setdefault(total, (data, validity))
+                    rows.setdefault(total, (data, validity) if half == WHOLE
+                                    else (data, validity, half))
                 keys.append({"count": (count, None), "sum": (total, count),
                              "total": (total, None)}[kind])
             plans.append((ba, keys, assemble))
@@ -585,7 +585,8 @@ class HashAggregateExec(ExecNode):
         for c in out_cols:
             data, valid = c.data[:cap], c.validity[:cap]
             if T < cap:
-                data = torch.cat([data, data.new_zeros(cap - T)])
+                data = torch.cat([data, data.new_zeros(
+                    (cap - T,) + tuple(data.shape[1:]))])
                 valid = torch.cat([valid, valid.new_zeros(cap - T)])
             cols.append(Column(data, valid & live))
         return Batch(tuple(cols), n_groups)
@@ -655,6 +656,9 @@ class HashJoinExec(ExecNode):
         # dictionary keys also gain a packing bound of the dictionary size.
         self._key_luts: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         dict_bounds: Dict[int, tuple] = {}
+        for a, bn in self.on:
+            refuse_wide(build.schema.field(a).dtype, f"join key {a}")
+            refuse_wide(probe.schema.field(bn).dtype, f"join key {bn}")
         for ki, (a, bn) in enumerate(self.on):
             da = build.schema.dictionary(a)
             db = probe.schema.dictionary(bn)
@@ -1090,6 +1094,8 @@ class SortExec(ExecNode):
         # columns themselves keep their RAW codes
         self._key_bounds = [(sorted_recode(bind_expr(e, child.schema)), asc,
                              nf) for e, asc, nf in keys]
+        for (e, _, _), (kb, _, _) in zip(keys, self._key_bounds):
+            refuse_wide(kb.dtype, f"ORDER BY {expr_name(e)}")
 
     def evaluate(self, run):
         b = run.eval(self.children[0])

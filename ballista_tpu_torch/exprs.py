@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .schema import (BOOL, DATE32, DataType, Field, FLOAT32, FLOAT64, INT32,
-                     INT64, Schema, STRING, TypeKind, decimal)
+                     INT64, Schema, STRING, TypeKind, decimal, refuse_wide)
 from .batch import Batch, Column, _sorted_distinct
 
 # ---------------------------------------------------------------------------
@@ -452,6 +452,35 @@ def _trunc_div(a, b):
     return torch.div(a, b, rounding_mode="trunc")
 
 
+def _scaled_bound(b: Optional[tuple], k: int) -> Optional[tuple]:
+    """Value bounds of a scaled integer multiplied by 10^k (k >= 0), or
+    divided by 10^-k with rounding (k < 0: widened by one)."""
+    if b is None:
+        return None
+    if k >= 0:
+        return (b[0] * 10 ** k, b[1] * 10 ** k)
+    return (b[0] // 10 ** -k - 1, b[1] // 10 ** -k + 1)
+
+
+def _arith_bound(op: str, lb: Optional[tuple],
+                 rb: Optional[tuple]) -> Optional[tuple]:
+    """Interval arithmetic: the bounds of l op r for + - *."""
+    if lb is None or rb is None:
+        return None
+    if op == "+":
+        return (lb[0] + rb[0], lb[1] + rb[1])
+    if op == "-":
+        return (lb[0] - rb[1], lb[1] - rb[0])
+    ends = [x * y for x in lb for y in rb]
+    return (min(ends), max(ends))
+
+
+def _hull(bounds) -> Optional[tuple]:
+    if any(b is None for b in bounds) or not bounds:
+        return None
+    return (min(b[0] for b in bounds), max(b[1] for b in bounds))
+
+
 def _bind_arith(op: str, l: Bound, r: Bound) -> Bound:
     lt, rt = l.dtype, r.dtype
     dec = lt.kind is TypeKind.DECIMAL or rt.kind is TypeKind.DECIMAL
@@ -460,6 +489,8 @@ def _bind_arith(op: str, l: Bound, r: Bound) -> Bound:
         rs = rt.scale if rt.kind is TypeKind.DECIMAL else 0
         if op in ("+", "-"):
             ts = max(ls, rs)
+            ib = _arith_bound(op, _scaled_bound(l.int_bound, ts - ls),
+                              _scaled_bound(r.int_bound, ts - rs))
 
             def fn(batch):
                 lc, rc = l.fn(batch), r.fn(batch)
@@ -467,13 +498,16 @@ def _bind_arith(op: str, l: Bound, r: Bound) -> Bound:
                 b = _decimal_rescale(_i64(rc.data), rs, ts)
                 return Column(a + b if op == "+" else a - b,
                               lc.validity & rc.validity)
-            return Bound(decimal(18, ts), l.nullable or r.nullable, fn)
+            return Bound(decimal(18, ts), l.nullable or r.nullable, fn,
+                         int_bound=ib)
         if op == "*":
             def fn(batch):
                 lc, rc = l.fn(batch), r.fn(batch)
                 return Column(_i64(lc.data) * _i64(rc.data),
                               lc.validity & rc.validity)
-            return Bound(decimal(18, ls + rs), l.nullable or r.nullable, fn)
+            return Bound(decimal(18, ls + rs), l.nullable or r.nullable, fn,
+                         int_bound=_arith_bound("*", l.int_bound,
+                                                r.int_bound))
         if op == "/":
             # result scale: keep 4 extra digits beyond the wider input scale
             ts = min(max(ls, rs) + 4, 12)
@@ -601,7 +635,9 @@ def _bind_lit(e: Lit) -> Bound:
             v //= 10
             scale -= 1
         dtype = decimal(dtype.precision, scale)
-    return Bound(dtype, False, _const_column(v, dtype))
+    ib = (int(v), int(v)) if dtype.kind in (
+        TypeKind.DECIMAL, TypeKind.INT32, TypeKind.INT64) else None
+    return Bound(dtype, False, _const_column(v, dtype), int_bound=ib)
 
 
 def _bind_cast(c: Bound, dst: DataType) -> Bound:
@@ -620,7 +656,29 @@ def _bind_cast(c: Bound, dst: DataType) -> Bound:
         else:
             data = col.data.to(dst.torch_dtype)
         return Column(data, col.validity)
-    return Bound(dst, c.nullable, fn)
+    ib = None
+    if dst.kind is TypeKind.DECIMAL and (src.kind is TypeKind.DECIMAL
+                                         or src.is_integer):
+        ib = _scaled_bound(c.int_bound, dst.scale - (
+            src.scale if src.kind is TypeKind.DECIMAL else 0))
+    return Bound(dst, c.nullable, fn, int_bound=ib)
+
+
+def _operands(e: Expr):
+    """The expressions `e` reads directly (aliases looked through)."""
+    out = []
+
+    def take(v):
+        if isinstance(v, Alias):
+            take(v.child)
+        elif isinstance(v, Expr):
+            out.append(v)
+        elif isinstance(v, (tuple, list)):
+            for x in v:
+                take(x)
+    for f in dataclasses.fields(e):
+        take(getattr(e, f.name))
+    return out
 
 
 def bind_expr(e: Expr, schema: Schema) -> Bound:
@@ -633,6 +691,12 @@ def bind_expr(e: Expr, schema: Schema) -> Bound:
     naming it."""
     if isinstance(e, Alias):
         return bind_expr(e.child, schema)
+
+    if not isinstance(e, (Col, IsNull)):
+        for child in _operands(e):
+            if isinstance(child, Col) and child.name in schema:
+                refuse_wide(schema.field(child.name).dtype,
+                            f"{expr_name(e)} reads {child.name}")
 
     if isinstance(e, Col):
         idx = schema.index_of(e.name)
@@ -728,7 +792,9 @@ def bind_expr(e: Expr, schema: Schema) -> Bound:
         def fn(batch):
             col = c.fn(batch)
             return Column(-col.data, col.validity)
-        return Bound(c.dtype, c.nullable, fn)
+        ib = None if c.int_bound is None or c.dtype.kind is not \
+            TypeKind.DECIMAL else (-c.int_bound[1], -c.int_bound[0])
+        return Bound(c.dtype, c.nullable, fn, int_bound=ib)
 
     if isinstance(e, IsNull):
         c = bind_expr(e.child, schema)
@@ -1056,6 +1122,13 @@ def _bind_case(e: Case, schema: Schema) -> Bound:
             b = branches[i]
             return _cast_col(b.fn(batch), b.dtype, out)
         dictionary = code_bound = None
+    ib = None
+    if out.kind is TypeKind.DECIMAL:
+        ib = _hull([_scaled_bound(b.int_bound, out.scale - (
+            b.dtype.scale if b.dtype.kind is TypeKind.DECIMAL else 0))
+            if b.dtype.kind is TypeKind.DECIMAL or b.dtype.is_integer
+            else None for b in branches]
+            + ([] if otherwise is not None else [(0, 0)]))
 
     def fn(batch):
         if otherwise is not None:
@@ -1072,7 +1145,8 @@ def _bind_case(e: Case, schema: Schema) -> Bound:
             data = torch.where(take, vc.data, data)
             valid = torch.where(take, vc.validity, valid)
         return Column(data, valid)
-    return Bound(out, True, fn, dictionary=dictionary, code_bound=code_bound)
+    return Bound(out, True, fn, dictionary=dictionary, code_bound=code_bound,
+                 int_bound=ib)
 
 
 # user-defined scalar functions: name -> (fn, out_dtype, propagate_nulls)
@@ -1362,7 +1436,9 @@ def _bind_concat(e: ScalarFn, schema: Schema) -> Bound:
 
 def propagate_bounds(exprs, names, in_schema: Schema) -> dict:
     """{out_name: (lo, hi)} for passthrough (possibly aliased) columns —
-    the int-bounds analog of per-site dictionary propagation."""
+    the int-bounds analog of per-site dictionary propagation — and for
+    decimal expressions, whose bounds interval arithmetic gives (what
+    decides whether a SUM over them is wide)."""
     out = {}
     for e, n in zip(exprs, names):
         base = e.child if isinstance(e, Alias) else e
@@ -1370,6 +1446,10 @@ def propagate_bounds(exprs, names, in_schema: Schema) -> dict:
             b = in_schema.int_bound(base.name)
             if b is not None:
                 out[n] = b
+        elif not isinstance(base, (Lit, IntervalLit)):
+            b = bind_expr(base, in_schema)
+            if b.dtype.kind is TypeKind.DECIMAL and b.int_bound is not None:
+                out[n] = b.int_bound
     return out
 
 

@@ -11,9 +11,14 @@ contributions.
 contribution rows that are described instead of materialised: `rows` is a
 sequence of `(data, validity)` pairs, `(None, None)` a row of ones
 (`count(*)`), `(None, validity)` a count, `(data, validity)` the sum of
-`data * validity`; `data` is int32[n] or int64[n], `validity` bool[n]. The
-kernel reads the columns and forms each contribution in registers, so no
-(A, n) matrix is written for it. A column with any other strides (a
+`data * validity`; `data` is int32[n] or int64[n], `validity` bool[n]. A
+row `(data, validity, half)` reads a half of each value: `HI` adds
+`data >> 32`, `LO` adds `data & (2^32 - 1)` (`WHOLE`, the default, all
+of it). A decimal sum that may pass int64 is two such rows over its one
+column: each half's sum over fewer than 2^31 rows fits int64, and
+`schema.join_wide` joins them exactly. The kernel reads the columns and
+forms each contribution in registers, so no (A, n) matrix is written for
+it. A column with any other strides (a
 literal argument or a broadcast join side is a stride-0 view) is copied to
 a contiguous one first.
 
@@ -56,7 +61,14 @@ SMEM_BYTES = 48 * 1024
 # contribution rows per launch (the kernel's descriptor table)
 MAX_ROWS = 16
 
-Row = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
+# half-word read modes of a described row (the kernel's `Half`)
+WHOLE, HI, LO = 0, 1, 2
+
+Row = Tuple  # (data, validity) or (data, validity, half)
+
+
+def _half(row) -> int:
+    return row[2] if len(row) > 2 else WHOLE
 
 
 def masked_slot_sums_reference(row_slot: torch.Tensor, contribs: torch.Tensor,
@@ -76,7 +88,11 @@ def contribution_matrix(row_slot: torch.Tensor,
     """The int64[A, n] matrix that `rows` describes."""
     contribs = torch.empty((len(rows), row_slot.shape[0]), dtype=torch.int64,
                            device=row_slot.device)
-    for row, (data, validity) in zip(contribs, rows):
+    for row, desc in zip(contribs, rows):
+        data, validity, half = desc[0], desc[1], _half(desc)
+        if data is not None and half != WHOLE:
+            data = data.to(torch.int64)
+            data = data >> 32 if half == HI else data & 0xFFFFFFFF
         if validity is None and data is None:
             row.fill_(1)
         elif data is None:
@@ -185,7 +201,11 @@ def _checked_rows(row_slot: torch.Tensor, rows: Sequence[Row],
     cheap (a call's host time is of the order of its device time)."""
     _check_slots(row_slot, T)
     shape, dev, bool_ = row_slot.shape, row_slot.device, torch.bool
-    for data, validity in rows:
+    for row in rows:
+        data, validity = row[0], row[1]
+        if _half(row) not in (WHOLE, HI, LO):
+            raise ValueError(f"half-word mode {_half(row)} is not WHOLE, HI "
+                             "or LO")
         if data is not None and not (
                 data.dtype in _DATA_DTYPES and data.shape == shape
                 and data.device == dev and data.is_contiguous()):
@@ -196,11 +216,12 @@ def _checked_rows(row_slot: torch.Tensor, rows: Sequence[Row],
             break
     else:
         return rows
-    return [(None if data is None
-             else _column(data, a, "data", _DATA_DTYPES, row_slot),
-             None if validity is None
-             else _column(validity, a, "validity", (bool_,), row_slot))
-            for a, (data, validity) in enumerate(rows)]
+    return [(None if row[0] is None
+             else _column(row[0], a, "data", _DATA_DTYPES, row_slot),
+             None if row[1] is None
+             else _column(row[1], a, "validity", (bool_,), row_slot),
+             _half(row))
+            for a, row in enumerate(rows)]
 
 
 def _nvcc() -> str:
@@ -310,8 +331,9 @@ def masked_slot_sums(row_slot: torch.Tensor, contribs: torch.Tensor,
 masked_slot_sums.launches = 0
 
 # what the kernel is told of one described row: data pointer, validity
-# pointer, bytes per data element, output column of the sum, output column
-# of the count over the validity (-1 for none)
+# pointer, bytes per data element plus 256 x the half-word mode, output
+# column of the sum, output column of the count over the validity (-1 for
+# none)
 _DESCRIPTOR = 5
 
 
@@ -320,7 +342,8 @@ def _descriptors(rows: Sequence[Row], fuse: bool) -> List[List[int]]:
     validity column of a sum rides that sum's descriptor, so the column
     is read once."""
     out, open_sums = [], {}
-    for col, (data, validity) in enumerate(rows):
+    for col, row in enumerate(rows):
+        data, validity = row[0], row[1]
         if data is None:
             continue
         valid = 0
@@ -328,8 +351,10 @@ def _descriptors(rows: Sequence[Row], fuse: bool) -> List[List[int]]:
             valid = validity.data_ptr()
             if fuse:
                 open_sums.setdefault(valid, []).append(len(out))
-        out.append([data.data_ptr(), valid, data.element_size(), col, -1])
-    for col, (data, validity) in enumerate(rows):
+        out.append([data.data_ptr(), valid,
+                    data.element_size() + 256 * _half(row), col, -1])
+    for col, row in enumerate(rows):
+        data, validity = row[0], row[1]
         if data is not None:
             continue
         valid = 0 if validity is None else validity.data_ptr()

@@ -250,9 +250,13 @@ def all_gather_batch(batches: Sequence[Batch], n_parts: int,
 
 def _padded(parts, seg: int, like: torch.Tensor) -> torch.Tensor:
     """Segments of `seg` slots, segment k holding parts[k] first and zeros
-    (False for a validity) after it."""
-    out = torch.zeros(len(parts) * seg, dtype=like.dtype, device=like.device)
+    (False for a validity) after it. A slot is a row of `like` (two words
+    of a wide decimal); parts may come flat off the wire."""
+    row = tuple(like.shape[1:])
+    out = torch.zeros((len(parts) * seg,) + row, dtype=like.dtype,
+                      device=like.device)
     for k, t in enumerate(parts):
+        t = t.reshape((-1,) + row)
         out[k * seg:k * seg + t.shape[0]] = t
     return out
 
@@ -270,8 +274,11 @@ def _segment_batch(chunks, counts: torch.Tensor, seg: int, template: Batch,
 
 
 def _specs(template: Batch, n: int):
+    """(dtype, elements) of the data and validity of n rows of each
+    column (a wide decimal's row is two words)."""
     return [spec for c in template.columns
-            for spec in ((c.data.dtype, n), (c.validity.dtype, n))]
+            for spec in ((c.data.dtype, n * (c.data[:1].numel() or 1)),
+                         (c.validity.dtype, n))]
 
 
 def _chunks(parts, n_cols: int):

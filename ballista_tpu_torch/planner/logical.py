@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 from ..exprs import Expr, bind_expr, expr_name
 from ..schema import Field, Schema
-from ..exec.aggregate import AggExpr, BoundAgg
+from ..exec.aggregate import AggExpr, BoundAgg, wide_sum
 
 
 class LogicalPlan:
@@ -144,7 +144,7 @@ class Aggregate(LogicalPlan):
                 dicts[n] = in_schema.dictionary(base.name)
         from ..exprs import propagate_bounds
         bounds = propagate_bounds(self.group_exprs, names, in_schema)
-        for a in self.aggs:
+        for a in self.sized_aggs():
             ba = BoundAgg(a, in_schema)
             fields.append(ba.out_field)
             # min/max over a dictionary-coded column stay in code space
@@ -161,6 +161,29 @@ class Aggregate(LogicalPlan):
                     if ib is not None:
                         bounds[ba.out_field.name] = ib
         return Schema(tuple(fields), dicts, bounds, unsorted)
+
+    def sized_aggs(self) -> Tuple[AggExpr, ...]:
+        """`aggs` with each decimal SUM marked wide where its exact total
+        may pass int64 (`exec.aggregate.wide_sum`): the rows it may add are
+        `row_bound(input)`, its argument's bound comes from the input's
+        schema. Every lowering of the plan (in-core, serial, distributed,
+        an executor's) decides alike from the same tables, after
+        `rebind_scans` has read the metadata of the columns the pruned plan
+        scans; before that (a scan below has pending metadata) the sums
+        are left as they are."""
+        if not any(a.kind == "sum" for a in self.aggs) or _pending(
+                self.input):
+            return self.aggs
+        in_schema = self.input.schema()
+        rows = row_bound(self.input)
+        out = []
+        for a in self.aggs:
+            if a.kind == "sum" and a.arg is not None:
+                b = bind_expr(a.arg, in_schema)
+                a = dataclasses.replace(
+                    a, wide=wide_sum(b.dtype, b.int_bound, rows))
+            out.append(a)
+        return tuple(out)
 
     def children(self):
         return (self.input,)
@@ -264,6 +287,43 @@ class Distinct(LogicalPlan):
 
     def children(self):
         return (self.input,)
+
+
+def _pending(p: LogicalPlan) -> bool:
+    """Whether a scan in `p` reads a column whose metadata is pending, or
+    is bound to no table yet (no row count: a plan decoded from the wire
+    before `rebind_scans`)."""
+    if isinstance(p, TableScan):
+        return bool(p.schema().pending) or p.table_schema.rows is None
+    return any(_pending(c) for c in p.children())
+
+
+def row_bound(p: LogicalPlan) -> Optional[int]:
+    """The most rows `p` may produce, from its tables' row counts (None
+    where a table's is unknown): a filter, projection, sort or aggregate
+    keeps its input's; a join on a unique build side (or a semi / anti
+    join) its probe side's, plus the build side's for an outer join; any
+    other join the product."""
+    if isinstance(p, TableScan):
+        return p.table_schema.rows
+    if isinstance(p, OneRow):
+        return 1
+    kids = [row_bound(c) for c in p.children()]
+    if any(k is None for k in kids):
+        return None
+    if isinstance(p, Union):
+        return sum(kids)
+    if isinstance(p, Join):
+        left, right = kids
+        if p.how in ("semi", "anti"):
+            return right
+        if p.how != "cross" and p.unique_build:
+            return right + (left if p.how in ("left_outer", "full_outer")
+                            else 0)
+        return left * right
+    if isinstance(p, Limit):
+        return min(kids[0], p.n)
+    return kids[0]
 
 
 @dataclasses.dataclass

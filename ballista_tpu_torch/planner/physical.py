@@ -159,7 +159,8 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
             else:
                 child = lower(inp)
             return HashAggregateExec(
-                child, list(p.group_exprs), list(p.aggs), mode="single",
+                child, list(p.group_exprs), list(p.sized_aggs()),
+                mode="single",
                 table_size=table_size(child),
                 group_names=list(p.group_names) if p.group_names else None,
                 pre_filter=pred)

@@ -287,7 +287,7 @@ class DistributedPlanner:
             else:
                 child = self._lower(inp)
             group_exprs = list(p.group_exprs)
-            aggs = list(p.aggs)
+            aggs = list(p.sized_aggs())
             group_names = list(p.group_names) if p.group_names else None
         T = self._agg_table(child.capacity)
         if any(a.kind in NON_DECOMPOSABLE for a in aggs):

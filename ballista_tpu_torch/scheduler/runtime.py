@@ -269,7 +269,7 @@ class StageCounts(NamedTuple):
 
 
 def _row_bytes(batch) -> int:
-    return sum(c.data.element_size() + 1 for c in batch.columns)
+    return sum(c.data[:1].nbytes + 1 for c in batch.columns)
 
 
 class DistributedRuntime:

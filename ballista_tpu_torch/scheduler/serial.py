@@ -44,7 +44,7 @@ log = logging.getLogger("ballista_tpu_torch.serial")
 
 def _live_bytes(batch: Batch) -> int:
     """Bytes of a batch's live rows: what an upload moved."""
-    return int(batch.num_rows) * sum(c.data.element_size() + 1
+    return int(batch.num_rows) * sum(c.data[:1].nbytes + 1
                                      for c in batch.columns)
 
 

@@ -18,9 +18,11 @@ and writes its own format from numpy and torch alone, never pickle or
     b"BTSTAGE1"                 magic, 8 bytes
     header length               uint32, little-endian
     header                      JSON: {"P", "cap", "ncols", "num_rows": [P],
-                                "planes": [{"dtype", "bytes"}, ...]}
+                                "planes": [{"dtype", "bytes"[, "width"]},
+                                ...]}
     planes                      data and validity plane of each column in
-                                turn, each (P, cap) little-endian, each
+                                turn, each (P, cap) little-endian ((P, cap,
+                                width) for a wide decimal's words), each
                                 starting on an 8-byte boundary of the
                                 data section
 
@@ -75,6 +77,9 @@ def encode_stage(pb: PartitionedBatch) -> bytes:
             raw = plane.view(-1).view(torch.uint8)
             nbytes = raw.numel()
             planes.append({"dtype": _NAMES[plane.dtype], "bytes": nbytes})
+            if plane.dim() > 2:
+                # a wide decimal: words per row
+                planes[-1]["width"] = int(plane.shape[2])
             pieces.append(raw)
             pad = _padded(nbytes) - nbytes
             if pad:
@@ -105,8 +110,8 @@ def read_header(blob: bytes) -> dict:
         dtype = _DTYPES.get(plane["dtype"])
         if dtype is None or (i % 2 == 1 and dtype is not torch.bool):
             raise ValueError(f"stage blob: plane dtype {plane['dtype']!r}")
-        if plane["bytes"] != P * cap * torch.empty(0, dtype=dtype
-                                                   ).element_size():
+        if plane["bytes"] != P * cap * plane.get("width", 1) * torch.empty(
+                0, dtype=dtype).element_size():
             raise ValueError("stage blob: a plane's length is not P x cap")
         total += _padded(plane["bytes"])
     if len(blob) - start != total:
@@ -140,7 +145,8 @@ def decode_stage(blob: bytes, mesh=None) -> PartitionedBatch:
         views = []
         for plane in h["planes"][i:i + 2]:
             dtype, n = _DTYPES[plane["dtype"]], plane["bytes"]
-            views.append({d: raw[offset:offset + n].view(dtype).view(P, cap)
+            shape = (P, cap) + ((plane["width"],) if "width" in plane else ())
+            views.append({d: raw[offset:offset + n].view(dtype).view(shape)
                           for d, raw in on.items()})
             offset += _padded(n)
         data, valid = views

@@ -9,6 +9,13 @@ here the type system is designed for fixed-shape device arrays:
 - DECIMAL(p, s) is stored as scaled int64 (value * 10^s), exact arithmetic
   in integer ops — matches Arrow decimal128 semantics for p <= 18, which
   covers every TPC-H column (decimal(15,2)).
+- A *wide* DECIMAL (precision 19-38, `wide_decimal`) is what a SUM whose
+  exact total may pass int64 returns (`exec/aggregate.py`). It is stored
+  as two int64 words per row, an int64[capacity, 2] tensor (a numpy
+  (n, 2) array on the host): the value is hi * 2^32 + lo with 0 <= lo <
+  2^32 (`split_wide` / `join_wide`), exact up to 2^95. It is carried (sort
+  payload, limit, projection, exchange, egress) but no expression reads
+  it: arithmetic, comparisons and keys on it raise.
 - STRING is dictionary-encoded: device arrays hold int32 codes; the
   dictionary (sorted, so code order == lexicographic order) lives host-side
   in the Schema. Comparisons with literals / LIKE are evaluated on the
@@ -47,6 +54,11 @@ class DataType:
         if self.kind is TypeKind.DECIMAL:
             return f"decimal({self.precision},{self.scale})"
         return self.kind.value
+
+    @property
+    def is_wide(self) -> bool:
+        """A decimal of precision 19-38: two int64 words per value."""
+        return self.kind is TypeKind.DECIMAL and self.precision > MAX_NARROW
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -108,10 +120,66 @@ def to_arrow_type(dt: DataType):
     }[dt.kind]
 
 
+# most digits a one-word (scaled int64) decimal holds
+MAX_NARROW = 18
+# most digits of a wide decimal (Arrow's decimal128)
+MAX_WIDE = 38
+# a wide value is hi * 2^32 + lo
+WIDE_SHIFT = 32
+_LO_MASK = (1 << WIDE_SHIFT) - 1
+
+
 def decimal(precision: int, scale: int) -> DataType:
-    if precision > 18:
-        raise ValueError(f"decimal precision {precision} > 18 not supported (int64 storage)")
+    if precision > MAX_NARROW:
+        raise ValueError(f"decimal precision {precision} > {MAX_NARROW} not "
+                         "supported (int64 storage)")
     return DataType(TypeKind.DECIMAL, precision, scale)
+
+
+def wide_decimal(precision: int, scale: int) -> DataType:
+    """A decimal of precision 19-38, stored as two int64 words."""
+    if not MAX_NARROW < precision <= MAX_WIDE:
+        raise ValueError(f"wide decimal precision {precision} not in "
+                         f"{MAX_NARROW + 1}..{MAX_WIDE}")
+    return DataType(TypeKind.DECIMAL, precision, scale)
+
+
+def refuse_wide(dtype: DataType, what: str) -> None:
+    """Raise NotImplementedError naming `what` where a wide decimal is
+    used as anything but a carried value."""
+    if dtype.is_wide:
+        raise NotImplementedError(
+            f"{what}: {dtype!r} is a wide decimal (a SUM that may pass "
+            "int64); only SUM, COUNT and carrying it are supported")
+
+
+def join_wide(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Per-row word sums (hi, lo) (any lo >= 0, each summed without
+    passing int64) as a normalised wide column int64[n, 2]: the carry of lo
+    past 32 bits moves into hi."""
+    return torch.stack([hi + (lo >> WIDE_SHIFT), lo & _LO_MASK], dim=1)
+
+
+def split_wide(v: torch.Tensor):
+    """An int64 value's two halves: v >> 32 (signed) and v & (2^32 - 1),
+    whose sums over fewer than 2^31 rows fit int64 each."""
+    return v >> WIDE_SHIFT, v & _LO_MASK
+
+
+def wide_to_ints(words: np.ndarray) -> np.ndarray:
+    """A host wide column (n, 2) as an object array of Python ints."""
+    words = np.asarray(words, dtype=np.int64).reshape(-1, 2)
+    return (words[:, 0].astype(object) * (1 << WIDE_SHIFT)
+            + words[:, 1].astype(object))
+
+
+def wide_to_decimal128(words: np.ndarray) -> np.ndarray:
+    """A host wide column (n, 2) as Arrow decimal128 words: (low 64
+    bits, high 64 bits) of the two's complement value, int64 each."""
+    words = np.asarray(words, dtype=np.int64).reshape(-1, 2)
+    hi, lo = words[:, 0], words[:, 1]
+    low = (hi.view(np.uint64) << np.uint64(WIDE_SHIFT)) | lo.view(np.uint64)
+    return np.stack([low.view(np.int64), hi >> WIDE_SHIFT], axis=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +201,8 @@ class Schema:
     def __init__(self, fields: Tuple[Field, ...],
                  dictionaries: Optional[dict] = None,
                  int_bounds: Optional[dict] = None,
-                 unsorted: Optional[set] = None):
+                 unsorted: Optional[set] = None,
+                 rows: Optional[int] = None, pending=()):
         self.fields = tuple(fields)
         self.dictionaries = dict(dictionaries or {})  # name -> np.ndarray[str]
         # name -> (lo, hi): ingest-time value bounds for integer/date/
@@ -148,10 +217,20 @@ class Schema:
         # (group, sort and join keys, min/max, range compares) re-encode
         # through `exprs.sorted_recode` first.
         self.unsorted = set(unsorted or ())
+        # a table's row count (TableProvider.schema): what bounds the rows
+        # an aggregate over a scan of it may add (logical.row_bound)
+        self.rows = rows
+        # a table's fields whose metadata (bounds, dictionaries) has not
+        # been read yet: what a lazily ingested table knows before
+        # `rebind_scans` (logical.Aggregate.sized_aggs waits for it)
+        self.pending = frozenset(pending)
         self._index = {f.name: i for i, f in enumerate(self.fields)}
 
     def __repr__(self):
         return "Schema(" + ", ".join(f"{f.name}: {f.dtype!r}" for f in self.fields) + ")"
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._index
 
     def field(self, name: str) -> Field:
         return self.fields[self._index[name]]
@@ -174,4 +253,5 @@ class Schema:
         fields = tuple(self.field(n) for n in names)
         dicts = {n: self.dictionaries[n] for n in names if n in self.dictionaries}
         bounds = {n: self.int_bounds[n] for n in names if n in self.int_bounds}
-        return Schema(fields, dicts, bounds, self.unsorted & set(names))
+        return Schema(fields, dicts, bounds, self.unsorted & set(names),
+                      self.rows, self.pending & set(names))

@@ -63,7 +63,10 @@ def _enc(v: Any) -> Any:
                 "arg": encode_expr(v.arg) if v.arg is not None else None,
                 "alias": v.alias, "distinct": v.distinct,
                 "arg2": encode_expr(v.arg2) if v.arg2 is not None else None,
-                "frac": v.frac}
+                "frac": v.frac,
+                # set only on lowered plans; a logical plan's document is
+                # the reference's
+                **({"wide": True} if v.wide else {})}
     from ..exec.window import WindowFnSpec
     if isinstance(v, WindowFnSpec):
         return {"@winspec": True, "kind": v.kind,
@@ -100,7 +103,7 @@ def _dec(v: Any) -> Any:
                            v["alias"], v["distinct"],
                            arg2=(decode_expr(v["arg2"])
                                  if v.get("arg2") is not None else None),
-                           frac=v.get("frac"))
+                           frac=v.get("frac"), wide=v.get("wide", False))
         if "@winspec" in v:
             from ..exec.window import WindowFnSpec
             return WindowFnSpec(

@@ -19,6 +19,8 @@ load, scaling and scheduler-event benches, Avro and a UDF plugin.
     python3 chip_smoke.py --raw-only          # phases 1, 2, 11's h2o join
                                               # and 15 alone
     python3 chip_smoke.py --tools-only        # phases 1, 2 and 16 alone
+    python3 chip_smoke.py --sf100-only [--queries 1,6]  # phases 1, 2 and
+                                              # the SF100 sweep
 
 Phases:
 1. torch version, card name and power limit (exits 1 without CUDA);
@@ -106,8 +108,10 @@ Phases:
    (columns evicted before each query), Q1, Q5 and Q6 equal to numpy; (b)
    the 22 on SessionContext(serial_partitions=8), a first and a timed
    second run, each equal to (a) (f64 at rtol 1e-9), with stages,
-   partitions, bytes each way and peak; past 240 s the queries left run at
-   SF1 against answers/sf1; (c) plain collect() under a 10 GiB cap
+   partitions, bytes each way and peak; past 45 s (about the seven queries
+   of SERIAL_SF10_FIRST, which keeps the whole script inside its limit
+   beside phase 18) the queries left run at SF1 against answers/sf1; (c)
+   plain collect() under a 10 GiB cap
    (`set_per_process_memory_fraction`, BALLISTA_HBM_BYTES): each query's
    route (in-core, routed serial@N, OOM fallback serial@N), every answer
    equal to (a), at least one routed; (d) the query of (a) with the largest
@@ -194,6 +198,25 @@ Phases:
    Q22 exact; (h) a plugin directory with one UDF loaded and its UDF
    summed over lineitem, against numpy. Every part prints its seconds;
    the .tbl directory is deleted in a `finally`.
+17. the last modules at SF1: lazy ingest over .tbl files, the native
+   encoder, two gloo processes on cuda:0, Flight SQL.
+18. TPC-H SF100 on one card: (a) nproc, free host memory and free disk
+   under TMPDIR; (b) `python -m ballista_tpu_torch.datagen --sf 100
+   --tables lineitem --chunks 100 --workers $(nproc)` writes lineitem
+   (599,984,204 rows) as parquet part files under TMPDIR, deleted at the
+   end; (c) the dataset registered, Q1 and Q6 through `collect()` with
+   routing on: route, first run (the columns read from the part files),
+   warm median of 3, peak allocated and reserved, host peak RSS; Q1's
+   sum_charge must be a wide decimal; (d) the kernel's Q1 call (n = 6.0e8,
+   T = 12, twelve described rows, two of them half-word) against its plain
+   version over row chunks, with the bytes it must read, its bound at
+   3.35 TB/s and index_add_ on the same call; (e) Q1 on
+   serial_partitions=8, equal to (c) exactly; (f) Q1 and Q6 equal to the
+   streaming numpy reference of `benchmarks/sf100.py` exactly, N|O's
+   sum_charge positive. With `--sf100-only` (not in the default run): SF10
+   and SF100 of every table generated under TMPDIR and the queries through
+   `benchmarks/sf100.py` (SF10 each in-core against serial, SF100 each in
+   its own process against the invariants); it exits 1 if any query fails.
 Phases 7 and 8 also hold the kernel against its plain version on the
 calls Q4, Q15 and Q22 (phase 7) and Q11 and Q16 (phase 8) made.
 The line before the last is a JSON object describing the kernel (its
@@ -360,16 +383,17 @@ def bound(slot, columns, T, A):
     dead row's values are never needed), the T x A sums once. Operations:
     one 64-bit add (two 32-bit operations) per live row and aggregate."""
     n = slot.shape[0]
-    live = ((slot >= 0) & (slot < T)).nonzero().squeeze(1)
-    n_live = live.numel()
+    live = (slot >= 0) & (slot < T)
+    n_live = int(live.sum())
     sectors = {}
     for size in {c.element_size() for c in columns}:
         if n_live == n:
             sectors[size] = n * size
         else:
-            hit = torch.zeros(n * size // 32 + 1, dtype=torch.bool,
-                              device=slot.device)
-            hit[(live * size) // 32] = True
+            # rows of 32-byte sector k of a column: [k * 32 / size, ...)
+            per = 32 // size
+            hit = torch.cat([live, live.new_zeros(-n % per)]).view(
+                -1, per).any(1)
             sectors[size] = min(int(hit.sum()) * 32, n * size)
     nbytes = 4 * n + sum(sectors[c.element_size()] for c in columns) \
         + 8 * T * A
@@ -383,8 +407,8 @@ def bound(slot, columns, T, A):
 def row_columns(rows):
     """The distinct tensors a masked_slot_sums_rows call reads."""
     seen = {}
-    for pair in rows:
-        for t in pair:
+    for row in rows:
+        for t in row[:2]:       # (data, validity[, half-word mode])
             if t is not None:
                 seen[t.data_ptr()] = t
     return list(seen.values())
@@ -503,6 +527,25 @@ def phase_kernel():
         log(f"phase 3: T={T}: n in (1, 2, 3, 4099, 1000003), contribs[1:] "
             "and columns 1-3 elements off the 16-byte grid: both entries "
             "equal")
+    # the half-word read modes (a wide decimal sum: HI and LO over one
+    # column) at every code path (registers, lane columns, the matched
+    # kernel), full-range int64 and int32 values, columns off the grid
+    for T in (1, 4, 12, 64, 6000):
+        for off in (0, 1):
+            n = 700_001
+            slot = rand_slots(n + off, T, gen, -1)[off:]
+            d64 = torch.randint(-2 ** 63, 2 ** 63 - 1, (n + off,),
+                                generator=gen, dtype=torch.int64).cuda()[off:]
+            d32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (n + off,),
+                                generator=gen, dtype=torch.int32).cuda()[off:]
+            v = (torch.rand(n + off, generator=gen) >= 0.2).cuda()[off:]
+            max_err = max(max_err, compare_rows(slot, [
+                (None, None), (None, v), (d64, v, masked_sums.HI),
+                (d64, v, masked_sums.LO), (d64, v), (d32, None,
+                                                     masked_sums.HI),
+                (d32, v, masked_sums.LO)], T))
+        log(f"phase 3: half-word rows (HI, LO of int64 and int32 columns, "
+            f"aligned and off the grid), T={T}: equal")
     # all rows in one slot; 1 % and 0 % of the rows live
     n = 1_000_003
     contribs = torch.randint(-2 ** 40, 2 ** 40, (Q1_A, n), generator=gen,
@@ -2095,7 +2138,7 @@ SERIAL_P = 8
 CAP_BYTES = 10 * 2 ** 30
 # (b) runs every query at SF10 unless it passes this; then the rest of the
 # queries run at SF1 against answers/sf1
-SERIAL_BUDGET_S = 240
+SERIAL_BUDGET_S = 45
 SERIAL_SF10_FIRST = (1, 3, 5, 9, 13, 18, 21)
 F64_RTOL = 1e-9
 ROUTED = "plan routed out-of-core"
@@ -4082,6 +4125,296 @@ def phase_last(write_files):
     return launches, held, mp_held
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: TPC-H SF100 on one card, out of core over chunked parquet
+# ---------------------------------------------------------------------------
+
+SF100 = 100.0
+SF100_CHUNKS = 100
+SF100_SERIAL_P = 8
+SF100_WARM = 3
+SF100_LIMIT_S = 1500        # a datagen or sweep process's time limit
+# rows of the plain version's chunks on the SF100 call (its contribution
+# matrix of 12 x 6e8 int64 would not fit beside the columns)
+PLAIN_CHUNK = 1 << 25
+
+
+def _host_state(phase, where):
+    """nproc, free host memory and free disk where the data goes."""
+    import shutil
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, rest = line.split(":", 1)
+            mem[key] = int(rest.split()[0]) * 1024
+    free = shutil.disk_usage(where).free
+    log(f"phase {phase} (a): nproc {os.cpu_count()}; host memory available "
+        f"{mem['MemAvailable'] / GIB:.1f} of {mem['MemTotal'] / GIB:.1f} "
+        f"GiB; disk free at {where}: {free / GIB:.1f} GiB")
+    return free
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def sf100_datagen(phase, sf, out, tables=None):
+    """`python -m ballista_tpu_torch.datagen --sf sf --chunks 100 --workers
+    $(nproc)`: chunked parquet under `out`."""
+    here, env = _repo_env()
+    cmd = [sys.executable, "-m", "ballista_tpu_torch.datagen", "--sf",
+           str(sf), "--format", "parquet", "--chunks", str(SF100_CHUNKS),
+           "--workers", str(os.cpu_count()), "--out", out]
+    if tables:
+        cmd += ["--tables", ",".join(tables)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                         text=True, timeout=SF100_LIMIT_S)
+    took = time.perf_counter() - t0
+    if res.returncode:
+        raise AssertionError(f"phase {phase} (b): datagen exited "
+                             f"{res.returncode}: {res.stderr[-2000:]}")
+    for line in res.stdout.splitlines():
+        log(f"phase {phase} (b): {line}")
+    log(f"phase {phase} (b): `{' '.join(cmd[2:])}` in {took:.1f} s, "
+        f"{_dir_bytes(out)} bytes of parquet")
+    return took
+
+
+def _host_peak():
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _dataset_ctx(root, **kwargs):
+    ctx = SessionContext(device="cuda", **kwargs)
+    for name in sorted(os.listdir(root)):
+        ctx.register_parquet_dataset(name, os.path.join(root, name),
+                                     TPCH_TABLES[name][1])
+    return ctx
+
+
+def _route_of(ctx, runs):
+    warnings = " ".join(ctx.take_warnings())
+    if FELL_BACK in warnings:
+        return f"in-core OOM -> serial@{runs[-1][0]}"
+    if ROUTED in warnings:
+        return f"routed serial@{runs[-1][0]}"
+    return "in-core"
+
+
+def sf100_collect(ctx, q, keep_call):
+    """(c): one query through collect() with routing on: first run (the
+    columns read from the part files included) and warm median; route,
+    peaks, host peak RSS. Returns (to_numpy answer, schema, the kernel
+    call at T = 12 or None, launches of the first run)."""
+    _fresh(ctx)
+    ctx.take_warnings()
+    before = read_counts()
+    with spy_serial() as runs, spy_rows(first_at=12 if keep_call
+                                        else -1) as calls:
+        t0 = time.perf_counter()
+        batch, schema = ctx.sql(TPCH_QUERIES[q]).collect()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+    launches = read_counts() - before
+    route = _route_of(ctx, runs)
+    alloc, reserved = _peaks()
+    got = to_numpy(batch, schema)
+    del batch
+    read = ctx.tables["lineitem"].read_bytes
+    log(f"phase 18 (c): Q{q} route {route}; first run {first:.2f} s "
+        f"(parquet read {read} B so far); peak allocated "
+        f"{alloc / GIB:.2f} GiB, reserved {reserved / GIB:.2f} GiB; host "
+        f"peak RSS {_host_peak() / GIB:.2f} GiB; launches {launches.tolist()}")
+    return got, schema, (calls[0] if calls else None), launches, route
+
+
+def sf100_warm(ctx, q):
+    warm = []
+    for _ in range(SF100_WARM):
+        t0 = time.perf_counter()
+        ctx.sql(TPCH_QUERIES[q]).collect()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    log(f"phase 18 (c): Q{q} warm runs (s) {[round(w, 4) for w in warm]}, "
+        f"median {statistics.median(warm) * 1e3:.3f} ms, "
+        f"{ctx.tables['lineitem'].num_rows / statistics.median(warm):.0f} "
+        "lineitem rows/s")
+
+
+def _plain_chunked(slot, rows, T):
+    """The plain version over row chunks of PLAIN_CHUNK, summed (int64
+    sums wrap alike, so the total is the whole call's)."""
+    out = None
+    for lo in range(0, slot.shape[0], PLAIN_CHUNK):
+        hi = lo + PLAIN_CHUNK
+        part = masked_sums.masked_slot_sums_rows_reference(
+            slot[lo:hi], [tuple(t[lo:hi] if isinstance(t, torch.Tensor)
+                                else t for t in row) for row in rows], T)
+        out = part if out is None else out + part
+    return out
+
+
+def hold_sf100_call(slot, rows, T):
+    """(d): the kernel's Q1 call at SF100 against its plain version (over
+    row chunks), with times, the bytes it must read, its bound at
+    3.35 TB/s and index_add_ on the same call (per chunk, its contribution
+    matrix prepared, times the chunks)."""
+    err = _equal(masked_sums.masked_slot_sums_rows(slot, rows, T),
+                 _plain_chunked(slot, rows, T),
+                 f"SF100 rows A={len(rows)} n={slot.shape[0]} T={T}")
+    call = lambda: masked_sums.masked_slot_sums_rows(slot, rows, T)  # noqa
+    ms, dev_ms = cuda_ms(call), cuda_ms(call, queued=True)
+    plain = cuda_ms(lambda: _plain_chunked(slot, rows, T), iters=2, warm=1)
+    b = bound(slot, row_columns(rows), T, len(rows))
+    n = slot.shape[0]
+    chunk = min(PLAIN_CHUNK, n)
+    contribs = masked_sums.contribution_matrix(
+        slot[:chunk], [tuple(t[:chunk] if isinstance(t, torch.Tensor) else t
+                             for t in row) for row in rows])
+    lib = library_ms(slot[:chunk], contribs, T) * n / chunk
+    del contribs
+    halves = sum(1 for row in rows if len(row) > 2 and row[2])
+    log(f"phase 18 (d): SF100 Q1's own kernel call (n={n}, {b['live']} live "
+        f"rows, T={T}, A={len(rows)} described rows, {halves} of them "
+        f"half-word): masked_slot_sums_rows equal to its plain version; "
+        f"kernel {ms:.4f} ms ({dev_ms:.4f} ms of device work), plain (over "
+        f"{-(-n // chunk)} row chunks) {plain:.2f} ms; must read {b['bytes']} "
+        f"B, bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share "
+        f"{b['bound_ms'] / dev_ms:.3f} of device work; index_add_ "
+        f"{lib:.2f} ms (one {chunk}-row chunk x {n / chunk:.1f})")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": lib}
+
+
+def _same_numpy(label, got, want):
+    """Two to_numpy answers equal exactly (values where valid, validity)."""
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: columns {list(got)} != {list(want)}")
+    for name in want:
+        gv, gm = got[name]
+        wv, wm = want[name]
+        if not np.array_equal(gm, wm) or list(gv[gm]) != list(wv[wm]):
+            raise AssertionError(f"{label}: column {name} differs: "
+                                 f"{list(gv[gm])} != {list(wv[wm])}")
+
+
+def _same_as_reference(label, got, schema, table):
+    """A to_numpy answer equals the numpy reference's arrow table: scaled
+    integers for decimals, strings, counts."""
+    import decimal
+    for f in table.schema:
+        values, valid = got[f.name]
+        dt = schema.field(f.name).dtype
+        want = table.column(f.name).to_pylist()
+        if dt.kind is TypeKind.DECIMAL:
+            want = [int(decimal.Decimal(v).scaleb(dt.scale)) for v in want]
+        have = [v if isinstance(v, str) else int(v) for v in values]
+        if not valid.all() or have != want:
+            raise AssertionError(f"{label}: {f.name} {have} != numpy {want}")
+
+
+def phase_sf100():
+    """Phase 18. Returns (kernel launches of (c) and (e), the held numbers
+    of (d))."""
+    import shutil
+    import tempfile
+    from ballista_tpu_torch.benchmarks import sf100 as sweep
+    t_start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ballista_sf100_")
+    launches = np.zeros(2, dtype=np.int64)
+    try:
+        _host_state(18, root)
+        sf100_datagen(18, SF100, root, tables=["lineitem"])
+        ctx = _dataset_ctx(root)
+        li = ctx.tables["lineitem"]
+        log(f"phase 18 (c): lineitem {li.num_rows} rows in "
+            f"{len(li.files)} part files")
+        q1, schema1, call, more, route = sf100_collect(ctx, 1, True)
+        launches += more
+        if call is None:
+            raise AssertionError("SF100 Q1 made no kernel call at T = 12")
+        wide = schema1.field("sum_charge").dtype
+        if not wide.is_wide:
+            raise AssertionError(f"SF100 Q1's sum_charge is {wide!r}, not "
+                                 "a wide decimal")
+        held = hold_sf100_call(*call)
+        del call
+        sf100_warm(ctx, 1)
+        q6, schema6, _, more, _ = sf100_collect(ctx, 6, False)
+        launches += more
+        sf100_warm(ctx, 6)
+        ctx.evict_device()
+        _fresh()
+
+        t0 = time.perf_counter()
+        sctx = _dataset_ctx(root, serial_partitions=SF100_SERIAL_P)
+        before = read_counts()
+        batch, schema = sctx.sql(TPCH_QUERIES[1]).collect()
+        torch.cuda.synchronize()
+        launches += read_counts() - before
+        m = sctx.serial_metrics
+        _same_numpy("SF100 Q1 serial vs in-core", to_numpy(batch, schema), q1)
+        log(f"phase 18 (e): Q1 on serial_partitions={SF100_SERIAL_P} in "
+            f"{time.perf_counter() - t0:.2f} s, equal to (c) exactly; "
+            f"{len(m)} stages, {sum(x.partitions for x in m)} partition runs,"
+            f" {sum(x.bytes_to_device for x in m)} B up, "
+            f"{sum(x.bytes_to_host for x in m)} B down, parquet read "
+            f"{sctx.tables['lineitem'].read_bytes} B; peak allocated "
+            f"{_peaks()[0] / GIB:.2f} GiB")
+        del batch, sctx
+
+        t0 = time.perf_counter()
+        _same_as_reference("SF100 Q1", q1, schema1, sweep.numpy_q1(root))
+        _same_as_reference("SF100 Q6", q6, schema6, sweep.numpy_q6(root))
+        charge = dict(zip(zip(q1["l_returnflag"][0], q1["l_linestatus"][0]),
+                          q1["sum_charge"][0]))[("N", "O")]
+        if charge <= 0:
+            raise AssertionError(f"N|O sum_charge {charge} is not positive")
+        log(f"phase 18 (f): Q1 and Q6 equal the streaming numpy reference "
+            f"exactly ({time.perf_counter() - t0:.1f} s); N|O sum_charge "
+            f"{charge / 10 ** wide.scale:.6f} ({wide!r}; past 2^63 scaled: "
+            f"{charge > 2 ** 63 - 1}); route of Q1 in (c): {route}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 18: {time.perf_counter() - t_start:.1f} s; kernel launches "
+        f"{launches.tolist()}")
+    return launches, held
+
+
+def phase_sf100_sweep(queries):
+    """--sf100-only: SF10 and SF100, every table, chunked; the queries
+    through `benchmarks/sf100.py` (SF10 each in-core and serial, saved;
+    SF100 each in its own process, held to the invariants). Returns
+    whether every query answered and passed."""
+    import shutil
+    import tempfile
+    from ballista_tpu_torch.benchmarks import sf100 as sweep
+    root = tempfile.mkdtemp(prefix="ballista_sweep_")
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "build", "sf100")
+    try:
+        _host_state(18, root)
+        for sf, name in ((10, "sf10"), (SF100, "sf100")):
+            sf100_datagen(18, sf, os.path.join(root, name))
+        ten = sweep.sf10_pass(os.path.join(root, "sf10"), out, queries,
+                              timeout=SF100_LIMIT_S, log=log)
+        hundred = sweep.sf100_pass(os.path.join(root, "sf100"), out, queries,
+                                   timeout=SF100_LIMIT_S, log=log)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with open(os.path.join(out, "sweep.json"), "w") as f:
+        json.dump({"sf10": ten, "sf100": hundred}, f, indent=1, default=str)
+    bad = [f"sf10 q{q}" for q, r in ten.items() if not r.get("verified")] + [
+        f"sf100 q{q}" for q, r in hundred.items()
+        if "error" in r or r.get("verified") is False]
+    log(f"phase 18: sweep over {queries}: failed {bad or 'none'}")
+    return not bad
+
+
 def main():
     t_script = time.perf_counter()
     if sys.argv[1:2] == ["--mp-worker"]:
@@ -4091,10 +4424,13 @@ def main():
     alone = sys.argv[1:] in (["--distributed-only"], ["--wire-only"],
                              ["--raw-only"], ["--tools-only"],
                              ["--rest-only"])
-    if sys.argv[1:] and not alone:
+    sweep = sys.argv[1:2] == ["--sf100-only"] and (
+        len(sys.argv) == 2 or (len(sys.argv) == 4
+                               and sys.argv[2] == "--queries"))
+    if sys.argv[1:] and not (alone or sweep):
         print("usage: python3 chip_smoke.py [--distributed-only | "
-              "--wire-only | --raw-only | --tools-only | --rest-only]",
-              file=sys.stderr)
+              "--wire-only | --raw-only | --tools-only | --rest-only | "
+              "--sf100-only [--queries 1,6,...]]", file=sys.stderr)
         sys.exit(2)
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -4138,6 +4474,17 @@ def main():
     log(f"phase 2: {masked_sums.smem_bytes('cuda')} B of shared memory per "
         f"block on request; a_chunk(26) = {masked_sums.a_chunk(26, 'cuda')}")
 
+    if sweep:
+        queries = ([int(q) for q in sys.argv[3].split(",")]
+                   if len(sys.argv) == 4 else list(range(1, 23)))
+        ok = phase_sf100_sweep(queries)
+        log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
+        if not ok:
+            sys.exit(1)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if alone:
         if sys.argv[1] == "--distributed-only":
             launches, err = phase_distributed_alone()
@@ -4184,6 +4531,7 @@ def main():
         {name: (tp.fields, tp.host) for name, tp in ctx.tables.items()
          if name in TPCH_TABLES}, keep_files=True)
     last_launches, last_held, mp_held = phase_last(write_files=False)
+    sf100_launches, sf100_held = phase_sf100()
 
     # one record for the kernel file; its times and bound are those of
     # Q1's own call through the entry the queries use. `entry_points`
@@ -4195,12 +4543,12 @@ def main():
     launches = (launches + join_launches + rest_launches + part_launches
                 + analytic_launches + client_launches + sf10_launches
                 + dist_launches + wire_launches + raw_launches
-                + tools_launches + last_launches)
+                + tools_launches + last_launches + sf100_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
                 part_err, analytic_err, client_err, sf10_err, dist_err,
                 held_err(wire_held_numbers), held_err(raw_held),
                 held_err(tools_held), held_err(last_held),
-                held_err(mp_held))
+                held_err(mp_held), sf100_held["max_abs_err"])
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]
