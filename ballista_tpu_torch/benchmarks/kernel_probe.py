@@ -23,7 +23,11 @@ pass `--source build/parent.cu --source
 ballista_tpu_torch/csrc/masked_slot_sums.cu --source build/parent.cu`
 (change, parent, change, parent). A source with
 the half-word read mode is also timed on Q1's rows with the fifth sum read
-as HI and LO (a wide sum, twelve rows). `--n` sets the rows.
+as HI and LO (a wide sum, twelve rows). `--n` sets the rows. `--library`
+also times `index_add_`, the one PyTorch call that computes the same sums,
+on each call's contribution matrix (once, before the sources: it does not
+depend on them), and adds calls at Q1's shape whose rows lie in 3 of the
+12 slots and sparse calls of 5 rows at T = 8.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from pathlib import Path
 import torch
 
 from ..ops import masked_sums as m
-from .timing import cuda_ms, host_ms
+from .timing import cuda_ms, host_ms, library_ms
 
 N = 5_998_336
 
@@ -62,6 +66,8 @@ def main():
     ap.add_argument("--source", action="append", default=[],
                     help="another kernel source file to time, in order")
     ap.add_argument("--n", type=int, default=N, help="rows per call")
+    ap.add_argument("--library", action="store_true",
+                    help="also time index_add_ on every call's inputs")
     args = ap.parse_args()
     n = args.n
     if not torch.cuda.is_available():
@@ -86,6 +92,8 @@ def main():
               "T=1, 0.002 % live": (torch.where(pick < 0.00002, 0, 1), 1),
               "T=26, 0.125 % live": (torch.where(pick < 0.00125, 3, 26), 26)}
     three = contribs[:3]
+    if args.library:
+        _library(n, args.slots, uniform, rows, halves, contribs, pick, sparse)
 
     runs = [("", source)] + [(spec, None) for spec in args.variant] + [
         (path, Path(path).read_text()) for path in args.source]
@@ -135,6 +143,37 @@ def main():
             report(f"rows A=3 {what}", lambda: m.masked_slot_sums_rows(
                 slot, [(None, None), (None, valid[0]), (three[2], valid[0])],
                 T))
+
+
+def _library(n, slots, uniform, rows, halves, contribs, pick, sparse):
+    """index_add_ on the calls the kernel is timed on, each held against
+    the kernel's plain version first; plus calls at Q1's shape on 3 of 12
+    slots and sparse 5-row calls at T = 8."""
+    def report(what, slot, rows_, T):
+        slot = slot.to(torch.int32)
+        matrix = m.contribution_matrix(slot, rows_)
+        if not torch.equal(m.masked_slot_sums_rows(slot, rows_, T),
+                           m.masked_slot_sums_rows_reference(slot, rows_, T)):
+            raise SystemExit(f"rows != plain at {what}")
+        live = int(((slot >= 0) & (slot < T)).sum())
+        print(f"  index_add_: {what} (n={n}, {live} live, T={T}, "
+              f"A={matrix.shape[0]}): {library_ms(slot, matrix, T):.4f} ms",
+              flush=True)
+
+    skew = torch.where(uniform % 4 == 0, 9, uniform % 3)    # 3 of 12 slots
+    for T in slots:
+        report(f"rows Q1-shaped T={T} dense", uniform % T, rows, T)
+        report(f"rows Q1-shaped, a sum as HI and LO, T={T} dense",
+               uniform % T, halves, T)
+    report("rows Q1-shaped T=12, 3 of 12 slots hold every row", skew, rows,
+           12)
+    five = [(None, None), (None, rows[1][1])] + [
+        (contribs[i], rows[1][1]) for i in range(3)]
+    for what, (slot, T) in sparse.items():
+        report(f"rows A=3 {what}", slot, five[:2] + five[4:], T)
+    for frac in (0.02, 0.00002):
+        report(f"rows A=5 T=8, {frac * 100:g} % live",
+               torch.where(pick < frac, (uniform % 8), 8), five, 8)
 
 
 if __name__ == "__main__":

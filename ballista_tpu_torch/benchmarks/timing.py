@@ -42,3 +42,15 @@ def host_ms(fn, iters=200):
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     return statistics.median(times) * 1e3
+
+
+def library_ms(slot, contribs, T):
+    """The time of the one PyTorch call that computes the same sums as the
+    kernel from a contribution matrix int64[A, n], `index_add_`, its index
+    and output prepared beforehand. The port never calls it outside the
+    plain version."""
+    idx = torch.where((slot >= 0) & (slot < T), slot, T).to(torch.int64)
+    out = torch.zeros((T + 1, contribs.shape[0]), dtype=torch.int64,
+                      device=slot.device)
+    src = contribs.T
+    return cuda_ms(lambda: out.index_add_(0, idx, src))

@@ -42,7 +42,7 @@ import torch
 
 from .. import batch as B
 from ..exec import memory
-from ..exec.plan import run_plan
+from ..exec.plan import Run
 from ..exprs import drop_device_luts
 from ..planner import logical as L
 from ..planner.physical import PhysicalOptions, create_physical_plan
@@ -987,10 +987,11 @@ class SessionContext:
         again without planning (timing loops, repeated queries).
 
         A plan whose group table or expanding-join output outgrows its
-        static capacity raises the run's overflow flag; it is read once per
-        run and the plan is rebuilt with 4x the capacities. After
-        `max_retries` runs that overflowed this raises: a clipped batch
-        would be a wrong answer."""
+        static capacity raises the run's overflow flag; the flags are read
+        once per run (`Run.verdict`) and the plan is rebuilt with 4x the
+        capacities. After `max_retries` runs that overflowed this raises: a
+        clipped batch would be a wrong answer. A run where a wide SUM read
+        above passed int64 raises NotImplementedError at once."""
         # the scans' schemas taken anew: a parquet dataset reads its
         # columns' metadata on first use
         plan = rebind_scans(plan, self)
@@ -999,8 +1000,10 @@ class SessionContext:
             exec_plan = self.physical_plan(plan, opts)
             inputs = self.bind_inputs([leaf.input_id
                                        for leaf in exec_plan.leaves()])
-            out, overflow = run_plan(exec_plan, inputs)
-            if overflow is None or not bool(overflow):
+            run = Run(inputs)
+            out = run.eval(exec_plan)
+            verdict = run.verdict()
+            if verdict is None or not run.overflowed(int(verdict)):
                 return exec_plan, inputs, out
             self.warnings.append(
                 f"output overflowed capacity on attempt {attempt + 1} "

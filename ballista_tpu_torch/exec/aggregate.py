@@ -16,8 +16,8 @@ import torch
 from ..batch import Batch, Column
 from ..exprs import Bound, Expr, _div_scaled, bind_expr, expr_name
 from ..schema import (MAX_WIDE, DataType, Field, FLOAT32, FLOAT64, INT64,
-                      Schema, TypeKind, decimal, join_wide, refuse_wide,
-                      split_wide, wide_decimal)
+                      Schema, TypeKind, decimal, join_wide, split_wide,
+                      wide_decimal)
 
 INT64_MAX = (1 << 63) - 1
 
@@ -33,9 +33,17 @@ class AggExpr:
     arg2: Optional[Expr] = None     # corr's second argument
     frac: Optional[float] = None    # percentile fraction (median = 0.5)
     # a decimal SUM whose exact total may pass int64 (`wide_sum`): its
-    # state and output are a wide decimal. Set when a plan is lowered
+    # state is a wide decimal. Set when a plan is lowered
     # (`planner.logical.Aggregate.sized_aggs`), never by the SQL planner
     wide: bool = False
+    # a SUM whose output no operator above reads as a value, only carries
+    # (`planner.optimizer.mark_carried`, at lowering): a wide one returns
+    # its wide state. A wide SUM that is read is narrowed at the
+    # aggregate's output to `_sum_dtype` (`narrows`)
+    carried: bool = False
+    # the name a query gives a SUM that is read (its alias above, where it
+    # has one): what the error of a value past int64 names
+    shown: Optional[str] = None
 
     @property
     def name(self) -> str:
@@ -84,6 +92,18 @@ def _wide_sum_dtype(dt: DataType) -> DataType:
     return wide_decimal(min(MAX_WIDE, max(dt.precision + 10, 19)), dt.scale)
 
 
+def narrows(spec: AggExpr, state: DataType) -> bool:
+    """Whether an aggregate with this first state type returns its wide
+    sum narrowed to int64 (`schema.narrow_wide`): it is read above."""
+    return spec.kind == "sum" and state.is_wide and not spec.carried
+
+
+def _out_sum_dtype(spec: AggExpr, state: DataType) -> DataType:
+    """A SUM's output type: its state's, or the JAX package's
+    decimal(18, s) where a wide state is narrowed."""
+    return decimal(18, state.scale) if narrows(spec, state) else state
+
+
 def _avg_dtype(dt: DataType) -> DataType:
     if dt.kind is TypeKind.DECIMAL:
         return decimal(18, min(dt.scale + 4, 12))
@@ -102,8 +122,6 @@ class BoundAgg:
         self.arg: Optional[Bound] = (
             bind_expr(spec.arg, in_schema) if spec.arg is not None else None)
         k = spec.kind
-        if self.arg is not None and k not in ("count", "count_star"):
-            refuse_wide(self.arg.dtype, f"{k}({expr_name(spec.arg)})")
         if k == "count_star" or k == "count":
             self.state_dtypes = [INT64]
             self.out_field = Field(spec.name, INT64, nullable=False)
@@ -111,7 +129,8 @@ class BoundAgg:
             st = (_wide_sum_dtype(self.arg.dtype) if spec.wide
                   else _sum_dtype(self.arg.dtype))
             self.state_dtypes = [st]
-            self.out_field = Field(spec.name, st, nullable=True)
+            self.out_field = Field(spec.name, _out_sum_dtype(spec, st),
+                                   nullable=True)
         elif k in ("min", "max", "carry"):
             self.state_dtypes = [self.arg.dtype]
             self.out_field = Field(spec.name, self.arg.dtype, nullable=True)
@@ -163,6 +182,11 @@ class BoundAgg:
     def wide(self) -> bool:
         """A sum whose state is a wide decimal (two words)."""
         return self.state_dtypes[0].is_wide
+
+    @property
+    def narrow(self) -> bool:
+        """A wide sum whose output is narrowed to int64 (`narrows`)."""
+        return narrows(self.spec, self.state_dtypes[0])
 
     def fused_requests(self, batch: Batch):
         """(reqs, tags, assemble) for an aggregate with `exact_sums`: reqs

@@ -33,8 +33,9 @@ from ..ops.masked_sums import WHOLE, masked_slot_sums_rows
 from ..ops.merge_join import merge_full_unique, probe_unique
 from ..ops.sort import SortKeySpec, sort_batch
 from ..ops.vsort import compact_batch, sort_batch_columns
-from ..schema import FLOAT64, INT64, Field, Schema, refuse_wide
-from .aggregate import AggExpr, BoundAgg, _avg_dtype
+from ..schema import (FLOAT64, INT64, Field, Schema, narrow_wide,
+                      wide_read_error)
+from .aggregate import AggExpr, BoundAgg, _avg_dtype, _out_sum_dtype
 
 # sorted-layout sentinel: dead rows sort behind every normalised key
 DEAD = 2 ** 62
@@ -54,9 +55,10 @@ def _next_pow2(n: int) -> int:
 class Run:
     """One evaluation of a plan: its bound inputs, the rows each node that
     can outgrow its static capacity needed beside that capacity (its
-    overflow flag, which `run_plan` reads once, at the end; the growth a
-    retry needs), and the outputs of the nodes that several parents
-    share.
+    overflow flag; the growth a retry needs), where each wide SUM narrowed
+    to int64 passed it (`flag_wide`), and the outputs of the nodes that
+    several parents share. The flags are read once, at the end
+    (`verdict`).
 
     The serial and partitioned runtimes run a stage once per partition:
     `partition` is that partition's id (PartitionPruneExec reads it; None
@@ -77,6 +79,8 @@ class Run:
         # (rows needed, rows held, index in GROWTH_KINDS) of each
         # operator that can overflow
         self.needs: List[Tuple[torch.Tensor, int, int]] = []
+        # (passed, column) of each wide SUM narrowed to int64
+        self.narrowed: List[Tuple[torch.Tensor, str]] = []
         self.evaluated = 0      # evaluate() calls made in this run
         # id(node) -> [output, parents that have not read it yet]
         self._shared: Dict[int, list] = {}
@@ -93,6 +97,45 @@ class Run:
     def flags(self) -> List[torch.Tensor]:
         """Each such operator's overflow flag (0-d bool tensors)."""
         return [need > have for need, have, _ in self.needs]
+
+    def flag_wide(self, passed: torch.Tensor, column: str) -> None:
+        """A wide SUM read above was narrowed to int64 as `column`;
+        `passed` (a 0-d bool tensor) is true where a live value of it
+        passed int64. Such a run fails (`overflowed`), unless an operator
+        also overflowed: its retry comes first."""
+        self.narrowed.append((passed, column))
+
+    def wide_code(self) -> Optional[torch.Tensor]:
+        """A 0-d int64 tensor: 1 + the index of the last narrowing whose
+        value passed int64, 0 where none did; None without narrowings."""
+        if not self.narrowed:
+            return None
+        passed = torch.stack([p for p, _ in self.narrowed])
+        order = torch.arange(1, len(self.narrowed) + 1, device=passed.device)
+        return (passed * order).max()
+
+    def verdict(self) -> Optional[torch.Tensor]:
+        """All the run's flags as one 0-d int64 tensor on the device, for
+        one read: 0 where the output stands, -1 where an operator
+        outgrew its capacity, else `wide_code`. None where the plan can
+        do neither."""
+        flags, code = self.flags, self.wide_code()
+        if not flags and code is None:
+            return None
+        if code is None:
+            code = torch.zeros((), dtype=torch.int64,
+                               device=flags[0].device)
+        for flag in flags:
+            code = torch.where(flag.to(code.device), -1, code)
+        return code
+
+    def overflowed(self, verdict: int) -> bool:
+        """Whether a run whose `verdict` was read on the host overflowed
+        (a retry with larger capacities follows); raises the wide-decimal
+        error where a narrowed value passed int64."""
+        if verdict > 0:
+            raise wide_read_error(self.narrowed[verdict - 1][1])
+        return verdict < 0
 
     def growth(self) -> Optional[torch.Tensor]:
         """(len(GROWTH_KINDS),) int64: for each kind, how many times its
@@ -322,8 +365,6 @@ class HashAggregateExec(ExecNode):
         # the value)
         self._group_bounds = [sorted_recode(bind_expr(e, in_schema))
                               for e in group_exprs]
-        for e, gb in zip(group_exprs, self._group_bounds):
-            refuse_wide(gb.dtype, f"GROUP BY {expr_name(e)}")
         self._group_names = (list(group_names) if group_names
                              else [expr_name(e) for e in group_exprs])
         self._key_nullables = [b.nullable for b in self._group_bounds]
@@ -434,6 +475,11 @@ class HashAggregateExec(ExecNode):
                                for f in ba.state_fields())
         else:
             agg_fields = tuple(ba.out_field for ba in self._bound_aggs)
+        # (output column, name shown) of the wide sums narrowed to int64
+        self._narrow = [] if mode == "partial" else [
+            (len(key_fields) + j,
+             ba.spec.shown or f"sum({expr_name(ba.spec.arg)})")
+            for j, ba in enumerate(self._bound_aggs) if ba.narrow]
         self.schema = Schema(key_fields + agg_fields, dicts, bounds, unsorted)
 
     def _child_states(self, b: Batch, i: int) -> List[Column]:
@@ -480,7 +526,7 @@ class HashAggregateExec(ExecNode):
             n_groups = torch.ones((), dtype=torch.int32, device=b.device)
         out_cols = key_out + [c for ba, st in zip(self._bound_aggs, states)
                               for c in self._emit(ba, st)]
-        return self._finish(out_cols, T, n_groups, used)
+        return self._finish(run, out_cols, T, n_groups, used)
 
     def _evaluate_sorted(self, run, b: Batch, live, key_cols):
         """Sort the whole batch by the group keys (dead rows last), then
@@ -516,7 +562,7 @@ class HashAggregateExec(ExecNode):
                     for kc in key_cols]
         for i, ba in enumerate(self._bound_aggs):
             out_cols += self._emit(ba, self._states(b, i, layout))
-        return self._finish(out_cols, T_used, n_groups, None)
+        return self._finish(run, out_cols, T_used, n_groups, None)
 
     def _aggregate(self, b: Batch, layout: segagg.MaskedLayout):
         """(per-slot count(*), per-aggregate state columns).
@@ -571,9 +617,11 @@ class HashAggregateExec(ExecNode):
             states.append(assemble(outs))
         return per_slot[count_star], states
 
-    def _finish(self, out_cols, T: int, n_groups, used):
-        """Compact the used slots to the front (masked layout) and fit the
-        T group rows to the output capacity (n_groups <= capacity)."""
+    def _finish(self, run, out_cols, T: int, n_groups, used):
+        """Compact the used slots to the front (masked layout), fit the
+        T group rows to the output capacity (n_groups <= capacity) and
+        narrow the wide sums read above, flagging the run where a live
+        value passes int64."""
         if used is not None:
             perm, _ = compaction_perm(used)
             out_cols = list(gather_batch(Batch(tuple(out_cols), n_groups),
@@ -589,6 +637,10 @@ class HashAggregateExec(ExecNode):
                     (cap - T,) + tuple(data.shape[1:]))])
                 valid = torch.cat([valid, valid.new_zeros(cap - T)])
             cols.append(Column(data, valid & live))
+        for i, shown in self._narrow:
+            data, passed = narrow_wide(cols[i].data)
+            run.flag_wide((passed & cols[i].validity).any(), shown)
+            cols[i] = Column(data, cols[i].validity)
         return Batch(tuple(cols), n_groups)
 
     def _label(self):
@@ -656,9 +708,6 @@ class HashJoinExec(ExecNode):
         # dictionary keys also gain a packing bound of the dictionary size.
         self._key_luts: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         dict_bounds: Dict[int, tuple] = {}
-        for a, bn in self.on:
-            refuse_wide(build.schema.field(a).dtype, f"join key {a}")
-            refuse_wide(probe.schema.field(bn).dtype, f"join key {bn}")
         for ki, (a, bn) in enumerate(self.on):
             da = build.schema.dictionary(a)
             db = probe.schema.dictionary(bn)
@@ -829,7 +878,10 @@ def _final_agg(a: AggExpr, in_schema: Schema) -> BoundAgg:
     k = a.kind
     if k in ("count", "count_star"):
         ba.out_field = Field(a.name, INT64, nullable=False)
-    elif k in ("sum", "min", "max", "carry"):
+    elif k == "sum":
+        ba.out_field = Field(a.name, _out_sum_dtype(a, ba.state_dtypes[0]),
+                             nullable=True)
+    elif k in ("min", "max", "carry"):
         ba.out_field = Field(a.name, ba.state_dtypes[0], nullable=True)
     elif k == "avg":
         ba.out_field = Field(a.name, _avg_dtype(ba.state_dtypes[0]),
@@ -1094,8 +1146,6 @@ class SortExec(ExecNode):
         # columns themselves keep their RAW codes
         self._key_bounds = [(sorted_recode(bind_expr(e, child.schema)), asc,
                              nf) for e, asc, nf in keys]
-        for (e, _, _), (kb, _, _) in zip(keys, self._key_bounds):
-            refuse_wide(kb.dtype, f"ORDER BY {expr_name(e)}")
 
     def evaluate(self, run):
         b = run.eval(self.children[0])
@@ -1190,12 +1240,9 @@ def plan_sparse_flow(root: ExecNode) -> ExecNode:
 
 def run_plan(root: ExecNode, inputs: Dict[str, Batch]):
     """Evaluate a plan over {input_id: Batch} (the port's compile_stage:
-    eager torch needs no compilation step). Returns (Batch, overflow):
-    overflow is a 0-d bool tensor on the device, the OR of every node's
-    flag, or None when no node of the plan can overflow."""
+    eager torch needs no compilation step). Returns (Batch, verdict):
+    the run's `Run.verdict()`, nonzero where a node overflowed or a
+    narrowed SUM passed int64, or None when the plan can do neither."""
     run = Run(inputs)
     out = run.eval(root)
-    overflow = None
-    for flag in run.flags:
-        overflow = flag if overflow is None else overflow | flag
-    return out, overflow
+    return out, run.verdict()

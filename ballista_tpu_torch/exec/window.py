@@ -32,12 +32,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..batch import Batch, Column, row_mask
-from ..exprs import (Bound, Expr, _div_scaled, bind_expr, expr_columns,
-                     expr_name, sorted_recode)
+from ..exprs import (Bound, Expr, _div_scaled, bind_expr, expr_name,
+                     sorted_recode)
 from ..ops.hash import _norm_keys
 from ..ops.sort import SortKeySpec, _rankable
 from ..ops.vsort import lex_perm
-from ..schema import FLOAT64, INT64, Field, Schema, TypeKind, refuse_wide
+from ..schema import FLOAT64, INT64, Field, Schema, TypeKind
 from .aggregate import _avg_dtype, _sum_dtype
 from .plan import ExecNode
 
@@ -208,12 +208,6 @@ class WindowExec(ExecNode):
         in_schema = child.schema
         new_fields = []
         for s in self.specs:
-            for e in ([s.arg] + list(s.partition_by)
-                      + [o[0] for o in s.order_by]):
-                for name in (expr_columns(e) if e is not None else ()):
-                    if name in in_schema:
-                        refuse_wide(in_schema.field(name).dtype,
-                                    f"window {s.kind} reads {name}")
             if s.kind in RANKING + NAVIGATION and not s.order_by:
                 raise ValueError(f"{s.kind} requires OVER(... ORDER BY ...)")
             if s.frame is not None:

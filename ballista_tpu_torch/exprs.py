@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .schema import (BOOL, DATE32, DataType, Field, FLOAT32, FLOAT64, INT32,
-                     INT64, Schema, STRING, TypeKind, decimal, refuse_wide)
+                     INT64, Schema, STRING, TypeKind, decimal)
 from .batch import Batch, Column, _sorted_distinct
 
 # ---------------------------------------------------------------------------
@@ -475,6 +475,13 @@ def _arith_bound(op: str, lb: Optional[tuple],
     return (min(ends), max(ends))
 
 
+def _bound_at(b: Bound, out: DataType) -> Optional[tuple]:
+    """The value bounds of an integer or decimal `b` at `out`'s scale."""
+    if b.dtype.kind is not TypeKind.DECIMAL and not b.dtype.is_integer:
+        return None
+    return _scaled_bound(b.int_bound, out.scale - b.dtype.scale)
+
+
 def _hull(bounds) -> Optional[tuple]:
     if any(b is None for b in bounds) or not bounds:
         return None
@@ -694,9 +701,14 @@ def bind_expr(e: Expr, schema: Schema) -> Bound:
 
     if not isinstance(e, (Col, IsNull)):
         for child in _operands(e):
-            if isinstance(child, Col) and child.name in schema:
-                refuse_wide(schema.field(child.name).dtype,
-                            f"{expr_name(e)} reads {child.name}")
+            if (isinstance(child, Col) and child.name in schema
+                    and schema.field(child.name).dtype.is_wide):
+                # the lowering narrows every wide SUM an operator reads
+                # (`planner.optimizer.mark_carried`): reaching here is a
+                # planner fault, not a user error
+                raise AssertionError(
+                    f"{expr_name(e)} reads the wide decimal {child.name}, "
+                    "which the planner should have narrowed")
 
     if isinstance(e, Col):
         idx = schema.index_of(e.name)
@@ -1124,11 +1136,8 @@ def _bind_case(e: Case, schema: Schema) -> Bound:
         dictionary = code_bound = None
     ib = None
     if out.kind is TypeKind.DECIMAL:
-        ib = _hull([_scaled_bound(b.int_bound, out.scale - (
-            b.dtype.scale if b.dtype.kind is TypeKind.DECIMAL else 0))
-            if b.dtype.kind is TypeKind.DECIMAL or b.dtype.is_integer
-            else None for b in branches]
-            + ([] if otherwise is not None else [(0, 0)]))
+        ib = _hull([_bound_at(b, out) for b in branches]
+                   + ([] if otherwise is not None else [(0, 0)]))
 
     def fn(batch):
         if otherwise is not None:
@@ -1341,7 +1350,8 @@ def _bind_scalar_fn(e: ScalarFn, schema: Schema) -> Bound:
         def fn(batch):
             col = c.fn(batch)
             return Column(col.data.abs(), col.validity)
-        return Bound(c.dtype, c.nullable, fn)
+        return Bound(c.dtype, c.nullable, fn,
+                     int_bound=_abs_bound(c.int_bound))
     if name == "substring":
         c = _string_arg(e, schema)
         start = e.args[1].value - 1   # SQL positions are 1-based
@@ -1388,8 +1398,20 @@ def _bind_scalar_fn(e: ScalarFn, schema: Schema) -> Bound:
                 data = torch.where(col.validity, col.data, data)
                 valid = valid | col.validity
             return Column(data, valid)
-        return Bound(out, all(p.nullable for p in parts), fn)
+        ib = (_hull([_bound_at(p, out) for p in parts])
+              if out.kind is TypeKind.DECIMAL or out.is_integer else None)
+        return Bound(out, all(p.nullable for p in parts), fn, int_bound=ib)
     raise NotImplementedError(f"scalar function {e.name}")
+
+
+def _abs_bound(b: Optional[tuple]) -> Optional[tuple]:
+    """The bounds of |x| for x within `b`."""
+    if b is None:
+        return None
+    lo, hi = abs(int(b[0])), abs(int(b[1]))
+    if b[0] <= 0 <= b[1]:
+        return (0, max(lo, hi))
+    return (min(lo, hi), max(lo, hi))
 
 
 def _bind_concat(e: ScalarFn, schema: Schema) -> Bound:

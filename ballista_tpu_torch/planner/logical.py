@@ -144,22 +144,22 @@ class Aggregate(LogicalPlan):
                 dicts[n] = in_schema.dictionary(base.name)
         from ..exprs import propagate_bounds
         bounds = propagate_bounds(self.group_exprs, names, in_schema)
+        rows = None if _pending(self.input) else row_bound(self.input)
         for a in self.sized_aggs():
             ba = BoundAgg(a, in_schema)
             fields.append(ba.out_field)
+            ib = _agg_bound(ba, rows)
+            if ib is not None:
+                bounds[ba.out_field.name] = ib
             # min/max over a dictionary-coded column stay in code space
-            # (sorted dictionaries make code-extrema exact): keep the dict;
-            # same for int bounds (extrema/carries stay in range)
+            # (sorted dictionaries make code-extrema exact): keep the dict
             if a.kind in ("min", "max", "carry") and a.arg is not None:
                 base = a.arg.child if isinstance(a.arg, Alias) else a.arg
-                if isinstance(base, Col):
-                    if in_schema.dictionary(base.name) is not None:
-                        dicts[ba.out_field.name] = in_schema.dictionary(base.name)
-                        if not in_schema.is_sorted_dict(base.name):
-                            unsorted.add(ba.out_field.name)
-                    ib = in_schema.int_bound(base.name)
-                    if ib is not None:
-                        bounds[ba.out_field.name] = ib
+                if (isinstance(base, Col)
+                        and in_schema.dictionary(base.name) is not None):
+                    dicts[ba.out_field.name] = in_schema.dictionary(base.name)
+                    if not in_schema.is_sorted_dict(base.name):
+                        unsorted.add(ba.out_field.name)
         return Schema(tuple(fields), dicts, bounds, unsorted)
 
     def sized_aggs(self) -> Tuple[AggExpr, ...]:
@@ -287,6 +287,23 @@ class Distinct(LogicalPlan):
 
     def children(self):
         return (self.input,)
+
+
+def _agg_bound(ba: BoundAgg, rows: Optional[int]) -> Optional[tuple]:
+    """An aggregate output's value bounds: an extremum's or a carry's are
+    its argument's; a SUM that is not wide adds at most `rows` values of
+    its argument, so +-rows x its largest magnitude (what `wide_sum`
+    checked against int64). A wide SUM's output has none."""
+    k = ba.spec.kind
+    b = ba.arg.int_bound if ba.arg is not None else None
+    if b is None:
+        return None
+    if k in ("min", "max", "carry"):
+        return b
+    if k == "sum" and rows is not None and not ba.wide:
+        m = rows * max(abs(int(b[0])), abs(int(b[1])))
+        return (-m, m)
+    return None
 
 
 def _pending(p: LogicalPlan) -> bool:

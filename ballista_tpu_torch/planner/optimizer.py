@@ -10,7 +10,7 @@ resident for queries that read four of them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Set
+from typing import Dict, Optional, Set
 
 from ..exprs import expr_columns
 from . import logical as L
@@ -123,6 +123,94 @@ def _prune(p: L.LogicalPlan, needed: Optional[Set[str]]) -> L.LogicalPlan:
             p, inputs=tuple(_prune(c, needed) for c in p.inputs))
 
     return p
+
+
+def mark_carried(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """Mark each SUM whose output no operator above reads as a value
+    (`AggExpr.carried`): it is only projected, limited, exchanged, carried
+    by a join or by a sort on other keys, or returned. A wide SUM keeps its
+    two words there alone. One that is read (by an expression, a filter, a
+    sort, group or join key, an aggregate other than COUNT, or a window)
+    is narrowed at its aggregate's output to the JAX package's type
+    (`exec.aggregate.narrows`), under the name the query shows it by
+    (`AggExpr.shown`). Every lowering of a plan calls this."""
+    return _mark(plan, {})
+
+
+def _mark(p: L.LogicalPlan, reads: Dict[str, Optional[str]]
+          ) -> L.LogicalPlan:
+    """`reads`: p's output columns that an operator above reads, each with
+    the alias a projection above shows it by (None: its own name)."""
+    from ..exprs import Alias, Col, expr_name
+    if isinstance(p, (L.TableScan, L.OneRow)):
+        return p
+    if isinstance(p, (L.Filter, L.Sort, L.Limit, L.Window)):
+        below = dict.fromkeys(_columns(_operands(p)))
+        below.update(reads)
+        return dataclasses.replace(p, input=_mark(p.input, below))
+    if isinstance(p, L.Projection):
+        below = {}
+        for e, n in zip(p.exprs, p.names or [expr_name(e) for e in p.exprs]):
+            base = e.child if isinstance(e, Alias) else e
+            if not isinstance(base, Col):
+                for c in expr_columns(base):
+                    below.setdefault(c, None)
+            elif n in reads:
+                below[base.name] = reads[n] or n
+        return dataclasses.replace(p, input=_mark(p.input, below))
+    if isinstance(p, L.Aggregate):
+        args = [x for a in p.aggs if a.kind not in ("count", "count_star")
+                for x in (a.arg, a.arg2)]
+        aggs = tuple(dataclasses.replace(
+            a, carried=a.name not in reads, shown=reads.get(a.name))
+            if a.kind == "sum" else a for a in p.aggs)
+        below = dict.fromkeys(_columns(list(p.group_exprs) + args))
+        return dataclasses.replace(p, aggs=aggs, input=_mark(p.input, below))
+    if isinstance(p, L.Join):
+        def side(child, keys):
+            names = _all_names(child)
+            below = dict.fromkeys(keys)
+            below.update((n, a) for n, a in reads.items() if n in names)
+            return below
+        lkeys = [a for a, _ in p.on]
+        left = (dict.fromkeys(lkeys) if p.how in ("semi", "anti")
+                else side(p.left, lkeys))
+        return dataclasses.replace(
+            p, left=_mark(p.left, left),
+            right=_mark(p.right, side(p.right, [b for _, b in p.on])))
+    if isinstance(p, L.Union):
+        # positional: the first input's names are the union's
+        first = [f.name for f in p.inputs[0].schema().fields]
+        at = [i for i, n in enumerate(first) if n in reads]
+        return dataclasses.replace(p, inputs=tuple(
+            _mark(c, dict.fromkeys(c.schema().fields[i].name for i in at))
+            for c in p.inputs))
+    # DISTINCT groups by every column: so does any other node
+    return dataclasses.replace(p, **{
+        f.name: _mark(child, dict.fromkeys(_all_names(child)))
+        for f in dataclasses.fields(p)
+        for child in [getattr(p, f.name)]
+        if isinstance(child, L.LogicalPlan)})
+
+
+def _operands(p: L.LogicalPlan) -> list:
+    """The expressions a filter, sort, limit or window reads."""
+    if isinstance(p, L.Filter):
+        return [p.predicate]
+    if isinstance(p, L.Sort):
+        return [e for e, _, _ in p.keys]
+    if isinstance(p, L.Window):
+        return [e for s in p.specs
+                for e in (s.arg, *s.partition_by, *(o[0] for o in s.order_by))]
+    return []
+
+
+def _columns(exprs) -> Set[str]:
+    out: Set[str] = set()
+    for e in exprs:
+        if e is not None:
+            out |= expr_columns(e)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -122,9 +122,9 @@ def create_physical_plan(plan: L.LogicalPlan, capacities: Dict[str, int],
                          device) -> ExecNode:
     """capacities: table_name -> row capacity of its (single) partition;
     `device` is where FROM-less rows are made (scans bring their own)."""
-    from .optimizer import prune_columns, reduce_group_keys
+    from .optimizer import mark_carried, prune_columns, reduce_group_keys
     opts = options or PhysicalOptions()
-    plan = prune_columns(reduce_group_keys(plan))
+    plan = mark_carried(prune_columns(reduce_group_keys(plan)))
 
     def table_size(child: ExecNode) -> int:
         return min(_next_pow2(max(2 * child.capacity, 16)),

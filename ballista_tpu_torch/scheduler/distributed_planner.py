@@ -37,6 +37,7 @@ from ..exec.plan import (CoalesceExec, CrossJoinExec, ExecNode, FilterExec,
 from ..exec.window import WindowExec
 from ..exprs import Col
 from ..planner import logical as L
+from ..planner.optimizer import mark_carried
 from ..planner.physical import (_is_cross, _strip_filters, align_union_inputs,
                                 filtered_cross)
 
@@ -171,7 +172,7 @@ class DistributedPlanner:
 
     # -- lowering --
     def plan(self, plan: L.LogicalPlan) -> DistributedPlan:
-        root = self._lower(plan)
+        root = self._lower(mark_carried(plan))
         final = self._close_stage(root)
         return DistributedPlan(self._stages, final)
 

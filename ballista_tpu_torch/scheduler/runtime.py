@@ -40,6 +40,8 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..schema import wide_read_error
+
 
 class StageMetrics:
     """Per-stage execution metrics (the reference's OperatorMetricsSet,
@@ -164,11 +166,15 @@ class StageRun(NamedTuple):
     the host. `out` is the stage output; the tensors live on the first
     partition's device: per partition and kind how many times its
     capacity the neediest operator wanted (`Run.growth`; above 1 where an
-    operator overflowed), the exchange's overflow flag per sender (None without
-    one), its pre-clamp counts (senders, P), each recorded operator's
-    output rows per partition (partitions, operators)."""
+    operator overflowed), per partition which narrowed wide SUM passed
+    int64 (`Run.wide_code`, 0 for none; `narrowed` names them), the
+    exchange's overflow flag per sender (None without one), its pre-clamp
+    counts (senders, P), each recorded operator's output rows per
+    partition (partitions, operators)."""
     out: object                       # PartitionedBatch
     growth: torch.Tensor              # (P, len(GROWTH_KINDS)) int64
+    wide: torch.Tensor                # (P,) int64
+    narrowed: List[str]
     ex_overflow: Optional[torch.Tensor]
     counts: Optional[torch.Tensor]    # (P, P) int32
     op_rows: torch.Tensor             # (P, n_ops) int64
@@ -184,7 +190,7 @@ class StageRun(NamedTuple):
         again)."""
         P = self.growth.shape[0]
         dev = self.growth.device
-        parts = [self.growth.reshape(-1),
+        parts = [self.growth.reshape(-1), self.wide,
                  (self.ex_overflow.to(torch.int64)
                   if self.ex_overflow is not None
                   else torch.zeros(P, dtype=torch.int64, device=dev)),
@@ -205,7 +211,8 @@ class StageRun(NamedTuple):
         vector = vector.cpu().numpy()
         (P, g), k = self.growth.shape, len(self.labels)
         growth = vector[:P * g].reshape(P, g)
-        vector = vector[P * g:]
+        wide = int(vector[P * g:P * g + P].max())
+        vector = vector[P * g + P:]
         ex_ov = vector[:P] != 0
         counts = vector[P:P + P * P].reshape(P, P)
         rows = vector[P + P * P:P + P * P + P * k].reshape(P, k)
@@ -213,7 +220,8 @@ class StageRun(NamedTuple):
         return StageCounts(self, bool((growth > 1).any()),
                            self.ex_overflow is not None and bool(ex_ov.any()),
                            counts, rows, num_rows,
-                           tuple(int(x) for x in growth.max(axis=0)))
+                           tuple(int(x) for x in growth.max(axis=0)),
+                           self.narrowed[wide - 1] if wide else None)
 
 
 class StageCounts(NamedTuple):
@@ -225,10 +233,17 @@ class StageCounts(NamedTuple):
     num_rows: np.ndarray      # (P,) output rows per partition
     growth: tuple             # per kind, the most an operator outgrew its
                               # capacity
+    wide_read: Optional[str]  # a narrowed SUM that passed int64
 
     @property
     def overflow(self) -> bool:
         return self.op_overflow or self.ex_overflow
+
+    def check_wide(self) -> None:
+        """Raise the wide-decimal error where a narrowed SUM passed int64
+        (read after `overflow`: a retry comes first)."""
+        if self.wide_read is not None:
+            raise wide_read_error(self.wide_read)
 
     @property
     def leaf_capacity(self) -> int:
@@ -345,12 +360,15 @@ class DistributedRuntime:
         P = len(self.mesh)
         dev0 = self.mesh[0]
         local = getattr(self.mesh, "is_local", lambda p: True)
-        outs, growths, rows, labels = [], [], [], None
+        outs, growths, wides, rows, labels = [], [], [], [], None
+        narrowed: List[str] = []
+        no_wide = torch.zeros((), dtype=torch.int64, device=dev0)
         for p in range(P):
             if not local(p):
                 outs.append(None)
                 growths.append(torch.zeros(len(GROWTH_KINDS),
                                            dtype=torch.int64, device=dev0))
+                wides.append(no_wide)
                 rows.append(None)
                 continue
             run = Run({lid: pb.batches[p] for lid, pb in inputs.items()},
@@ -360,6 +378,9 @@ class DistributedRuntime:
             growths.append(torch.ones(len(GROWTH_KINDS), dtype=torch.int64,
                                       device=dev0)
                            if g is None else g.to(dev0))
+            code = run.wide_code()
+            wides.append(no_wide if code is None else code.to(dev0))
+            narrowed = [c for _, c in run.narrowed]
             if labels is None:
                 labels = [lbl for lbl, _ in run.op_rows]
             rows.append([n.to(dev0, torch.int64) for _, n in run.op_rows])
@@ -381,6 +402,7 @@ class DistributedRuntime:
                                 for r in rows]) if labels
                    else torch.zeros((P, 0), dtype=torch.int64, device=dev0))
         return StageRun(PartitionedBatch(tuple(outs)), torch.stack(growths),
+                        torch.stack(wides), narrowed,
                         ex_overflow, counts, op_rows, labels or [], quota,
                         salt_kind, spans_processes(self.mesh))
 

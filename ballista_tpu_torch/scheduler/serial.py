@@ -129,10 +129,9 @@ class SerialRuntime:
     def _compile_stage(self, stage: Stage):
         """(run(pid, inputs), leaf ids, kind): the stage's body, run once
         per partition. run returns (output batch, send counts, the
-        operators' overflow flag or None, the exchange's overflow flag,
-        per-operator row counts, pre-clamp counts, the operators' growth
-        (`Run.growth`) or None); an exchange's three are None in a stage
-        that is no exchange."""
+        exchange's overflow flag, pre-clamp counts, the partition's Run,
+        whose flags and row counts the caller reads); an exchange's three
+        are None in a stage that is no exchange."""
         root = stage.root
         if isinstance(root, ExchangeExec):
             kind, body = "exchange", root.children[0]
@@ -145,17 +144,13 @@ class SerialRuntime:
         def run(pid: int, inputs: Dict[str, Batch]):
             r = Run(inputs, partition=pid, trace=True)
             out = r.eval(body)
-            overflow = None
-            for flag in r.flags:
-                overflow = flag if overflow is None else overflow | flag
             counts = raw = exchange_overflow = None
             if kind == "exchange":
                 out, counts, exchange_overflow, raw = exchange_send_rows(
                     *root.hash_input(out), root.n_parts, root.quota,
                     root.salt, root.salt_mode)
                 out = root.drop_hash_columns(out)
-            return (out, counts, overflow, exchange_overflow, r.op_rows, raw,
-                    r.growth())
+            return out, counts, exchange_overflow, raw, r
 
         return run, leaf_ids, kind
 
@@ -222,8 +217,7 @@ class SerialRuntime:
                                        if prod.kind == "exchange"
                                        else self._gather_input(prod, cap))
                     m.bytes_to_device += _live_bytes(inputs[lid])
-                out, counts, overflow, exchange_overflow, op_rows, raw, \
-                    growth = fn(pid, inputs)
+                out, counts, exchange_overflow, raw, run = fn(pid, inputs)
                 del inputs
                 if exchange_overflow is not None and bool(exchange_overflow):
                     err = ShuffleOverflowError(
@@ -235,19 +229,20 @@ class SerialRuntime:
                                   "salt_kind": stage.root.salt_kind,
                                   "counts": raw.cpu().numpy()[None, :]}]
                     raise err
-                if overflow is not None and bool(overflow):
+                verdict = run.verdict()
+                if verdict is not None and run.overflowed(int(verdict)):
                     err = CapacityOverflowError(
                         f"stage {stage.stage_id} partition {pid}: a group "
                         "table or join output outgrew its capacity")
-                    err.growth = tuple(growth.tolist())
+                    err.growth = tuple(run.growth().tolist())
                     raise err
                 sout.shards[pid] = _fetch_shard(
                     out, counts.cpu().numpy() if kind == "exchange" else None)
                 m.bytes_to_host += sout.shards[pid].nbytes
-                if op_rows:
-                    rows = torch.stack([r.to(torch.int64)
-                                        for _, r in op_rows]).cpu().tolist()
-                    for (label, _), v in zip(op_rows, rows):
+                if run.op_rows:
+                    rows = torch.stack([r.to(torch.int64) for _, r in
+                                        run.op_rows]).cpu().tolist()
+                    for (label, _), v in zip(run.op_rows, rows):
                         op_totals[label] = op_totals.get(label, 0) + v
                 m.partitions += 1
             m.operator_rows = op_totals

@@ -208,6 +208,7 @@ class JobContext:
                 stage, self.runtime.stage_inputs(stage, self.outputs))
             counts = run.read()
             if not counts.overflow:
+                counts.check_wide()
                 self.observed[stage_id] = counts.leaf_capacity
                 out = self.runtime.trim(run.out, counts.leaf_capacity)
                 with self.lock:

@@ -14,8 +14,11 @@ here the type system is designed for fixed-shape device arrays:
   as two int64 words per row, an int64[capacity, 2] tensor (a numpy
   (n, 2) array on the host): the value is hi * 2^32 + lo with 0 <= lo <
   2^32 (`split_wide` / `join_wide`), exact up to 2^95. It is carried (sort
-  payload, limit, projection, exchange, egress) but no expression reads
-  it: arithmetic, comparisons and keys on it raise.
+  payload, limit, projection, exchange, egress); no operator reads it.
+  Where an operator above reads such a SUM as a value, the lowering
+  narrows it to decimal(18, s) at the aggregate's output (`narrow_wide`),
+  as the JAX package types it, and a value past int64 fails the run
+  (`wide_read_error`).
 - STRING is dictionary-encoded: device arrays hold int32 codes; the
   dictionary (sorted, so code order == lexicographic order) lives host-side
   in the Schema. Comparisons with literals / LIKE are evaluated on the
@@ -144,13 +147,21 @@ def wide_decimal(precision: int, scale: int) -> DataType:
     return DataType(TypeKind.DECIMAL, precision, scale)
 
 
-def refuse_wide(dtype: DataType, what: str) -> None:
-    """Raise NotImplementedError naming `what` where a wide decimal is
-    used as anything but a carried value."""
-    if dtype.is_wide:
-        raise NotImplementedError(
-            f"{what}: {dtype!r} is a wide decimal (a SUM that may pass "
-            "int64); only SUM, COUNT and carrying it are supported")
+def narrow_wide(words: torch.Tensor):
+    """A wide column int64[n, 2] as int64 values, and where each value
+    passes int64 (hi outside [-2^31, 2^31)): there the int64 is not the
+    value."""
+    hi, lo = words[:, 0], words[:, 1]
+    passed = (hi < -(1 << 31)) | (hi >= (1 << 31))
+    return (hi << WIDE_SHIFT) | lo, passed
+
+
+def wide_read_error(column: str) -> NotImplementedError:
+    """The error of a run where a narrowed SUM passed int64."""
+    return NotImplementedError(
+        f"{column}: its value passes int64, so it is a wide decimal; a "
+        "wide decimal is exact where it is only carried, but cannot be "
+        "read as a value (compared, sorted, grouped, computed with)")
 
 
 def join_wide(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:

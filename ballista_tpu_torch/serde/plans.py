@@ -66,7 +66,9 @@ def _enc(v: Any) -> Any:
                 "frac": v.frac,
                 # set only on lowered plans; a logical plan's document is
                 # the reference's
-                **({"wide": True} if v.wide else {})}
+                **({"wide": True} if v.wide else {}),
+                **({"carried": True} if v.carried else {}),
+                **({"shown": v.shown} if v.shown else {})}
     from ..exec.window import WindowFnSpec
     if isinstance(v, WindowFnSpec):
         return {"@winspec": True, "kind": v.kind,
@@ -103,7 +105,9 @@ def _dec(v: Any) -> Any:
                            v["alias"], v["distinct"],
                            arg2=(decode_expr(v["arg2"])
                                  if v.get("arg2") is not None else None),
-                           frac=v.get("frac"), wide=v.get("wide", False))
+                           frac=v.get("frac"), wide=v.get("wide", False),
+                           carried=v.get("carried", False),
+                           shown=v.get("shown"))
         if "@winspec" in v:
             from ..exec.window import WindowFnSpec
             return WindowFnSpec(

@@ -19,6 +19,7 @@ load, scaling and scheduler-event benches, Avro and a UDF plugin.
     python3 chip_smoke.py --raw-only          # phases 1, 2, 11's h2o join
                                               # and 15 alone
     python3 chip_smoke.py --tools-only        # phases 1, 2 and 16 alone
+    python3 chip_smoke.py --wide-only         # phases 1, 2 and 19 alone
     python3 chip_smoke.py --sf100-only [--queries 1,6]  # phases 1, 2 and
                                               # the SF100 sweep
 
@@ -207,7 +208,11 @@ Phases:
    end; (c) the dataset registered, Q1 and Q6 through `collect()` with
    routing on: route, first run (the columns read from the part files),
    warm median of 3, peak allocated and reserved, host peak RSS; Q1's
-   sum_charge must be a wide decimal; (d) the kernel's Q1 call (n = 6.0e8,
+   sum_charge must be a wide decimal; on Q1's columns, no part file read
+   again, Q1 over l_linestatus = 'F' by sum_charge desc (wide by its bound,
+   narrowed: its three rows equal (f)'s reference) and Q1 by sum_charge
+   (must raise the wide-decimal error naming it: N|O passes int64);
+   (d) the kernel's Q1 call (n = 6.0e8,
    T = 12, twelve described rows, two of them half-word) against its plain
    version over row chunks, with the bytes it must read, its bound at
    3.35 TB/s and index_add_ on the same call; (e) Q1 on
@@ -217,6 +222,17 @@ Phases:
    and SF100 of every table generated under TMPDIR and the queries through
    `benchmarks/sf100.py` (SF10 each in-core against serial, SF100 each in
    its own process against the invariants); it exits 1 if any query fails.
+19. wide SUMs read as values at SF1, on the shared SF1 context: (a) Q1 with
+   sum(coalesce(...)) as sum_charge ordered by it, descending, in-core,
+   on serial_partitions=8 and over P = 8 partitions of the card, each
+   equal to answers/sf1's rows in that order; (b) a HAVING on
+   sum(abs(l_quantity)); (c) a CTE's roll-up of Q1's sum_disc_price
+   ordered by the roll-up (wide by its bound: narrowed); (d) partsupp x
+   lineitem on ps_partkey alone grouped by l_returnflag, ordered by
+   sum(l_extendedprice) (wide by its rows: narrowed); (b)-(d) against
+   numpy on the host columns; route, warm ms, launches and the narrowed
+   sums of each; the kernel against its plain version on every call
+   shape, with index_add_ on the same calls.
 Phases 7 and 8 also hold the kernel against its plain version on the
 calls Q4, Q15 and Q22 (phase 7) and Q11 and Q16 (phase 8) made.
 The line before the last is a JSON object describing the kernel (its
@@ -242,7 +258,8 @@ from ballista_tpu_torch.batch import (Batch, Column, round_capacity,
 from ballista_tpu_torch.benchmarks import (ANALYTIC_QUERIES, TPCH_QUERIES,
                                            h2o, nyctaxi)
 from ballista_tpu_torch.benchmarks.queries import q1_frame, q3_frame
-from ballista_tpu_torch.benchmarks.timing import cuda_ms, host_ms
+from ballista_tpu_torch.benchmarks.timing import (cuda_ms, host_ms,
+                                                  library_ms)
 from ballista_tpu_torch.client import SessionContext
 from ballista_tpu_torch.client.context import rebind_scans
 from ballista_tpu_torch.avro import write_avro
@@ -363,17 +380,6 @@ def time_rows(slot, rows, T):
     return time_kernel(
         lambda: masked_sums.masked_slot_sums_rows(slot, rows, T),
         lambda: masked_sums.masked_slot_sums_rows_reference(slot, rows, T))
-
-
-def library_ms(slot, contribs, T):
-    """The time of the one PyTorch call that computes the same sums from
-    a contribution matrix, `index_add_`, its index and output prepared
-    beforehand. The port never calls it outside the plain version."""
-    idx = torch.where((slot >= 0) & (slot < T), slot, T).to(torch.int64)
-    out = torch.zeros((T + 1, contribs.shape[0]), dtype=torch.int64,
-                      device=slot.device)
-    src = contribs.T
-    return cuda_ms(lambda: out.index_add_(0, idx, src))
 
 
 def bound(slot, columns, T, A):
@@ -4317,6 +4323,55 @@ def _same_as_reference(label, got, schema, table):
             raise AssertionError(f"{label}: {f.name} {have} != numpy {want}")
 
 
+def sf100_q1_sql(where, order_by):
+    sql = TPCH_QUERIES[1].replace(
+        "l_shipdate <= date '1998-09-02'",
+        "l_shipdate <= date '1998-09-02'" + where)
+    return sql[:sql.index("order by")] + f"order by\n    {order_by}\n"
+
+
+def sf100_reads(ctx):
+    """(c) on its own context, no part file decoded again: Q1 over
+    l_linestatus = 'F' ordered by sum_charge desc, a sum wide by its bound
+    whose values fit int64, narrowed; Q1 ordered by sum_charge, whose N|O
+    value passes int64, must raise the wide-decimal error naming it.
+    Returns (kernel launches, the first's to_numpy answer, its schema)."""
+    li = ctx.tables["lineitem"]
+    read = li.read_bytes
+    sql = sf100_q1_sql(" and l_linestatus = 'F'", "sum_charge desc")
+    if narrowed_sums(ctx, sql) != ["sum_charge"]:
+        raise AssertionError("SF100 Q1 over 'F': sum_charge not narrowed")
+    before = read_counts()
+    t0 = time.perf_counter()
+    batch, schema = ctx.sql(sql).collect()
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    got = to_numpy(batch, schema)
+    del batch
+    dt = schema.field("sum_charge").dtype
+    if repr(dt) != "decimal(18,6)":
+        raise AssertionError(f"SF100 Q1 over 'F': sum_charge is {dt!r}")
+    log(f"phase 18 (c): Q1 over l_linestatus = 'F' by sum_charge desc: "
+        f"sum_charge narrowed to {dt!r}; {took:.3f} s; "
+        f"{len(got['l_returnflag'][0])} rows, largest "
+        f"{max(int(v) for v in got['sum_charge'][0])}")
+    t0 = time.perf_counter()
+    try:
+        ctx.sql(sf100_q1_sql("", "sum_charge")).collect()
+    except NotImplementedError as e:
+        if "sum_charge" not in str(e) or "wide decimal" not in str(e):
+            raise AssertionError(f"SF100 Q1 by sum_charge: {e}") from e
+        log(f"phase 18 (c): Q1 by sum_charge raised as it must in "
+            f"{time.perf_counter() - t0:.3f} s: {e}")
+    else:
+        raise AssertionError("SF100 Q1 by sum_charge answered: N|O passes "
+                             "int64 and must raise")
+    if li.read_bytes != read:
+        raise AssertionError(f"the reads decoded {li.read_bytes - read} B "
+                             "of part files again")
+    return read_counts() - before, got, schema
+
+
 def phase_sf100():
     """Phase 18. Returns (kernel launches of (c) and (e), the held numbers
     of (d))."""
@@ -4344,6 +4399,8 @@ def phase_sf100():
         held = hold_sf100_call(*call)
         del call
         sf100_warm(ctx, 1)
+        more, q1f, schema1f = sf100_reads(ctx)
+        launches += more
         q6, schema6, _, more, _ = sf100_collect(ctx, 6, False)
         launches += more
         sf100_warm(ctx, 6)
@@ -4368,14 +4425,22 @@ def phase_sf100():
         del batch, sctx
 
         t0 = time.perf_counter()
-        _same_as_reference("SF100 Q1", q1, schema1, sweep.numpy_q1(root))
+        ref = sweep.numpy_q1(root)
+        _same_as_reference("SF100 Q1", q1, schema1, ref)
         _same_as_reference("SF100 Q6", q6, schema6, sweep.numpy_q6(root))
+        ref_status, ref_charge = (ref.column(c).to_pylist()
+                                  for c in ("l_linestatus", "sum_charge"))
+        over_f = [i for i, v in enumerate(ref_status) if v == "F"]
+        _same_as_reference("SF100 Q1 over 'F' by sum_charge desc", q1f,
+                           schema1f, ref.take(sorted(
+                               over_f, key=lambda i: -ref_charge[i])))
         charge = dict(zip(zip(q1["l_returnflag"][0], q1["l_linestatus"][0]),
                           q1["sum_charge"][0]))[("N", "O")]
         if charge <= 0:
             raise AssertionError(f"N|O sum_charge {charge} is not positive")
-        log(f"phase 18 (f): Q1 and Q6 equal the streaming numpy reference "
-            f"exactly ({time.perf_counter() - t0:.1f} s); N|O sum_charge "
+        log(f"phase 18 (f): Q1, Q6 and (c)'s Q1 over 'F' equal the "
+            f"streaming numpy reference exactly "
+            f"({time.perf_counter() - t0:.1f} s); N|O sum_charge "
             f"{charge / 10 ** wide.scale:.6f} ({wide!r}; past 2^63 scaled: "
             f"{charge > 2 ** 63 - 1}); route of Q1 in (c): {route}")
     finally:
@@ -4415,6 +4480,227 @@ def phase_sf100_sweep(queries):
     return not bad
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 19: wide SUMs read as values at SF1
+# ---------------------------------------------------------------------------
+
+# Q1 with the NULL-safe sum_charge, sorted by it: its bound (coalesce's
+# hull) keeps it narrow at SF1
+P19_CHARGE = ("sum(coalesce(l_extendedprice * (1 - l_discount) * (1 + l_tax),"
+              " 0)) as sum_charge")
+P19_HAVING = ("select l_returnflag, l_linestatus, sum(abs(l_quantity)) as q "
+              "from lineitem group by l_returnflag, l_linestatus "
+              "having sum(abs(l_quantity)) > 1000000 "
+              "order by l_returnflag, l_linestatus")
+# the roll-up's sum over 6e6 rows of sums is wide by its bound: narrowed
+P19_ROLLUP = ("with g as (select l_returnflag, l_linestatus, "
+              "sum(l_extendedprice * (1 - l_discount)) as sum_disc_price "
+              "from lineitem where l_shipdate <= date '1998-09-02' "
+              "group by l_returnflag, l_linestatus) "
+              "select l_returnflag, sum(sum_disc_price) as total from g "
+              "group by l_returnflag order by total")
+# a many-to-many join: 8e5 x 6e6 rows times the price bound pass int64
+P19_JOIN = ("select l_returnflag, sum(l_extendedprice) as s from partsupp "
+            "join lineitem on ps_partkey = l_partkey group by l_returnflag "
+            "order by s")
+
+
+def p19_q1_sql():
+    sql = TPCH_QUERIES[1].replace(
+        "sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge",
+        P19_CHARGE)
+    return sql[:sql.index("order by")] + "order by\n    sum_charge desc\n"
+
+
+def narrowed_sums(ctx, sql):
+    """The names of the SUMs that the in-core plan of `sql` narrows."""
+    root = ctx.physical_plan(rebind_scans(ctx.sql(sql).plan, ctx))
+    out, todo = [], [root]
+    while todo:
+        node = todo.pop()
+        if isinstance(node, plan_mod.HashAggregateExec):
+            out += [shown for _, shown in node._narrow]
+        todo.extend(node.children)
+    return out
+
+
+def p19_run(ctx, label, sql, route, calls=None):
+    """First run (its launches and kernel calls) and warm median of 3;
+    the answer as host columns."""
+    before = read_counts()
+    with spy_rows() as seen:
+        t0 = time.perf_counter()
+        batch, schema = ctx.sql(sql).collect()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+    launches = read_counts() - before
+    if calls is not None:
+        calls += seen
+    del seen
+    got = to_numpy(batch, schema)
+    del batch
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ctx.sql(sql).collect()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    log(f"phase 19: {label} route {route}: first run {first:.4f} s, warm "
+        f"median {statistics.median(warm) * 1e3:.3f} ms, kernel launches "
+        f"{launches.tolist()}; types "
+        f"{[repr(f.dtype) for f in schema.fields]}")
+    return got, schema, launches
+
+
+def p19_expected_q1(root):
+    """answers/sf1's Q1 rows ordered by sum_charge, descending, in a copy
+    of the answers directory under `root`: (the copy, the keys in order)."""
+    with open(os.path.join(ANSWER_DIR, "q1.out")) as f:
+        lines = [line.rstrip("\n") for line in f if line.strip()]
+    at = lines[0].split("|").index("sum_charge")
+    rows = sorted(lines[1:], key=lambda r: -float(r.split("|")[at]))
+    os.makedirs(os.path.join(root, "answers"), exist_ok=True)
+    with open(os.path.join(root, "answers", "q1.out"), "w") as f:
+        f.write("\n".join([lines[0]] + rows) + "\n")
+    return root, [tuple(r.split("|")[:2]) for r in rows]
+
+
+def p19_q1(sf1_ctx, expected, keys, calls):
+    """(a): in-core, on serial_partitions=8 and over P = 8 partitions of
+    the card, each answer answers/sf1's rows in sum_charge's order."""
+    sql = p19_q1_sql()
+    sctx = SessionContext(device="cuda", serial_partitions=SERIAL_P)
+    dctx = _dist_ctx(sf1_ctx, make_mesh(
+        DIST_P, devices=[torch.device("cuda", 0)] * DIST_P))
+    for name, tp in sf1_ctx.tables.items():
+        if name in TPCH_TABLES:
+            sctx.register_host(name, tp.fields, tp.host,
+                               primary_key=TPCH_TABLES[name][1])
+    launches = np.zeros(2, dtype=np.int64)
+    for ctx, route in ((sf1_ctx, "in-core"),
+                       (sctx, f"serial@{SERIAL_P}"),
+                       (dctx, f"P = {DIST_P}")):
+        got, schema, more = p19_run(
+            ctx, "(a) Q1 by sum(coalesce(...)) desc", sql, route,
+            calls if ctx is sf1_ctx else None)
+        launches += more
+        notes = []
+        bad = diff_expected((got, schema), expected, 1, notes)
+        order = list(zip(got["l_returnflag"][0], got["l_linestatus"][0]))
+        if bad or order != keys:
+            raise AssertionError(f"phase 19 (a) {route}: {bad or order}")
+        log(f"phase 19 (a): {route}: the 4 rows equal answers/sf1's Q1 in "
+            f"sum_charge's order {order}")
+        ctx.evict_device()
+    return launches
+
+
+def p19_numpy(ctx):
+    """(b)-(d)'s answers over the host columns, as {key: scaled int}."""
+    flag = _host(ctx, "lineitem", "l_returnflag")
+    status = _host(ctx, "lineitem", "l_linestatus")
+    qty = ctx.tables["lineitem"].host["l_quantity"].values
+    price = ctx.tables["lineitem"].host["l_extendedprice"].values
+    disc = ctx.tables["lineitem"].host["l_discount"].values
+    ship = ctx.tables["lineitem"].host["l_shipdate"].values
+    part = ctx.tables["lineitem"].host["l_partkey"].values
+    ps_part = ctx.tables["partsupp"].host["ps_partkey"].values
+    having, rollup, join = {}, {}, {}
+    copies = np.bincount(ps_part, minlength=int(part.max()) + 1)[part]
+    live = ship <= parse_date("1998-09-02")
+    for f in np.unique(flag):
+        fm = flag == f
+        join[(f,)] = int((price[fm] * copies[fm]).sum())
+        rollup[(f,)] = sum(int((price[m] * (100 - disc[m])).sum())
+                           for s in np.unique(status)
+                           for m in [fm & (status == s) & live] if m.any())
+        for s in np.unique(status):
+            m = fm & (status == s)
+            q = int(np.abs(qty[m]).sum())
+            if m.any() and q > 1000000 * 100:
+                having[(f, s)] = q
+    return having, rollup, join
+
+
+def p19_check(label, got, keys, name, want, order_by_value):
+    rows = list(zip(*(got[k][0] for k in keys)))
+    values = [int(v) for v in got[name][0]]
+    if not got[name][1].all() or dict(zip(rows, values)) != want \
+            or len(rows) != len(want):
+        raise AssertionError(f"phase 19 {label}: {dict(zip(rows, values))} "
+                             f"!= numpy {want}")
+    if not want:
+        raise AssertionError(f"phase 19 {label}: numpy keeps no row")
+    ordered = values == sorted(values) if order_by_value else \
+        rows == sorted(rows)
+    if not ordered:
+        raise AssertionError(f"phase 19 {label}: rows out of order: {rows}")
+    log(f"phase 19 {label}: equal to numpy exactly: "
+        f"{dict(zip(rows, values))}")
+
+
+def phase_wide_reads(sf1_ctx):
+    """Phase 19. Returns (kernel launches of its first runs, max |kernel
+    - plain| on the calls it holds, the held numbers of its largest
+    call)."""
+    import shutil
+    import tempfile
+    t_start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ballista_p19_")
+    calls = []
+    try:
+        expected, keys = p19_expected_q1(root)
+        launches = p19_q1(sf1_ctx, expected, keys, calls)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    having, rollup, join = p19_numpy(sf1_ctx)
+    for label, sql, kcols, name, want, by_value, narrowed in (
+            ("(b) HAVING sum(abs(l_quantity))", P19_HAVING,
+             ("l_returnflag", "l_linestatus"), "q", having, False, []),
+            ("(c) a CTE's roll-up of sum_disc_price", P19_ROLLUP,
+             ("l_returnflag",), "total", rollup, True, ["total"]),
+            ("(d) partsupp x lineitem on ps_partkey alone", P19_JOIN,
+             ("l_returnflag",), "s", join, True, ["s"])):
+        if narrowed_sums(sf1_ctx, sql) != narrowed:
+            raise AssertionError(f"phase 19 {label}: narrowed "
+                                 f"{narrowed_sums(sf1_ctx, sql)}, not "
+                                 f"{narrowed}")
+        got, _, more = p19_run(sf1_ctx, label, sql, "in-core", calls)
+        launches += more
+        p19_check(label, got, kcols, name, want, by_value)
+        log(f"phase 19 {label}: narrowed {narrowed or 'nothing'} (the "
+            "bounds keep the rest narrow)")
+    sf1_ctx.evict_device()
+    # each distinct call shape once, the latest (after any overflow retry)
+    shapes = {}
+    for slot, rows, T in calls:
+        shapes[(T, len(rows), slot.shape[0])] = (slot, rows, T)
+    del calls
+    err, largest = 0, None
+    for (T, A, n), call in sorted(shapes.items(), key=lambda kv: kv[0][2]):
+        wide = sum(1 for row in call[1] if len(row) > 2 and row[2])
+        largest = hold_call(19, f"a call of phase 19 ({wide} half-word "
+                            "rows)", *call)
+        err = max(err, held_err(largest))
+    del shapes
+    log(f"phase 19: {time.perf_counter() - t_start:.1f} s; kernel launches "
+        f"{launches.tolist()}")
+    return launches, err, largest
+
+
+def phase_wide_reads_alone():
+    """Phase 19 without the earlier phases: SF1 made here."""
+    t0 = time.perf_counter()
+    ctx = SessionContext(device="cuda")
+    for name, (fields, cols) in generate_tpch(SF, SEED).items():
+        ctx.register_host(name, fields, cols, primary_key=TPCH_TABLES[name][1])
+    log(f"phase 19: TPC-H SF1 generated in {time.perf_counter() - t0:.1f} s")
+    launches, err, held = phase_wide_reads(ctx)
+    held["masked_slot_sums_rows"]["max_abs_err"] = err
+    return launches, held
+
+
 def main():
     t_script = time.perf_counter()
     if sys.argv[1:2] == ["--mp-worker"]:
@@ -4423,14 +4709,15 @@ def main():
         return
     alone = sys.argv[1:] in (["--distributed-only"], ["--wire-only"],
                              ["--raw-only"], ["--tools-only"],
-                             ["--rest-only"])
+                             ["--rest-only"], ["--wide-only"])
     sweep = sys.argv[1:2] == ["--sf100-only"] and (
         len(sys.argv) == 2 or (len(sys.argv) == 4
                                and sys.argv[2] == "--queries"))
     if sys.argv[1:] and not (alone or sweep):
         print("usage: python3 chip_smoke.py [--distributed-only | "
               "--wire-only | --raw-only | --tools-only | --rest-only | "
-              "--sf100-only [--queries 1,6,...]]", file=sys.stderr)
+              "--wide-only | --sf100-only [--queries 1,6,...]]",
+              file=sys.stderr)
         sys.exit(2)
     log(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -4498,6 +4785,9 @@ def main():
         elif sys.argv[1] == "--rest-only":
             launches, held, mp_held = phase_last(write_files=True)
             err = max(held_err(held), held_err(mp_held))
+        elif sys.argv[1] == "--wide-only":
+            launches, held = phase_wide_reads_alone()
+            err = held_err(held)
         else:
             launches, held = phase_raw_alone()
             err = held_err(held)
@@ -4526,6 +4816,7 @@ def main():
     dist_launches, dist_err = phase_distributed(ctx)
     wire_launches, wire_held_numbers = phase_wire(ctx)
     raw_launches, raw_held = phase_raw(ctx)
+    wide_launches, wide_err, _ = phase_wide_reads(ctx)
     ctx.evict_device()
     tools_launches, tools_held = phase_tools(
         {name: (tp.fields, tp.host) for name, tp in ctx.tables.items()
@@ -4543,12 +4834,13 @@ def main():
     launches = (launches + join_launches + rest_launches + part_launches
                 + analytic_launches + client_launches + sf10_launches
                 + dist_launches + wire_launches + raw_launches
-                + tools_launches + last_launches + sf100_launches)
+                + tools_launches + last_launches + sf100_launches
+                + wide_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
                 part_err, analytic_err, client_err, sf10_err, dist_err,
                 held_err(wire_held_numbers), held_err(raw_held),
                 held_err(tools_held), held_err(last_held),
-                held_err(mp_held), sf100_held["max_abs_err"])
+                held_err(mp_held), sf100_held["max_abs_err"], wide_err)
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]

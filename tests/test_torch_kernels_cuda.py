@@ -266,3 +266,58 @@ def test_join_query_on_card_matches_cpu(cuda_device, q, card_launches):
         got_values, got_valid = out[str(cuda_device)][name]
         np.testing.assert_array_equal(got_valid, valid, err_msg=name)
         np.testing.assert_array_equal(got_values, values, err_msg=name)
+
+
+WIDE_SQL = "select g, sum(x) as s from {} group by g order by s"
+
+
+@pytest.mark.cuda
+def test_narrowing_rides_the_run_flags(cuda_device, monkeypatch):
+    """A SUM wide by its bound and read by ORDER BY is narrowed on the
+    card: the narrowing and its out-of-range mark make no host sync (the
+    sync debug mode raises on one), and the mark is read with the run's
+    other flags, in its one `verdict` read. A value past int64 then fails
+    the query; one that fits answers as on the CPU."""
+    from ballista_tpu_torch.exec.plan import Run
+    from ballista_tpu_torch.schema import INT64, Field, decimal, narrow_wide
+    words = torch.tensor(
+        [[0, 5], [2 ** 31, 0], [-2 ** 31, 7], [-1, 2 ** 32 - 1]],
+        dtype=torch.int64, device=cuda_device)
+    valid = torch.tensor([True, False, True, True], device=cuda_device)
+    run = Run({})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        values, passed = narrow_wide(words)
+        run.flag_wide((passed & valid).any(), "s")
+        verdict = run.verdict()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert values.cpu()[[0, 2, 3]].tolist() == [5, -2 ** 63 + 7, -1]
+    assert int(verdict) == 0
+    run.flag_wide(passed.any(), "t")
+    with pytest.raises(NotImplementedError, match="t: its value passes int64"):
+        run.overflowed(int(run.verdict()))
+
+    reads = []
+    monkeypatch.setattr(Run, "verdict", lambda self, _f=Run.verdict:
+                        reads.append(1) or _f(self))
+    fields = [Field("g", INT64), Field("x", decimal(18, 6))]
+    tables = {"fits": [9 * 10 ** 17] + [1] * 10, "past": [9 * 10 ** 17] * 11}
+    out = {}
+    for dev in ("cpu", cuda_device):
+        ctx = SessionContext(device=dev)
+        for name, x in tables.items():
+            ctx.register_numpy(name, {"g": np.zeros(len(x), np.int64),
+                                      "x": np.array(x, np.int64)},
+                               fields=fields)
+        reads.clear()
+        out[str(dev)] = ctx.sql(WIDE_SQL.format("fits")).to_numpy()
+        assert reads == [1]
+        with pytest.raises(NotImplementedError, match="wide decimal"):
+            ctx.sql(WIDE_SQL.format("past")).collect()
+    assert out["cpu"]["s"][0].tolist() == [9 * 10 ** 17 + 10]
+    for name, (values, valid) in out["cpu"].items():
+        got_values, got_valid = out[str(cuda_device)][name]
+        np.testing.assert_array_equal(got_valid, valid, err_msg=name)
+        np.testing.assert_array_equal(got_values, values, err_msg=name)

@@ -9,7 +9,10 @@ scenarios (tests/test_multihost.py, tests/multihost_worker.py):
   salted shuffle across the processes; both processes take the sequence
   of options one process takes, and the answer equals numpy's;
 - crash: worker 1 exits hard after joining; worker 0 exits non-zero
-  within its timeout instead of hanging, and a fresh pair answers.
+  within its timeout instead of hanging, and a fresh pair answers;
+- wide (`tests/test_torch_wide_reads.py`): a SUM wide by its bound and
+  read by ORDER BY is narrowed and answers; one whose value passes int64
+  raises "wide decimal" in both processes, with no escalation.
 
 The worker is this file, run as
 `python tests/test_torch_multihost.py <pid> <nproc> <port> <scenario>`;
@@ -35,6 +38,9 @@ SKEW_SQL = ("select k, sum(v + w) as s, count(*) c from fact join dim "
             "on k = dk group by k order by k")
 SKEW_OPTS = dict(n_partitions=8, broadcast_threshold=0, min_quota=16,
                  quota_headroom=1.05)
+WIDE_SQL = "select g, sum(x) as s from {} group by g order by s"
+# decimal(18, 6) scaled values: the first sum fits int64, the second not
+WIDE_TABLES = {"fits": [9 * 10 ** 17] + [1] * 10, "past": [9 * 10 ** 17] * 11}
 
 
 def skew_tables():
@@ -91,6 +97,29 @@ def _worker(pid: int, nproc: int, port: str, scenario: str) -> None:
         for name, want in zip(("k", "s", "c"), skew_expected(fact, dim)):
             np.testing.assert_array_equal(got[name][0], want)
         out = {"attempts": attempts_of(ctx)}
+    elif scenario == "wide":
+        from ballista_tpu_torch.scheduler import standalone
+        from ballista_tpu_torch.schema import INT64, Field, decimal
+        escalations = []
+        for name in ("grow_capacities", "escalate_overflow_opts"):
+            setattr(standalone, name, lambda *a, _f=getattr(standalone, name),
+                    _n=name: escalations.append(_n) or _f(*a))
+        for name, x in WIDE_TABLES.items():
+            ctx.register_numpy(
+                name, {"g": np.zeros(len(x), np.int64),
+                       "x": np.array(x, np.int64)},
+                fields=[Field("g", INT64), Field("x", decimal(18, 6))])
+        batch, schema = execute_distributed(
+            ctx, ctx.sql(WIDE_SQL.format("fits")).plan, mesh,
+            DistOptions(n_partitions=8))
+        out = {"fits": B.to_numpy(batch, schema),
+               "dtype": repr(schema.field("s").dtype), "past": None}
+        try:
+            execute_distributed(ctx, ctx.sql(WIDE_SQL.format("past")).plan,
+                                mesh, DistOptions(n_partitions=8))
+        except NotImplementedError as e:
+            out["past"] = str(e)
+        out["escalations"] = escalations
     else:
         from ballista_tpu_torch.benchmarks import TPCH_QUERIES
         from ballista_tpu_torch.datagen import register_tpch
