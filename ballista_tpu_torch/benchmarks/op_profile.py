@@ -21,7 +21,11 @@ from numpy arrays. For each query, over tables generated at
 - device-busy time per `run_plan` (sum of kernel times from
   torch.profiler) and its share of the `run_plan` wall time;
 - each operator's exclusive wall and device-busy time, and its costliest
-  kernels: the node runs alone on its children's cached outputs;
+  kernels: the node runs alone on its children's kept outputs; beside
+  them its floor bytes (`exec.plan.piece_bytes`: its inputs and output at
+  their live rows), its bound at the HBM rate (`BALLISTA_HBM_GBPS`,
+  default the H100 SXM's 3350) and the share of its device time the bound
+  is;
 - the kernels that took the most device time, and the device time under
   each of the torch ops the join and aggregate paths are built from
   (sort, searchsorted, index_select, cumsum, ...; inclusive, so an op
@@ -44,20 +48,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..client import SessionContext
 from ..datagen import register_tpch
-from ..exec.plan import ExecNode, Run, run_plan
+from ..exec.plan import (InputLeaf, Run, hbm_bytes_per_s, piece_bytes,
+                         run_plan)
 from . import h2o, nyctaxi
 from .queries import ANALYTIC_QUERIES, TPCH_QUERIES
-
-
-class _Cached(ExecNode):
-    """Stands in for a child: returns its already computed output."""
-
-    def __init__(self, node: ExecNode, out):
-        self.schema, self.capacity, self.children = node.schema, node.capacity, ()
-        self._out = out
-
-    def evaluate(self, run):
-        return self._out
 
 
 def _wall_ms(fn, reps):
@@ -129,21 +123,27 @@ def profile_query(ctx, sql, reps):
                                      if "slot_sums" in name)
     out["device_busy_share"] = busy / out["run_plan_ms"]
     out["top_kernels_ms"] = _top(kernels, 12)
+    # each node alone, on its children's outputs (`Run.kept`)
     run = Run(inputs)
-    outputs, ops = {}, []
+    outputs = run.kept
+    ops = []
     for node in _post_order(plan):
         if id(node) in outputs:     # a subtree shared by several parents
             continue
-        kids = node.children
-        node.children = tuple(_Cached(c, outputs[id(c)]) for c in kids)
-        try:
-            outputs[id(node)] = node.evaluate(run)
-            wall = _wall_ms(lambda: node.evaluate(run), reps)
-            dev, kernels = _device_ms(lambda: node.evaluate(run), reps)
-        finally:
-            node.children = kids
+        got = node.evaluate(run)
+        wall = _wall_ms(lambda: node.evaluate(run), reps)
+        dev, kernels = _device_ms(lambda: node.evaluate(run), reps)
+        # a leaf hands its bound input on and moves nothing
+        nbytes, cap = ((0, 0) if isinstance(node, InputLeaf) else
+                       piece_bytes([outputs[id(c)] for c in node.children],
+                                   got))
+        outputs[id(node)] = got
+        bound = nbytes / hbm_bytes_per_s() * 1e3
         ops.append({"op": node._label()[:110], "wall_ms": wall,
-                    "device_ms": dev, "kernels_ms": _top(kernels, 4)})
+                    "device_ms": dev, "bytes": nbytes, "cap_bytes": cap,
+                    "bound_ms": bound,
+                    "roofline_share": bound / dev if dev > 0 else None,
+                    "kernels_ms": _top(kernels, 4)})
     out["operators"] = ops
     return out
 
@@ -186,8 +186,12 @@ def main(argv=None):
               f"{', run_plan overflowed' if r['overflowed'] else ''}",
               flush=True)
         for op in r["operators"]:
+            share = op["roofline_share"]
             print(f"  {op['device_ms']:9.3f} dev ms {op['wall_ms']:9.3f} "
-                  f"wall ms  {op['op']}", flush=True)
+                  f"wall ms {op['bytes'] / 2 ** 20:9.1f} MiB "
+                  f"{op['bound_ms']:8.3f} bound ms "
+                  f"{'-' if share is None else f'{100 * share:5.1f} %'}  "
+                  f"{op['op']}", flush=True)
             for name, ms in op["kernels_ms"].items():
                 print(f"      {ms:9.3f} ms  {name[:90]}", flush=True)
         for name, ms in r["top_kernels_ms"].items():

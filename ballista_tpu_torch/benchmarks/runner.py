@@ -10,6 +10,13 @@ raises torch.cuda.OutOfMemoryError (`oom_partitions`), runs on the serial
 runtime instead, as `collect()` would run it. Prints a line per query and
 a JSON summary as the last line.
 
+Environment: BALLISTA_SERIAL_PASSES=1 (a serial run's first pass is its
+measurement), BALLISTA_FAULTDUMP=N (every thread's stack to stderr each N
+seconds), BALLISTA_ORACLE_CACHE=DIR (`--verify`'s oracle frames kept in
+DIR), BALLISTA_TPCH_CACHE=DIR (generated tables kept in DIR,
+`datagen.generate_tpch`) and BALLISTA_PIECE_TIMING=1 (the per-piece
+profiler of `exec.plan`, which `benchmarks.roofline` reads).
+
 Usage:
   python -m ballista_tpu_torch.benchmarks.runner --sf 1 [--queries 1,3,6] \
       [--iterations 5] [--distributed] [--tbl-dir DIR --expected DIR] \
@@ -19,6 +26,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import gc
 import json
 import os
@@ -39,14 +47,36 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _oracle(q: int, pdt):
+def _oracle(q: int, sf: float, pdt):
     """The oracle's frame for query q and its wall ms. `pdt` is a
-    zero-argument callable returning the pandas tables (made once)."""
+    zero-argument callable returning the pandas tables (made once, and
+    only where the frame is computed). With BALLISTA_ORACLE_CACHE set to
+    a directory, the frame is kept there as a pickle beside a JSON file
+    holding the ms it first took (so `vs_oracle` stays the oracle's own
+    time), and read back by later runs at the same `sf`."""
     from .oracle import ORACLES
+    cache = os.environ.get("BALLISTA_ORACLE_CACHE")
+    path = meta = None
+    if cache:
+        path = os.path.join(cache, f"oracle_sf{sf:g}_q{q}.pkl")
+        meta = path + ".json"
+        if os.path.exists(path) and os.path.exists(meta):
+            import pandas as pd
+            with open(meta) as f:
+                ms = json.load(f)["oracle_ms"]
+            return pd.read_pickle(path), ms
     tables = pdt()
     t0 = time.perf_counter()
     exp = ORACLES[q](tables)
-    return exp, (time.perf_counter() - t0) * 1000
+    ms = (time.perf_counter() - t0) * 1000
+    if path:
+        os.makedirs(cache, exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}"
+        exp.to_pickle(tmp)
+        os.replace(tmp, path)
+        with open(meta, "w") as f:
+            json.dump({"oracle_ms": ms}, f)
+    return exp, ms
 
 
 def _context(sf, device, tbl_dir=None, dataset_dir=None):
@@ -82,11 +112,15 @@ def _run_serial(ctx, plan, n_parts, t0):
     """(s from t0 to the end of the first run, timed run s, Batch,
     Schema) on the serial runtime: one first run and one timed pass (an
     out-of-core pass re-streams every table shard through host shuffles,
-    so it is not repeated `iterations` times)."""
+    so it is not repeated `iterations` times). BALLISTA_SERIAL_PASSES=1
+    makes the first run the measurement (its time then includes planning,
+    and the two numbers are equal)."""
     from ..scheduler.serial import execute_serial
     out, schema = execute_serial(ctx, plan, n_parts)
     _sync(ctx.device)
     first_s = time.perf_counter() - t0
+    if int(os.environ.get("BALLISTA_SERIAL_PASSES", "2")) <= 1:
+        return first_s, first_s, out, schema
     t0 = time.perf_counter()
     out, schema = execute_serial(ctx, plan, n_parts)
     _sync(ctx.device)
@@ -244,7 +278,7 @@ def run(sf: float = 1.0, queries=None, iterations: int = 3,
             elif verify:
                 from .oracle import diff_frames
                 got = B.to_pandas(out, schema)
-                exp, oracle_ms = _oracle(q, pdt)
+                exp, oracle_ms = _oracle(q, sf, pdt)
                 mismatch = diff_frames(got, exp)
                 results[q]["oracle_ms"] = round(oracle_ms, 1)
                 results[q]["vs_oracle"] = round(oracle_ms / max(
@@ -434,6 +468,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
     queries = ([int(x) for x in args.queries.split(",")] if args.queries
                else list(range(1, 23)))
+    if os.environ.get("BALLISTA_FAULTDUMP"):
+        # every thread's stack to stderr each N seconds: where a long
+        # unattended sweep stalls
+        faulthandler.dump_traceback_later(
+            int(os.environ["BALLISTA_FAULTDUMP"]), repeat=True)
+        try:
+            return _main(args, queries)
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+    return _main(args, queries)
+
+
+def _main(args, queries):
     if args.loadtest:
         c, r = args.loadtest.lower().split("x")
         return loadtest(args.sf, int(c), int(r), queries, device=args.device,

@@ -42,7 +42,7 @@ import torch
 
 from .. import batch as B
 from ..exec import memory
-from ..exec.plan import Run
+from ..exec.plan import Run, eval_plan
 from ..exprs import drop_device_luts
 from ..planner import logical as L
 from ..planner.physical import PhysicalOptions, create_physical_plan
@@ -1001,7 +1001,7 @@ class SessionContext:
             inputs = self.bind_inputs([leaf.input_id
                                        for leaf in exec_plan.leaves()])
             run = Run(inputs)
-            out = run.eval(exec_plan)
+            out = eval_plan(run, exec_plan)
             verdict = run.verdict()
             if verdict is None or not run.overflowed(int(verdict)):
                 return exec_plan, inputs, out

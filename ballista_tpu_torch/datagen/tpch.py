@@ -476,17 +476,69 @@ _GENERATORS = {"region": _region, "nation": _nation, "supplier": _supplier,
 def generate_tpch(sf: float, seed: int = 19940101,
                   tables: Optional[Sequence[str]] = None) -> Dict[str, Table]:
     """{name: (fields, {column: HostColumn})} for the named tables (default:
-    all eight)."""
+    all eight). With BALLISTA_TPCH_CACHE set to a directory, each table is
+    kept there as `{name}_sf{sf}_s{seed}.npz` (numpy alone) and read back
+    by later calls with the same arguments."""
     names = list(tables or TPCH_TABLES)
     for name in names:
         if name not in TPCH_TABLES:
             raise KeyError(f"no TPC-H table {name!r}")
-    out = {name: _GENERATORS[name](sf, seed)
-           for name in names if name in _GENERATORS}
-    if "lineitem" in names:
-        orders = out.get("orders") or _orders(sf, seed)
-        out["lineitem"] = _lineitem(sf, seed, orders)
-    return out
+    cache = os.environ.get("BALLISTA_TPCH_CACHE")
+    out = {}
+    if cache:
+        for name in names:
+            path = _cache_path(cache, name, sf, seed)
+            if os.path.exists(path):
+                out[name] = _read_cached(name, path)
+    made = {name: _GENERATORS[name](sf, seed) for name in names
+            if name in _GENERATORS and name not in out}
+    if "lineitem" in names and "lineitem" not in out:
+        orders = made.get("orders") or out.get("orders") or _orders(sf, seed)
+        made["lineitem"] = _lineitem(sf, seed, orders)
+    if cache:
+        for name, table in made.items():
+            _write_cached(table, _cache_path(cache, name, sf, seed))
+    out.update(made)
+    return {name: out[name] for name in names}
+
+
+def _cache_path(cache: str, name: str, sf: float, seed: int) -> str:
+    return os.path.join(cache, f"{name}_sf{sf:g}_s{seed}.npz")
+
+
+def _write_cached(table: Table, path: str) -> None:
+    """One table as an .npz: per column its values, validity, dictionary
+    (as a unicode array), bounds and RAW flag."""
+    arrays = {}
+    for name, col in table[1].items():
+        arrays[f"{name}.values"] = col.values
+        arrays[f"{name}.validity"] = col.validity
+        if col.dictionary is not None:
+            arrays[f"{name}.dictionary"] = col.dictionary.astype(str)
+        if col.bounds is not None:
+            arrays[f"{name}.bounds"] = np.asarray(col.bounds, dtype=np.int64)
+        arrays[f"{name}.raw"] = np.asarray(col.raw)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def _read_cached(name: str, path: str) -> Table:
+    fields = TPCH_TABLES[name][2]
+    cols = {}
+    with np.load(path, allow_pickle=False) as z:
+        for f in fields:
+            c = f.name
+            d = z.get(f"{c}.dictionary")
+            b = z.get(f"{c}.bounds")
+            cols[c] = HostColumn(
+                z[f"{c}.values"], z[f"{c}.validity"],
+                None if d is None else d.astype(object),
+                None if b is None else (int(b[0]), int(b[1])),
+                bool(z[f"{c}.raw"]))
+    return fields, cols
 
 
 def _chunk_rng(name: str, seed: int, lo: int, hi: int) -> np.random.Generator:

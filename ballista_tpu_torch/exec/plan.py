@@ -16,6 +16,9 @@ several parents is evaluated once per run.
 
 from __future__ import annotations
 
+import os
+import sys
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,7 +70,10 @@ class Run:
     keeps each filter's, aggregate's and join's output row count in
     `op_rows` as (label, 0-d tensor), which the runtime sums into
     StageMetrics.operator_rows (the reference's `_TraceCtx.record_rows`).
-    An untraced run keeps none."""
+    An untraced run keeps none. `kept` maps id(node) to an output already
+    computed for that node: `eval` returns it instead of evaluating the
+    node (the per-piece profiler runs a piece alone on its cut
+    descendants' outputs that way)."""
 
     def __init__(self, inputs: Dict[str, Batch],
                  partition: Optional[int] = None, trace: bool = False,
@@ -84,6 +90,7 @@ class Run:
         self.evaluated = 0      # evaluate() calls made in this run
         # id(node) -> [output, parents that have not read it yet]
         self._shared: Dict[int, list] = {}
+        self.kept: Dict[int, Batch] = {}
 
     def flag_overflow(self, need: torch.Tensor, have: int,
                       kind: str) -> None:
@@ -164,7 +171,11 @@ class Run:
         """`node`'s output in this run. A node with several parents
         (`n_parents`, set by exec.cse.cse_tree) is evaluated for the first
         of them, so it raises its overflow flag once, and its output is
-        dropped when the last parent has read it."""
+        dropped when the last parent has read it. A node in `kept` is not
+        evaluated."""
+        out = self.kept.get(id(node))
+        if out is not None:
+            return out
         if node.n_parents <= 1:
             return self._evaluate(node)
         entry = self._shared.get(id(node))
@@ -1238,11 +1249,172 @@ def plan_sparse_flow(root: ExecNode) -> ExecNode:
     return root
 
 
+# The per-piece profiler (BALLISTA_PIECE_TIMING=1) cuts a plan at these
+# operators' outputs, where the JAX package cuts its programs: each holds a
+# sort or a scatter over a whole batch and writes a dense batch.
+_CUT_NODE_NAMES = frozenset(
+    {"HashJoinExec", "CrossJoinExec", "HashAggregateExec", "WindowExec"})
+# Nodes that make a plan heavy enough to cut.
+_HEAVY_NODE_NAMES = _CUT_NODE_NAMES | {"SortExec"}
+# timed evaluations of each piece after its real one
+PIECE_REPEATS = 5
+# HBM rate the roofline share is taken against: the H100 SXM's 3.35 TB/s
+# (NVIDIA's data sheet, at the 700 W limit); BALLISTA_HBM_GBPS overrides
+HBM_GBPS = 3350.0
+
+
+def hbm_bytes_per_s() -> float:
+    return float(os.environ.get("BALLISTA_HBM_GBPS", HBM_GBPS)) * 1e9
+
+
+def plan_pieces(root: ExecNode) -> List[Tuple[str, str, ExecNode]]:
+    """(key, label, node) of each piece the profiler times, in post order:
+    `__piece{k}` for every join, aggregate and window output below the
+    root, visited once by identity (a subtree that several parents share
+    is one piece), then ("__root", "root", root). A plan with fewer than
+    two heavy operators, or nothing to cut below its root, is one piece,
+    ("__whole", its root's class name, root)."""
+    order, seen = [], set()
+
+    def post(n):
+        if id(n) in seen:
+            return
+        seen.add(id(n))
+        for c in n.children:
+            post(c)
+        order.append(n)
+
+    post(root)
+    heavy = [n for n in order if type(n).__name__ in _HEAVY_NODE_NAMES]
+    cuts = [n for n in order
+            if type(n).__name__ in _CUT_NODE_NAMES and n is not root]
+    if len(heavy) < 2 or not cuts:
+        return [("__whole", type(root).__name__, root)]
+    return [(f"__piece{k}", type(n).__name__, n)
+            for k, n in enumerate(cuts)] + [("__root", "root", root)]
+
+
+def _piece_reads(node: ExecNode, cut: set) -> Tuple[list, list]:
+    """(the cut nodes, the input leaves) a piece rooted at `node` reads,
+    not descending past a cut node."""
+    seen, cuts, leaves = set(), [], []
+
+    def walk(n):
+        if id(n) in seen:
+            return
+        seen.add(id(n))
+        if n is not node and id(n) in cut:
+            cuts.append(n)
+        elif isinstance(n, InputLeaf):
+            leaves.append(n)
+        else:
+            for c in n.children:
+                walk(c)
+
+    walk(node)
+    return cuts, leaves
+
+
+def piece_bytes(inputs: Sequence[Batch], out: Batch) -> Tuple[int, int]:
+    """(floor, capacity) bytes of work that reads the `inputs` Batches and
+    writes `out`, each distinct tensor counted once. The floor counts each
+    column's data and validity at the rows its batch holds live
+    (`num_rows`, which is `live.sum()` for a sparse batch), a sparse
+    batch's `live` mask whole (liveness is known only by reading it) and
+    the row counts: what these inputs need. The capacity figure counts
+    every tensor whole, as the JAX package's profiler does."""
+    floor: Dict[tuple, int] = {}
+    cap: Dict[tuple, int] = {}
+
+    def add(t: torch.Tensor, rows: Optional[int]) -> None:
+        key = (t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
+        if t.dim() and t.stride(0) == 0:
+            # a broadcast view holds one row
+            whole = 1
+        else:
+            whole = t.shape[0] if t.dim() else 1
+        per_row = t.element_size() * (t[:1].numel() if t.dim() else 1)
+        live = whole if rows is None else min(rows, whole)
+        floor[key] = max(floor.get(key, 0), live * per_row)
+        cap[key] = whole * per_row
+
+    for b in list(inputs) + [out]:
+        rows = int(b.num_rows)
+        add(b.num_rows, None)
+        if b.live is not None:
+            add(b.live, None)
+        for c in b.columns:
+            add(c.data, rows)
+            add(c.validity, rows)
+    return sum(floor.values()), sum(cap.values())
+
+
+def _timed_pieces(run: Run, root: ExecNode) -> Batch:
+    """Evaluate `root` in `run` piece by piece (`plan_pieces`), timing
+    each. A piece is evaluated once in `run`, on its cut descendants'
+    outputs (kept in `run.kept` until its last reader has run), so the
+    output, the flags and `run.evaluated` are those of `run.eval(root)`;
+    then `PIECE_REPEATS` more times, each in a throwaway Run on the same
+    kept outputs, ending in a synchronize on CUDA: the piece's ms is the
+    wall time over the repeats. Prints one line per piece to stderr in
+    the JAX package's format, with the live-row byte floor (`piece_bytes`)
+    and its share of the HBM rate (`hbm_bytes_per_s`), and the capacity
+    bytes after it."""
+    pieces = plan_pieces(root)
+    cut = {id(node) for _, _, node in pieces}
+    reads = [_piece_reads(node, cut) for _, _, node in pieces]
+    last_read = {}
+    for pos, (cuts, _) in enumerate(reads):
+        for n in cuts:
+            last_read[id(n)] = pos
+    for pos, (key, label, node) in enumerate(pieces):
+        cuts, leaves = reads[pos]
+        out = run._evaluate(node)
+        kept = {id(n): run.kept[id(n)] for n in cuts}
+        cuda = out.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PIECE_REPEATS):
+            again = Run(run.inputs, partition=run.partition,
+                        device=run.device)
+            again.kept = kept
+            again._evaluate(node)
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / PIECE_REPEATS * 1e3
+        del again
+        inputs = list(kept.values()) + list(
+            {leaf.input_id: run.inputs[leaf.input_id]
+             for leaf in leaves}.values())
+        nbytes, cap = piece_bytes(inputs, out)
+        per_s = nbytes / (ms / 1e3) if ms > 0 else 0.0
+        print(f"# piece {key:10s} {label:20s} {ms:9.2f} ms  "
+              f"({int(out.num_rows)} rows, {nbytes / 2 ** 20:8.1f} MiB, "
+              f"{per_s / 2 ** 30:7.1f} GiB/s, "
+              f"{100 * per_s / hbm_bytes_per_s():5.1f}% roofline) "
+              f"cap {cap / 2 ** 20:.1f} MiB", file=sys.stderr, flush=True)
+        for n in cuts:
+            if last_read[id(n)] == pos:
+                del run.kept[id(n)]
+        if node is not root:
+            run.kept[id(node)] = out
+    return out
+
+
+def eval_plan(run: Run, root: ExecNode) -> Batch:
+    """`run.eval(root)`; piece by piece and timed (`_timed_pieces`) where
+    BALLISTA_PIECE_TIMING is "1" at the call."""
+    if os.environ.get("BALLISTA_PIECE_TIMING") == "1":
+        return _timed_pieces(run, root)
+    return run.eval(root)
+
+
 def run_plan(root: ExecNode, inputs: Dict[str, Batch]):
     """Evaluate a plan over {input_id: Batch} (the port's compile_stage:
     eager torch needs no compilation step). Returns (Batch, verdict):
     the run's `Run.verdict()`, nonzero where a node overflowed or a
     narrowed SUM passed int64, or None when the plan can do neither."""
     run = Run(inputs)
-    out = run.eval(root)
+    out = eval_plan(run, root)
     return out, run.verdict()
