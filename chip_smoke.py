@@ -6,16 +6,15 @@ checks each answer exactly, and a full outer join on each path, UNION
 SF1 against numpy: statistical aggregates, percentiles, a partial -> final
 aggregate, window functions over lineitem and orders, INTERSECT/EXCEPT ALL,
 and a converged plan re-run without planning; the client slice; the
-22 queries at SF10 in-core, and ten of them (PATH_QUERIES) on the serial
-runtime, routed under a 10 GiB cap, and one through a real out-of-memory
-fallback; the distributed slice: the ten at SF1 over 8 partitions of the
-card through the scheduler and the partitioned runtime, and over the wire;
-the TPC-H tools: the datagen CLI's .tbl files, their numpy reader, the
-benchmark runner against answers/sf1, the load, scaling and
-scheduler-event benches, Avro and a UDF plugin; RAW strings, the last
-modules, TPC-H SF100 on one card, wide sums read as values and the
-per-piece profiler. The SF100 lineitem is generated by a background
-process from the start of the run (phase 18 (b)).
+22 queries at SF10 in-core, on the serial runtime, routed under a 10 GiB
+cap and through a real out-of-memory fallback; the distributed slice:
+the 22 queries at SF1 over 8 partitions of the card through the scheduler
+and the partitioned runtime; and the TPC-H tools: the datagen CLI's .tbl
+files, their numpy reader, the benchmark runner against answers/sf1, the
+load, scaling and scheduler-event benches, Avro and a UDF plugin; RAW
+strings, the last modules, TPC-H SF100 on one card, wide sums read as
+values and the per-piece profiler. The SF100 lineitem is generated by a
+background process from phase 12 (a) on (phase 18 (b)).
 
     python3 chip_smoke.py                     # every phase
     python3 chip_smoke.py --distributed-only  # phases 1, 2 and 13 alone
@@ -112,12 +111,12 @@ Phases:
    in-core on the whole card, first run and warm median of 3, each with
    its peak allocated and reserved bytes and the memory model's estimate
    (columns evicted before each query), Q1, Q5 and Q6 equal to numpy; (b)
-   PATH_QUERIES on SessionContext(serial_partitions=8), a first and a
-   timed second run, each equal to (a) (f64 at rtol 1e-9), with stages,
-   partitions, bytes each way and peak; past SERIAL_BUDGET_S (30 s: the
-   first queries of SERIAL_SF10_FIRST, which keeps the whole script inside
-   its limit beside phase 18) the queries left run at SF1 against
-   answers/sf1; (c) PATH_QUERIES through plain collect() under a 10 GiB cap
+   the 22 on SessionContext(serial_partitions=8), a first and a timed
+   second run, each equal to (a) (f64 at rtol 1e-9), with stages,
+   partitions, bytes each way and peak; past 45 s (about the seven queries
+   of SERIAL_SF10_FIRST, which keeps the whole script inside its limit
+   beside phase 18) the queries left run at SF1 against answers/sf1; (c)
+   plain collect() under a 10 GiB cap
    (`set_per_process_memory_fraction`, BALLISTA_HBM_BYTES): each query's
    route (in-core, routed serial@N, OOM fallback serial@N), every answer
    equal to (a), at least one routed; (d) the query of (a) with the largest
@@ -127,7 +126,7 @@ Phases:
    routed by the memo alone. The kernel is held against its plain version
    on SF10 Q1's in-core call and on one serial shard's call.
 13. the distributed slice on phase 6's SF1 tables (with
-   `--distributed-only`, made in the call): (a) PATH_QUERIES through
+   `--distributed-only`, made in the call): (a) the 22 queries through
    SessionContext(device="cuda", distributed=True, mesh=make_mesh(8,
    devices=[cuda:0] * 8)), each exact against answers/sf1 and equal to the
    in-core answer of phases 4-8 (f64 at rtol 1e-9), with its first run and
@@ -151,7 +150,7 @@ Phases:
    --partitions 4`), all on cuda:0, each waited for by its EXECUTOR_READY
    line. First the kernel is held against its plain version on one
    partition's partial aggregate of Q1 at P = 4, the call an executor's
-   stage makes (run in this process). (a) PATH_QUERIES through
+   stage makes (run in this process). (a) the 22 queries through
    `SchedulerRpcClient.submit_sql` -> `wait_batch` on two pull executors,
    each exact against answers/sf1 and equal to the in-core answer (f64 at
    rtol 1e-9), with seconds from submit to result, stages, tasks per
@@ -167,7 +166,7 @@ Phases:
    stopped by SIGTERM exits 0 and leaves its scheduler's registry. Every
    process is killed in a `finally`. Its seconds are printed.
 15. RAW strings (the dictionary is the column in row order, code == row
-   index) at full width: (a) PATH_QUERIES at SF1 over phase 6's rows
+   index) at full width: (a) the 22 queries at SF1 over phase 6's rows
    registered with BALLISTA_RAW_DICT_MAX=0 (every string column RAW,
    l_comment's dictionary 5,998,239 entries), each exact against
    answers/sf1 and equal to the sorted-dictionary answer, first run and
@@ -188,8 +187,8 @@ Phases:
    seconds and bytes per table; (b) `read_tbl` reads each back, every
    column equal to the generated one (values, validity, the strings
    behind the codes), with the parse seconds per table; (c)
-   `runner.run(tbl_dir=..., expected=answers/sf1, iterations=3)` over
-   PATH_QUERIES: every query must report a match and no error (Q9's exact
+   `runner.run(tbl_dir=..., expected=answers/sf1, iterations=3)` over the
+   22 queries: every query must report a match and no error (Q9's exact
    midpoint is reported, not failed), its ms and first-run seconds beside
    phases 4-8's warm medians; Q1's kernel call at T = 12 is held against
    its plain version; (d) the runner's command line, `--queries 1,6,21
@@ -209,9 +208,11 @@ Phases:
 18. TPC-H SF100 on one card: (a) nproc, free host memory and free disk
    under TMPDIR; (b) `python -m ballista_tpu_torch.datagen --sf 100
    --tables lineitem --chunks 100 --workers $(nproc)/2`, started in the
-   background before phase 3, writes lineitem (599,984,204 rows) as
-   parquet part files under TMPDIR, deleted at the end (phase 18 waits
-   for it); (c) the dataset registered, Q1 and Q6 through `collect()` with
+   background once phase 12 has generated SF10 (phase 12 and what runs
+   before the datagen's logged end share the host with it), writes
+   lineitem (599,984,204 rows) as parquet part files under TMPDIR,
+   deleted at the end (phase 18 waits for it); (c) the dataset
+   registered, Q1 and Q6 through `collect()` with
    routing on: route, first run (the columns read from the part files),
    warm median of 3, peak allocated and reserved, host peak RSS; Q1's
    sum_charge must be a wide decimal; on Q1's columns, no part file read
@@ -300,15 +301,6 @@ from ballista_tpu_torch.scheduler.standalone import StandaloneCluster
 
 SF = 1.0
 SEED = 19940101
-# The queries each further runtime answers at SF1 (phases 12 (b) and (c),
-# 13 (a), 14 (a), 15 (a), 16 (c), 17 (a) and (c)); phases 4-8 answer all
-# 22 in-core and 12 (a) all 22 at SF10. The script's 1200 s limit forces
-# the cut; every operator kind is in it: the kernel's aggregate (Q1), a
-# correlated subquery (Q2), sorted aggregates and joins (Q3, Q5, Q9), an
-# expanding left outer join (Q13), a view (Q15), IN and EXISTS as semi and
-# anti joins with shared subtrees and an overflow retry (Q18, Q21), a
-# scalar subquery and substrings (Q22).
-PATH_QUERIES = (1, 2, 3, 5, 9, 13, 15, 18, 21, 22)
 LINEITEM_ROWS = 5_998_239          # lineitem at SF1 from this generator
 # the kernel call Q1's aggregate makes: 5 distinct decimal sums, their 5
 # validity counts and count(*) over 12 direct slots ((3 flags + NULL) x
@@ -334,7 +326,9 @@ PERCENTILE_RTOL = 1e-12
 
 
 def log(msg):
-    print(msg, flush=True)
+    # one write per line: phase 18's datagen thread logs too
+    sys.stdout.write(f"{msg}\n")
+    sys.stdout.flush()
 
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
@@ -2167,7 +2161,7 @@ SERIAL_P = 8
 CAP_BYTES = 10 * 2 ** 30
 # (b) runs every query at SF10 unless it passes this; then the rest of the
 # queries run at SF1 against answers/sf1
-SERIAL_BUDGET_S = 30
+SERIAL_BUDGET_S = 45
 SERIAL_SF10_FIRST = (1, 3, 5, 9, 13, 18, 21)
 F64_RTOL = 1e-9
 ROUTED = "plan routed out-of-core"
@@ -2317,7 +2311,7 @@ def sf10_in_core(ctx, tables):
 
 
 def sf10_serial(tables, answers, sf1_ctx):
-    """(b): PATH_QUERIES on SessionContext(serial_partitions=8), each
+    """(b): the 22 queries on SessionContext(serial_partitions=8), each
     equal to (a). Past SERIAL_BUDGET_S the queries left run at SF1 against
     answers/sf1. Returns (kernel launches, a serial shard's kernel call)."""
     sctx = SessionContext(device="cuda", serial_partitions=SERIAL_P)
@@ -2329,7 +2323,7 @@ def sf10_serial(tables, answers, sf1_ctx):
             sf1.register_host(name, tp.fields, tp.host,
                               primary_key=TPCH_TABLES[name][1])
     launches = np.zeros(2, dtype=np.int64)
-    order = SERIAL_SF10_FIRST + tuple(q for q in PATH_QUERIES
+    order = SERIAL_SF10_FIRST + tuple(q for q in range(1, 23)
                                       if q not in SERIAL_SF10_FIRST)
     t_start = time.perf_counter()
     at_sf1 = []
@@ -2402,7 +2396,7 @@ def sf10_routing(ctx, answers):
     _capped(CAP_BYTES)
     launches = np.zeros(2, dtype=np.int64)
     routes = {}
-    for q in PATH_QUERIES:
+    for q in range(1, 23):
         _fresh(ctx)
         n_warn = len(ctx.warnings)
         reset_counts()
@@ -2489,9 +2483,11 @@ def sf10_oom(ctx, answers, peaks):
     return launches
 
 
-def phase_sf10(sf1_ctx):
-    """Phase 12. Returns (kernel launches over its main paths, max |kernel
-    - plain| on the two calls it holds)."""
+def phase_sf10(sf1_ctx, lineitem=None):
+    """Phase 12; once SF10 is generated it starts `lineitem` (phase 18's
+    Sf100Datagen) if given, whose host work then overlaps (a)-(d).
+    Returns (kernel launches over its main paths, max |kernel - plain| on
+    the two calls it holds)."""
     sf1_ctx.evict_device()
     _fresh()
     t0 = time.perf_counter()
@@ -2503,6 +2499,12 @@ def phase_sf10(sf1_ctx):
     ctx = SessionContext(device="cuda")
     for name, (fields, cols) in tables.items():
         ctx.register_host(name, fields, cols, primary_key=TPCH_TABLES[name][1])
+    if lineitem is not None:
+        _host_state(18, lineitem.out)
+        lineitem.start()
+        log(f"phase 18 (b): the SF100 lineitem datagen started in the "
+            f"background beside phase 12 (a)-(d): "
+            f"`{' '.join(lineitem.cmd[2:])}`")
     t0 = time.perf_counter()
     answers, peaks, launches, q1_call = sf10_in_core(ctx, tables)
     log(f"phase 12 (a): {time.perf_counter() - t0:.1f} s")
@@ -2581,11 +2583,11 @@ def _job_summary(cl, jobs):
 
 
 def dist_queries(ctx, sf1_ctx):
-    """(a): PATH_QUERIES through SessionContext(distributed=True) at
+    """(a): the 22 queries through SessionContext(distributed=True) at
     P = 8 on one card. Returns (answers, kernel launches, Q1's calls)."""
     cl = ctx.cluster()
     answers, launches, q1_calls = {}, np.zeros(2, dtype=np.int64), None
-    for q in PATH_QUERIES:
+    for q in range(1, 23):
         want = _incore(sf1_ctx, q)
         _fresh(ctx)
         before = set(cl.launcher.jobs)
@@ -2882,10 +2884,10 @@ def _wire_query(label, service, client, sf1_ctx, q):
 
 
 def wire_pull(service, client, sf1_ctx):
-    """(a): PATH_QUERIES through two pull executors."""
+    """(a): the 22 queries through two pull executors."""
     launches, ran = np.zeros(2, dtype=np.int64), set()
     t0 = time.perf_counter()
-    for q in PATH_QUERIES:
+    for q in range(1, 23):
         took, _, j = _wire_query("(a)", service, client, sf1_ctx, q)
         ran |= set(j["ran"])
         launches += j["launches"]
@@ -2900,8 +2902,7 @@ def wire_pull(service, client, sf1_ctx):
             f"launches in the executors {j['launches'].tolist()}")
     if ran != {"pull-a", "pull-b"}:
         raise AssertionError(f"phase 14 (a): tasks ran on {sorted(ran)}")
-    log(f"phase 14 (a): {time.perf_counter() - t0:.1f} s for "
-        f"{len(PATH_QUERIES)} queries; "
+    log(f"phase 14 (a): {time.perf_counter() - t0:.1f} s for 22 queries; "
         f"kernel launches in the executors {launches.tolist()}")
     return launches
 
@@ -3019,7 +3020,7 @@ def phase_wire(sf1_ctx):
     t_start = time.perf_counter()
     # the in-core answers phase 14 holds the wire's to, computed before the
     # launches are counted (phases 4-8 leave them all; --wire-only does not)
-    for q in PATH_QUERIES:
+    for q in range(1, 23):
         _incore(sf1_ctx, q)
     _fresh(sf1_ctx)     # the executor processes share the card
     held = wire_held(sf1_ctx)
@@ -3150,7 +3151,7 @@ def _seconds(secs):
 
 
 def raw_tpch(sf1_ctx):
-    """(a): PATH_QUERIES over phase 6's rows with every string column
+    """(a): the 22 queries over phase 6's rows with every string column
     RAW. Returns (the RAW context, kernel launches over the first runs,
     the held Q1 call's numbers)."""
     t0 = time.perf_counter()
@@ -3175,7 +3176,7 @@ def raw_tpch(sf1_ctx):
         f"column RAW in {time.perf_counter() - t0:.2f} s (l_comment: "
         f"{n_comment} dictionary entries)")
     launches, held = np.zeros(2, dtype=np.int64), None
-    for q in PATH_QUERIES:
+    for q in range(1, 23):
         sql = TPCH_QUERIES[q]
         reset_counts()
         with spy_rows() as calls, spy_tables() as secs:
@@ -3478,7 +3479,7 @@ def tools_runner(source):
     reset_counts()
     t0 = time.perf_counter()
     with spy_rows(first_at=Q1_T) as calls:
-        results = runner_mod.run(SF, list(PATH_QUERIES), 3, tbl_dir=TBL_DIR,
+        results = runner_mod.run(SF, list(range(1, 23)), 3, tbl_dir=TBL_DIR,
                                  expected=EXPECTED_DIR, device="cuda")
     took = time.perf_counter() - t0
     launches = read_counts()
@@ -3501,8 +3502,7 @@ def tools_runner(source):
                              f"{call_shapes(calls)}")
     held = hold_call(16, "tbl-ingested Q1 through runner.run", *calls[0])
     del calls
-    log(f"phase 16 (c): runner.run of {len(PATH_QUERIES)} queries over .tbl "
-        f"in {took:.1f} s; "
+    log(f"phase 16 (c): runner.run of 22 queries over .tbl in {took:.1f} s; "
         f"kernel launches {launches.tolist()}")
     return launches, held
 
@@ -3744,7 +3744,7 @@ MP_LIMIT_S = 400
 
 
 def rest_lazy(out):
-    """(a): PATH_QUERIES through runner.run(lazy_ingest=True) over the .tbl
+    """(a): the 22 through runner.run(lazy_ingest=True) over the .tbl
     files: every query exact; parse + ingest seconds per column ingested,
     the columns never ingested; Q1's kernel call held. Returns (kernel
     launches, the held call's numbers)."""
@@ -3759,7 +3759,7 @@ def rest_lazy(out):
     reset_counts()
     t0 = time.perf_counter()
     with spy_rows(first_at=Q1_T) as calls:
-        results = runner_mod.run(SF, list(PATH_QUERIES), 1, ctx=ctx,
+        results = runner_mod.run(SF, list(range(1, 23)), 1, ctx=ctx,
                                  expected=EXPECTED_DIR, lazy_ingest=True)
     took = time.perf_counter() - t0
     launches = read_counts()
@@ -3774,8 +3774,7 @@ def rest_lazy(out):
             + json.dumps({c: round(v, 3) for c, v in secs.items()}))
         never[name] = [f.name for f in tp.fields
                        if f.name not in tp.host.ingested]
-    log(f"phase 17 (a): PATH_QUERIES through runner.run(lazy_ingest=True) "
-        f"all "
+    log(f"phase 17 (a): the 22 through runner.run(lazy_ingest=True) all "
         f"equal answers/sf1 in {took:.1f} s; parse + ingest of the columns "
         f"read {parsed:.2f} s in all (phase 16 (c) ingests every column in "
         f"its warm pass: its '# ingest' line); never ingested "
@@ -3857,7 +3856,7 @@ def mp_worker(pid, nproc, port, scenario, out_dir):
         ctx = SessionContext(device="cuda")
         register_tpch(ctx, SF)
         result["datagen_s"] = round(time.perf_counter() - t0, 3)
-        queries = [1] if scenario == "rerun" else list(PATH_QUERIES)
+        queries = [1] if scenario == "rerun" else list(range(1, 23))
         firsts = {}
         for q in queries:
             reset_counts()
@@ -3968,7 +3967,7 @@ def rest_multiprocess():
                     _same_answer(f"phase 17 (c) p{pid} Q{q} against phase 13",
                                  got, DIST_ANSWERS[q])
         held = runs[0][2]["held"]
-        log(f"phase 17 (c): PATH_QUERIES at SF1 over {MP_WORLD} processes x "
+        log(f"phase 17 (c): the 22 at SF1 over {MP_WORLD} processes x "
             f"{MP_PER} partitions on cuda:0: every answer equals "
             f"answers/sf1" + (" and phase 13's" if DIST_ANSWERS else "")
             + f" in both processes; {took:.1f} s in all (join "
@@ -4191,81 +4190,73 @@ def _dir_bytes(path):
                for d, _, files in os.walk(path) for f in files)
 
 
-def sf100_datagen_start(sf, out, tables=None, workers=None):
-    """Start `python -m ballista_tpu_torch.datagen --sf sf --chunks 100
-    --workers W` (default $(nproc)) writing chunked parquet under `out`;
-    its output goes to `out`.log. Returns what `sf100_datagen_wait`
-    takes."""
-    here, env = _repo_env()
-    cmd = [sys.executable, "-m", "ballista_tpu_torch.datagen", "--sf",
-           str(sf), "--format", "parquet", "--chunks", str(SF100_CHUNKS),
-           "--workers", str(workers or os.cpu_count()), "--out", out]
-    if tables:
-        cmd += ["--tables", ",".join(tables)]
-    out_log = open(out + ".log", "w+")
-    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=out_log,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, cmd, out_log, time.perf_counter()
+class Sf100Datagen:
+    """`python -m ballista_tpu_torch.datagen --sf sf --format parquet
+    --chunks 100 --workers W --out out [--tables ...]` (W default $(nproc))
+    in a process of its own, its output in `out`.log. `start` launches it;
+    a thread logs the moment it ends, so that the log shows which phases
+    ran beside it; `wait` logs its output, its seconds from start to end
+    and the bytes written; `close` kills it if it still runs and deletes
+    `out` and the log."""
 
+    def __init__(self, phase, sf, out, tables=None, workers=None):
+        self.phase, self.out = phase, out
+        self.cmd = [sys.executable, "-m", "ballista_tpu_torch.datagen",
+                    "--sf", str(sf), "--format", "parquet", "--chunks",
+                    str(SF100_CHUNKS), "--workers",
+                    str(workers or os.cpu_count()), "--out", out]
+        if tables:
+            self.cmd += ["--tables", ",".join(tables)]
+        self.proc = self.output = self.took = None
 
-def sf100_datagen_wait(phase, started, out):
-    """Wait for a started datagen; log its output, the time from its start
-    and the bytes written. Returns those seconds."""
-    proc, cmd, out_log, t0 = started
-    try:
-        rc = proc.wait(timeout=max(1.0, SF100_LIMIT_S
-                                   - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-        raise
-    took = time.perf_counter() - t0
-    out_log.seek(0)
-    text = out_log.read()
-    out_log.close()
-    os.remove(out_log.name)
-    if rc:
-        raise AssertionError(f"phase {phase} (b): datagen exited {rc}: "
-                             f"{text[-2000:]}")
-    for line in text.splitlines():
-        log(f"phase {phase} (b): {line}")
-    log(f"phase {phase} (b): `{' '.join(cmd[2:])}` in {took:.1f} s from its "
-        f"start, {_dir_bytes(out)} bytes of parquet")
-    return took
+    def start(self):
+        here, env = _repo_env()
+        self.output = open(self.out + ".log", "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(self.cmd, cwd=here, env=env,
+                                     stdout=self.output,
+                                     stderr=subprocess.STDOUT, text=True)
+        threading.Thread(target=self._note_end, daemon=True).start()
+        return self
 
+    def _note_end(self):
+        rc = self.proc.wait()
+        self.took = time.perf_counter() - self.t0
+        log(f"phase {self.phase} (b): the datagen ended (exit {rc}) "
+            f"{self.took:.1f} s after its start")
 
-def sf100_datagen(phase, sf, out, tables=None):
-    """Generate chunked parquet under `out`, waiting for it."""
-    return sf100_datagen_wait(phase, sf100_datagen_start(sf, out, tables),
-                              out)
-
-
-class BackgroundSf100:
-    """Phase 18 (a) and (b) at the start of the run: SF100 lineitem needs
-    only host cores and disk, so its minutes overlap phases 3-17. It takes
-    half the cores, so that the earlier phases keep the rest. `close`
-    stops it and deletes its files."""
-
-    def __init__(self):
-        import tempfile
-        self.root = tempfile.mkdtemp(prefix="ballista_sf100_")
-        _host_state(18, self.root)
-        self.workers = max(1, (os.cpu_count() or 2) // 2)
-        self.started = sf100_datagen_start(SF100, self.root, ["lineitem"],
-                                           self.workers)
-        log(f"phase 18 (b): the SF100 lineitem datagen started in the "
-            f"background with {self.workers} workers")
+    def wait(self):
+        try:
+            rc = self.proc.wait(timeout=max(
+                1.0, SF100_LIMIT_S - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise
+        took = self.took or time.perf_counter() - self.t0
+        self.output.seek(0)
+        text = self.output.read()
+        self.output.close()
+        os.remove(self.output.name)
+        if rc:
+            raise AssertionError(f"phase {self.phase} (b): datagen exited "
+                                 f"{rc}: {text[-2000:]}")
+        for line in text.splitlines():
+            log(f"phase {self.phase} (b): {line}")
+        log(f"phase {self.phase} (b): `{' '.join(self.cmd[2:])}` in "
+            f"{took:.1f} s, {_dir_bytes(self.out)} bytes of parquet")
+        return took
 
     def close(self):
         import shutil
-        proc, _, out_log, _ = self.started
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        out_log.close()
-        if os.path.exists(out_log.name):
-            os.remove(out_log.name)
-        shutil.rmtree(self.root, ignore_errors=True)
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.output is not None:
+            self.output.close()
+            if os.path.exists(self.output.name):
+                os.remove(self.output.name)
+        shutil.rmtree(self.out, ignore_errors=True)
 
 
 def _host_peak():
@@ -4452,15 +4443,16 @@ def sf100_reads(ctx):
     return read_counts() - before, got, schema
 
 
-def phase_sf100(background):
-    """Phase 18 on the lineitem `background` (a BackgroundSf100) writes.
-    Returns (kernel launches of (c) and (e), the held numbers of (d))."""
+def phase_sf100(lineitem):
+    """Phase 18 on the lineitem that `lineitem` (an Sf100Datagen that phase
+    12 started) writes. Returns (kernel launches of (c) and (e), the held
+    numbers of (d))."""
     from ballista_tpu_torch.benchmarks import sf100 as sweep
     t_start = time.perf_counter()
-    root = background.root
+    root = lineitem.out
     launches = np.zeros(2, dtype=np.int64)
     try:
-        sf100_datagen_wait(18, background.started, root)
+        lineitem.wait()
         log(f"phase 18 (b): waited {time.perf_counter() - t_start:.1f} s "
             "for it here")
         ctx = _dataset_ctx(root)
@@ -4523,7 +4515,7 @@ def phase_sf100(background):
             f"{charge / 10 ** wide.scale:.6f} ({wide!r}; past 2^63 scaled: "
             f"{charge > 2 ** 63 - 1}); route of Q1 in (c): {route}")
     finally:
-        background.close()
+        lineitem.close()
     log(f"phase 18: {time.perf_counter() - t_start:.1f} s; kernel launches "
         f"{launches.tolist()}")
     return launches, held
@@ -4543,7 +4535,7 @@ def phase_sf100_sweep(queries):
     try:
         _host_state(18, root)
         for sf, name in ((10, "sf10"), (SF100, "sf100")):
-            sf100_datagen(18, sf, os.path.join(root, name))
+            Sf100Datagen(18, sf, os.path.join(root, name)).start().wait()
         ten = sweep.sf10_pass(os.path.join(root, "sf10"), out, queries,
                               timeout=SF100_LIMIT_S, log=log)
         hundred = sweep.sf100_pass(os.path.join(root, "sf100"), out, queries,
@@ -4846,6 +4838,18 @@ def phase_pieces_alone():
     return phase_pieces(ctx)
 
 
+# seconds of each phase function in the whole run, printed before the
+# kernels line so that runs compare phase by phase
+PHASE_SECONDS = {}
+
+
+def timed(fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[fn.__name__] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def main():
     t_script = time.perf_counter()
     if sys.argv[1:2] == ["--mp-worker"]:
@@ -4952,32 +4956,38 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
-    background = BackgroundSf100()
+    import tempfile
+    # phase 18's lineitem: phase 12 starts its datagen on half the cores
+    lineitem = Sf100Datagen(18, SF100, tempfile.mkdtemp(
+        prefix="ballista_sf100_"), ["lineitem"],
+        workers=max(1, (os.cpu_count() or 2) // 2))
     try:
-        max_err = phase_kernel()
-        launches, q1_call = phase_q1()
-        q1_held = phase_q1_inputs(*q1_call)
+        max_err = timed(phase_kernel)
+        launches, q1_call = timed(phase_q1)
+        q1_held = timed(phase_q1_inputs, *q1_call)
         del q1_call     # its tensors would count in phase 12's peaks
-        join_launches, q5_held, ctx = phase_joins()
-        rest_launches, rest_err = phase_rest(ctx)
-        part_launches, part_err = phase_rest_part(ctx)
-        phase_setops(ctx)
-        analytic_launches, analytic_err = phase_analytic(ctx)
-        client_launches, client_err = phase_client(ctx)
-        sf10_launches, sf10_err = phase_sf10(ctx)
-        dist_launches, dist_err = phase_distributed(ctx)
-        wire_launches, wire_held_numbers = phase_wire(ctx)
-        raw_launches, raw_held = phase_raw(ctx)
-        wide_launches, wide_err, _ = phase_wide_reads(ctx)
-        piece_launches, piece_held = phase_pieces(ctx)
+        join_launches, q5_held, ctx = timed(phase_joins)
+        rest_launches, rest_err = timed(phase_rest, ctx)
+        part_launches, part_err = timed(phase_rest_part, ctx)
+        timed(phase_setops, ctx)
+        analytic_launches, analytic_err = timed(phase_analytic, ctx)
+        client_launches, client_err = timed(phase_client, ctx)
+        sf10_launches, sf10_err = timed(phase_sf10, ctx, lineitem)
+        dist_launches, dist_err = timed(phase_distributed, ctx)
+        wire_launches, wire_held_numbers = timed(phase_wire, ctx)
+        raw_launches, raw_held = timed(phase_raw, ctx)
+        wide_launches, wide_err, _ = timed(phase_wide_reads, ctx)
+        piece_launches, piece_held = timed(phase_pieces, ctx)
         ctx.evict_device()
-        tools_launches, tools_held = phase_tools(
+        tools_launches, tools_held = timed(
+            phase_tools,
             {name: (tp.fields, tp.host) for name, tp in ctx.tables.items()
              if name in TPCH_TABLES}, keep_files=True)
-        last_launches, last_held, mp_held = phase_last(write_files=False)
-        sf100_launches, sf100_held = phase_sf100(background)
+        last_launches, last_held, mp_held = timed(phase_last,
+                                                  write_files=False)
+        sf100_launches, sf100_held = timed(phase_sf100, lineitem)
     finally:
-        background.close()
+        lineitem.close()
 
     # one record for the kernel file; its times and bound are those of
     # Q1's own call through the entry the queries use. `entry_points`
@@ -4997,6 +5007,7 @@ def main():
                 held_err(tools_held), held_err(last_held),
                 held_err(mp_held), sf100_held["max_abs_err"], wide_err,
                 held_err(piece_held))
+    log("phase seconds: " + json.dumps(PHASE_SECONDS))
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",
                                        "masked_slot_sums"), launches)]

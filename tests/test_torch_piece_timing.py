@@ -31,7 +31,7 @@ from test_torch_tpch_six import _assert_same, _contexts
 
 torch.set_num_threads(2)
 
-SF = 0.02
+SF = 0.02            # Q21 is empty at SF 0.01 and below
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXTRA = {
     # a WindowExec cut below the root's sort
@@ -53,7 +53,10 @@ SMALL = PhysicalOptions(join_out_factor=1 / 64, max_group_table=1 << 10)
 
 @pytest.fixture(scope="module")
 def contexts():
-    return _contexts(SF, list(TPCH_TABLES))
+    jctx, tctx = _contexts(SF, list(TPCH_TABLES))
+    yield jctx, tctx
+    # tests/test_evict.py counts every live JAX array of its process
+    jctx.evict_device()
 
 
 def reference_pieces(root):
