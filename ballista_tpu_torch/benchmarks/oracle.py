@@ -61,10 +61,13 @@ def _frame(fields, columns):
 def to_pd(tables):
     """Port tables -> pandas frames for the oracles. `tables` maps a name
     to `generate_tpch`'s (fields, {column: HostColumn}), or is a context's
-    `tables` (providers with `fields` and `host`)."""
+    `tables` (providers with `fields` and `host`; a parquet dataset's
+    columns are read across its part files, `_host_column`)."""
     out = {}
     for name, t in tables.items():
-        fields, columns = (t.fields, t.host) if hasattr(t, "host") else t
+        fields, columns = ((t.fields, {f.name: t._host_column(f.name)
+                                       for f in t.fields})
+                           if hasattr(t, "host") else t)
         out[name] = _frame(fields, columns)
     return out
 

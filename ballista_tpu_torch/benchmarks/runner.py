@@ -13,7 +13,8 @@ a JSON summary as the last line.
 Environment: BALLISTA_SERIAL_PASSES=1 (a serial run's first pass is its
 measurement), BALLISTA_FAULTDUMP=N (every thread's stack to stderr each N
 seconds), BALLISTA_ORACLE_CACHE=DIR (`--verify`'s oracle frames kept in
-DIR), BALLISTA_TPCH_CACHE=DIR (generated tables kept in DIR,
+DIR; `--oracle-cache DIR` says the same, and `oracle_pregen` fills it
+ahead of a sweep), BALLISTA_TPCH_CACHE=DIR (generated tables kept in DIR,
 `datagen.generate_tpch`) and BALLISTA_PIECE_TIMING=1 (the per-piece
 profiler of `exec.plan`, which `benchmarks.roofline` reads).
 
@@ -47,19 +48,25 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _oracle(q: int, sf: float, pdt):
+def oracle_paths(cache: str, sf: float, q: int):
+    """The cached oracle frame of query q at `sf` and its JSON file."""
+    path = os.path.join(cache, f"oracle_sf{sf:g}_q{q}.pkl")
+    return path, path + ".json"
+
+
+def _oracle(q: int, sf: float, pdt, cache: str = None):
     """The oracle's frame for query q and its wall ms. `pdt` is a
     zero-argument callable returning the pandas tables (made once, and
-    only where the frame is computed). With BALLISTA_ORACLE_CACHE set to
-    a directory, the frame is kept there as a pickle beside a JSON file
-    holding the ms it first took (so `vs_oracle` stays the oracle's own
-    time), and read back by later runs at the same `sf`."""
+    only where the frame is computed). With a cache directory (`cache`,
+    else BALLISTA_ORACLE_CACHE), the frame is kept there as a pickle
+    beside a JSON file holding the ms it first took (so `vs_oracle` stays
+    the oracle's own time), and read back by later runs at the same
+    `sf`."""
     from .oracle import ORACLES
-    cache = os.environ.get("BALLISTA_ORACLE_CACHE")
+    cache = cache or os.environ.get("BALLISTA_ORACLE_CACHE")
     path = meta = None
     if cache:
-        path = os.path.join(cache, f"oracle_sf{sf:g}_q{q}.pkl")
-        meta = path + ".json"
+        path, meta = oracle_paths(cache, sf, q)
         if os.path.exists(path) and os.path.exists(meta):
             import pandas as pd
             with open(meta) as f:
@@ -184,7 +191,7 @@ def run(sf: float = 1.0, queries=None, iterations: int = 3,
         expected: str = None, query_timeout: int = 0,
         evict_between: bool = False, serial: int = 0,
         dataset_dir: str = None, save_results: str = None,
-        device="cuda", mesh=None, ctx=None):
+        device="cuda", mesh=None, ctx=None, oracle_cache: str = None):
     """Run and time the queries; returns {q: {"ms", "compile_s", "rows",
     ...}} (a query that raised records {"error": ...} and the sweep goes
     on, as the reference's tool does). `ms` is the mean warm time per
@@ -194,9 +201,11 @@ def run(sf: float = 1.0, queries=None, iterations: int = 3,
     (dbgen `.tbl` files), `dataset_dir` (parquet part files; pyarrow), or
     generated at `sf`. `expected` diffs each result exactly against
     DIR/answers/q{n}.out (`datagen.tbl.diff_expected`); `verify` against
-    the pandas oracle (needs pandas). `distributed` runs each query over
-    `mesh` (default: one partition per visible device of `device`'s type);
-    `serial` N on the serial runtime over N partitions."""
+    the pandas oracle (needs pandas), whose frames `oracle_cache` (else
+    BALLISTA_ORACLE_CACHE) keeps (`oracle_pregen` fills it). `distributed`
+    runs each query over `mesh` (default: one partition per visible device
+    of `device`'s type); `serial` N on the serial runtime over N
+    partitions."""
     if capacity_mode is not None:
         raise NotImplementedError(
             "--capacity-mode has no effect in the port: a table's capacity "
@@ -278,7 +287,7 @@ def run(sf: float = 1.0, queries=None, iterations: int = 3,
             elif verify:
                 from .oracle import diff_frames
                 got = B.to_pandas(out, schema)
-                exp, oracle_ms = _oracle(q, sf, pdt)
+                exp, oracle_ms = _oracle(q, sf, pdt, oracle_cache)
                 mismatch = diff_frames(got, exp)
                 results[q]["oracle_ms"] = round(oracle_ms, 1)
                 results[q]["vs_oracle"] = round(oracle_ms / max(
@@ -378,15 +387,21 @@ def loadtest(sf: float, clients: int, requests: int, queries,
 def run_isolated(sf: float, queries, iterations: int, distributed: bool,
                  per_query_timeout: int, verify: bool = False,
                  device="cuda", tbl_dir: str = None, expected: str = None,
-                 serial: int = 0, lazy_ingest: bool = False):
+                 serial: int = 0, lazy_ingest: bool = False,
+                 dataset_dir: str = None, oracle_cache: str = None):
     """Each query in its own process with a hard timeout, so one
     pathological query cannot take the whole sweep's budget (the
-    reference's tpch.rs runs queries in one process)."""
+    reference's tpch.rs runs queries in one process). `oracle_cache`
+    reaches every process as BALLISTA_ORACLE_CACHE (the sweep's
+    `--oracle-cache`, scripts/sf10_sweep.py:41-43), so `verify` reads the
+    frames `oracle_pregen` wrote instead of computing them per process."""
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if p]))
+    if oracle_cache:
+        env["BALLISTA_ORACLE_CACHE"] = oracle_cache
     results = {}
     for q in queries:
         cmd = [sys.executable, "-m", "ballista_tpu_torch.benchmarks.runner",
@@ -398,7 +413,8 @@ def run_isolated(sf: float, queries, iterations: int, distributed: bool,
             if value:
                 cmd.append(flag)
         for flag, value in (("--tbl-dir", tbl_dir), ("--expected", expected),
-                            ("--serial", serial)):
+                            ("--serial", serial),
+                            ("--dataset-dir", dataset_dir)):
             if value:
                 cmd += [flag, str(value)]
         try:
@@ -422,7 +438,7 @@ def run_isolated(sf: float, queries, iterations: int, distributed: bool,
     return results
 
 
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--queries", default=None,
@@ -458,6 +474,10 @@ def main(argv=None):
     ap.add_argument("--verify", action="store_true",
                     help="diff results against the pandas oracle and "
                          "record its per-query time as the baseline")
+    ap.add_argument("--oracle-cache", default=None, metavar="DIR",
+                    help="keep and read --verify's oracle frames in DIR "
+                         "(BALLISTA_ORACLE_CACHE; with --isolate, passed to "
+                         "every process; `oracle_pregen` fills it)")
     ap.add_argument("--capacity-mode", default=None,
                     choices=("exact", "bucket"),
                     help="(has no effect in the port: raises)")
@@ -465,7 +485,11 @@ def main(argv=None):
                     help="e.g. 4x8: 4 concurrent clients, 8 requests each")
     ap.add_argument("--device", default="cuda",
                     help="the device the queries run on (default cuda)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     queries = ([int(x) for x in args.queries.split(",")] if args.queries
                else list(range(1, 23)))
     if os.environ.get("BALLISTA_FAULTDUMP"):
@@ -490,14 +514,16 @@ def _main(args, queries):
                             args.distributed, args.isolate,
                             verify=args.verify, device=args.device,
                             tbl_dir=args.tbl_dir, expected=args.expected,
-                            serial=args.serial, lazy_ingest=args.lazy_ingest)
+                            serial=args.serial, lazy_ingest=args.lazy_ingest,
+                            dataset_dir=args.dataset_dir,
+                            oracle_cache=args.oracle_cache)
     return run(args.sf, queries, args.iterations, args.distributed,
                lazy_ingest=args.lazy_ingest, verify=args.verify,
                capacity_mode=args.capacity_mode, tbl_dir=args.tbl_dir,
                expected=args.expected, query_timeout=args.query_timeout,
                evict_between=args.evict_between, serial=args.serial,
                dataset_dir=args.dataset_dir, save_results=args.save_results,
-               device=args.device)
+               device=args.device, oracle_cache=args.oracle_cache)
 
 
 if __name__ == "__main__":

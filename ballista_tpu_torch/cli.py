@@ -274,10 +274,7 @@ class Repl:
                     print(f"Error: {type(e).__name__}: {e}")
 
 
-def main(argv=None, device="cuda", mesh=None):
-    """The command line. `device` and `mesh` are for callers that run it
-    in process (the CPU tests pass device="cpu" and a CPU mesh); the
-    command line itself runs on CUDA."""
+def _parser(device="cuda"):
     ap = argparse.ArgumentParser(description="ballista_tpu_torch SQL REPL")
     ap.add_argument("--sf", type=float, default=None,
                     help="generate + register TPC-H data at this scale factor")
@@ -301,7 +298,18 @@ def main(argv=None, device="cuda", mesh=None):
     ap.add_argument("--connect", default=None, metavar="URL",
                     help="execute against a remote scheduler RPC service "
                     "(needs --sf or --parquet)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=device,
+                    help="the device of the session (with --connect: of "
+                    "the planning context)")
+    return ap
+
+
+def main(argv=None, device="cuda", mesh=None):
+    """The command line. `device` is `--device`'s default (cuda) and
+    `mesh` is for callers that run it in process (the CPU tests pass
+    device="cpu" and a CPU mesh)."""
+    args = _parser(device).parse_args(argv)
+    device = args.device
 
     if args.connect:
         repl = Repl(RemoteSession(args.connect, _remote_tables_spec(args),

@@ -20,6 +20,7 @@ Every field is nullable, as the reference's arrow schemas declare it.
 from __future__ import annotations
 
 import datetime
+import logging
 import os
 import zlib
 from functools import partial
@@ -30,6 +31,8 @@ import numpy as np
 from ..batch import HostColumn, _estimate_high_cardinality, raw_dict_max
 from ..schema import (DATE32, INT32, INT64, STRING, DataType, Field, Schema,
                       TypeKind, decimal)
+
+log = logging.getLogger(__name__)
 
 EPOCH = datetime.date(1970, 1, 1)
 
@@ -498,6 +501,8 @@ def generate_tpch(sf: float, seed: int = 19940101,
     if cache:
         for name, table in made.items():
             _write_cached(table, _cache_path(cache, name, sf, seed))
+        log.info("generate_tpch SF %g: %d tables generated (%s), %d read "
+                 "from %s", sf, len(made), ",".join(made), len(out), cache)
     out.update(made)
     return {name: out[name] for name in names}
 

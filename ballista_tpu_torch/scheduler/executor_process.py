@@ -542,7 +542,7 @@ class ExecutorProcess:
         log.info("executor %s stopped (push)", self.meta.executor_id)
 
 
-def main(argv=None):
+def _parser():
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__)
@@ -570,7 +570,11 @@ def main(argv=None):
                          "spill here and peers fetch them over the data "
                          "endpoint instead of a shared object store "
                          "(executor_process.rs --work-dir parity)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")

@@ -25,7 +25,7 @@ import logging
 import time
 
 
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8080, help="REST/UI port")
@@ -60,7 +60,11 @@ def main(argv=None):
     ap.add_argument("--log-level", default="info",
                     help="level, optionally per module: "
                          "'info,ballista_tpu_torch.scheduler=debug'")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     if args.flight_port:
         try:
             import pyarrow.flight  # noqa: F401

@@ -13,8 +13,14 @@ and the partitioned runtime; and the TPC-H tools: the datagen CLI's .tbl
 files, their numpy reader, the benchmark runner against answers/sf1, the
 load, scaling and scheduler-event benches, Avro and a UDF plugin; RAW
 strings, the last modules, TPC-H SF100 on one card, wide sums read as
-values and the per-piece profiler. The SF100 lineitem is generated by a
-background process from phase 12 (a) on (phase 18 (b)).
+values, the per-piece profiler, and a load test over the wire that kills
+one of three executor processes while jobs are in flight. The SF100
+lineitem is generated by a background process from phase 12 (a) on (phase
+18 (b)). BALLISTA_TPCH_CACHE is set to a temporary directory for the whole
+run: the first generation of SF1 writes its tables there as .npz files,
+and every later process that generates SF1 (the executors and schedulers
+of phases 14, 15 and 21, phase 17's workers) reads them (SF10 and phase
+16's datagen CLI generate without it).
 
     python3 chip_smoke.py                     # every phase
     python3 chip_smoke.py --distributed-only  # phases 1, 2 and 13 alone
@@ -24,6 +30,7 @@ background process from phase 12 (a) on (phase 18 (b)).
     python3 chip_smoke.py --tools-only        # phases 1, 2 and 16 alone
     python3 chip_smoke.py --wide-only         # phases 1, 2 and 19 alone
     python3 chip_smoke.py --pieces-only       # phases 1, 2 and 20 alone
+    python3 chip_smoke.py --loadtest-only     # phases 1, 2 and 21 alone
     python3 chip_smoke.py --sf100-only [--queries 1,6]  # phases 1, 2 and
                                               # the SF100 sweep
 
@@ -143,9 +150,10 @@ Phases:
    circuit breaker, two jobs queued before the scheduler runs, their stage
    states. Its seconds and the script's are printed.
 14. the wire slice on phase 6's SF1 data environment ({"kind": "tpch",
-   "sf": 1}, which every process generates itself; with `--wire-only` the
-   script's SF1 tables are made in the call): three scheduler RPC services
-   (`serve_scheduler`) on threads of the script and six executor processes
+   "sf": 1}, which every process reads from BALLISTA_TPCH_CACHE; with
+   `--wire-only` the script's SF1 tables are made in the call): three
+   scheduler RPC services (`serve_scheduler`) on threads of the script and
+   six executor processes
    (`python -m ballista_tpu_torch.scheduler.executor_process --device cuda
    --partitions 4`), all on cuda:0, each waited for by its EXECUTOR_READY
    line. First the kernel is held against its plain version on one
@@ -247,16 +255,36 @@ Phases:
    one JSON line per query (its pieces' ms, MiB, cap MiB and share, its
    kernel launches, the timed repeats' included), and the kernel against
    its plain version on Q1's aggregate call.
+21. the load test and the example twins: (a) `python -m
+   ballista_tpu_torch.benchmarks.loadtest_rpc` called in process
+   (`main(["--device", "cuda", "--sf", "1", "--workers", "3", "--clients",
+   "4", "--requests", "6"])`): a scheduler on a thread, three executor
+   processes of P = 4 on cuda:0 reading SF1 from the cache, the three
+   reference queries once each to warm up, then 4 client threads x 6
+   requests; the first executor that has finished a task under load and
+   holds a task of a job in flight beside another is SIGKILLed. Every
+   answer exact against numpy; at least one job with a task on the victim
+   finishes on the survivors; the survivors' jobs launch the kernel; the
+   executors generate no table. Its JSON report (jobs/s, p50 / p95, the
+   kill's moment, seconds until the scheduler drops the victim) is
+   printed. (b) `examples/torch/sql.py`, `dataframe.py` and
+   `standalone_sql.py` in this process on the card, each equal to its
+   expected rows (the standalone twin's Q1-shaped aggregate at SF 0.01
+   against numpy); that aggregate must launch the kernel, and its call is
+   held against the plain version.
 Phases 7 and 8 also hold the kernel against its plain version on the
 calls Q4, Q15 and Q22 (phase 7) and Q11 and Q16 (phase 8) made.
 The line before the last is a JSON object describing the kernel (its
-launches summed over every query's first run and phase 14's executor
-tasks, per entry point under `entry_points`); the last line is
-{"ok": true, "device": {...}}. Any failure raises (exit code 1).
+launches summed over every query's first run and the executor tasks of
+phases 14, 15, 16 and 21, per entry point under `entry_points`); the last
+line is {"ok": true, "device": {...}}. Any failure raises (exit code 1).
 """
 
+import contextlib
+import importlib.util
 import json
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -277,6 +305,7 @@ from ballista_tpu_torch.benchmarks.timing import (cuda_ms, host_ms,
 from ballista_tpu_torch.client import SessionContext
 from ballista_tpu_torch.client.context import rebind_scans
 from ballista_tpu_torch.avro import write_avro
+from ballista_tpu_torch.benchmarks import loadtest_rpc
 from ballista_tpu_torch.benchmarks import roofline as roofline_mod
 from ballista_tpu_torch.benchmarks import runner as runner_mod
 from ballista_tpu_torch.benchmarks import scaling as scaling_mod
@@ -2491,7 +2520,8 @@ def phase_sf10(sf1_ctx, lineitem=None):
     sf1_ctx.evict_device()
     _fresh()
     t0 = time.perf_counter()
-    tables = generate_tpch(SF10, SEED)
+    with tpch_uncached():
+        tables = generate_tpch(SF10, SEED)
     rows = {name: len(cols[f[0].name].values)
             for name, (f, cols) in tables.items()}
     log(f"phase 12: TPC-H SF10 generated in {time.perf_counter() - t0:.1f} s "
@@ -3425,6 +3455,7 @@ def _repo_env():
 def tools_write():
     """(a): the datagen CLI writes the eight SF1 tables as .tbl files."""
     here, env = _repo_env()
+    env.pop("BALLISTA_TPCH_CACHE", None)    # it times the generator
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "ballista_tpu_torch.datagen", "--sf", str(SF),
@@ -4838,6 +4869,143 @@ def phase_pieces_alone():
     return phase_pieces(ctx)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the load test with an executor killed, and the example twins
+# ---------------------------------------------------------------------------
+
+LOAD_ARGV = ["--device", "cuda", "--sf", str(SF), "--workers", "3",
+             "--clients", "4", "--requests", "6"]
+LOAD_BUDGET_S = 45
+EXAMPLE_SF = 0.01
+
+
+@contextlib.contextmanager
+def tpch_cache():
+    """BALLISTA_TPCH_CACHE set to a fresh directory for the block: the
+    first `generate_tpch` of a scale writes it as .npz files, and every
+    later one, in this process or a child (executors, gloo workers), reads
+    them instead of generating again. Deleted at the end."""
+    import tempfile
+    path = tempfile.mkdtemp(prefix="ballista_tpch_")
+    os.environ["BALLISTA_TPCH_CACHE"] = path
+    try:
+        yield path
+    finally:
+        os.environ.pop("BALLISTA_TPCH_CACHE", None)
+        shutil.rmtree(path, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def tpch_uncached():
+    """The block generates its tables without the cache (phase 12's SF10
+    would write ~10 GB of .npz; phase 16 times the datagen itself)."""
+    path = os.environ.pop("BALLISTA_TPCH_CACHE", None)
+    try:
+        yield
+    finally:
+        if path is not None:
+            os.environ["BALLISTA_TPCH_CACHE"] = path
+
+
+def _torch_example(name):
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        f"example_torch_{name}", os.path.join(here, "examples", "torch",
+                                              f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def load_examples():
+    """(b): the three example twins in this process on the card, each
+    answer against its own expectation (the standalone twin's Q1-shaped
+    aggregate against numpy at SF 0.01), which must launch the kernel.
+    Returns (launches, the held numbers of its partial aggregate's call)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    got = _torch_example("sql").main(device="cuda")
+    want = [{"c1": i, "min_c3": i * i, "max_c3": i * i} for i in range(2, 7)]
+    if got != want:
+        raise AssertionError(f"phase 21 (b): sql twin {got} != {want}")
+    got = _torch_example("dataframe").main(device="cuda")
+    want = [{"tag": "x", "sum_a": 4, "n": 2}, {"tag": "y", "sum_a": 6, "n": 2}]
+    if got != want:
+        raise AssertionError(f"phase 21 (b): dataframe twin {got} != {want}")
+    with spy_rows() as calls:
+        rows, status = _torch_example("standalone_sql").main(device="cuda")
+    launches = read_counts()
+    (fields, cols), = generate_tpch(EXAMPLE_SF, SEED, ["lineitem"]).values()
+    keep = cols["l_shipdate"].values <= parse_date("1998-09-02")
+    rf, ls = cols["l_returnflag"], cols["l_linestatus"]
+    want = []
+    for f in range(len(rf.dictionary)):
+        for s in range(len(ls.dictionary)):
+            m = keep & (rf.values == f) & (ls.values == s)
+            if m.any():
+                want.append({"l_returnflag": rf.dictionary[f],
+                             "l_linestatus": ls.dictionary[s],
+                             "sum_qty": int(cols["l_quantity"].values[m].sum())
+                             / 100, "count_order": int(m.sum())})
+    want.sort(key=lambda r: (r["l_returnflag"], r["l_linestatus"]))
+    if rows != want or status["state"] != "successful":
+        raise AssertionError(f"phase 21 (b): standalone twin {rows} "
+                             f"({status['state']}) != numpy {want}")
+    if launches[0] < 1 or not calls:
+        raise AssertionError(f"phase 21 (b): the standalone twin's aggregate "
+                             f"launched no kernel ({launches.tolist()})")
+    call = max(calls, key=lambda c: c[0].shape[0])
+    del calls
+    held = hold_call(21, f"the standalone twin's Q1-shaped partial aggregate "
+                     f"at SF {EXAMPLE_SF}", *call)
+    log(f"phase 21 (b): the sql, dataframe and standalone twins on the card "
+        f"equal their expectations in {time.perf_counter() - t0:.2f} s; "
+        f"kernel launches {launches.tolist()}")
+    return launches, held
+
+
+def phase_loadtest(sf1_ctx=None):
+    """Phase 21: (a) `benchmarks.loadtest_rpc` at SF1 on the card, three
+    executor processes of P = 4, four clients of six requests, one
+    executor SIGKILLed under load; (b) the example twins. Returns (kernel
+    launches: the executors' task metrics and the twins', the held
+    numbers)."""
+    t_start = time.perf_counter()
+    if sf1_ctx is not None:
+        _fresh(sf1_ctx)     # the executor processes share the card
+    report = loadtest_rpc.main(LOAD_ARGV)
+    took = time.perf_counter() - t_start
+    if not report["ok"]:
+        raise AssertionError(f"phase 21 (a): {report['failures']}")
+    survivors = {f"lt-{i}" for i in range(3)} - {report["victim"]}
+    finished = [v for v in report["victim_jobs"]
+                if v["state"] == "successful" and v["final_executors"]
+                and set(v["final_executors"]) <= survivors]
+    if not (report["killed_one"] and finished
+            and report["correct"] == report["total_queries"] == 24
+            and report["survivor_launches"][0] >= 1):
+        raise AssertionError(f"phase 21 (a): {report}")
+    generated = sum(t["generated"]
+                    for t in report["executor_tables"].values())
+    if generated:
+        raise AssertionError(f"phase 21 (a): the executors generated "
+                             f"{generated} tables instead of reading them")
+    log(f"phase 21 (a): {report['correct']} of {report['total_queries']} "
+        f"answers exact; {report['victim']} killed at "
+        f"{report['killed_at_s']:.3f} s of the load with "
+        f"{len(report['victim_jobs'])} jobs holding a task on it, "
+        f"{len(finished)} finished on the survivors; dropped by the "
+        f"scheduler {report['expiry_s']:.3f} s after the kill; "
+        f"{report['jobs_per_s']:.3f} jobs/s, p50 {report['p50_s']:.3f} s, "
+        f"p95 {report['p95_s']:.3f} s; kernel launches in the executors "
+        f"{report['kernel_launches']}, in the survivors' jobs "
+        f"{report['survivor_launches']}; {took:.1f} s (budget "
+        f"{LOAD_BUDGET_S} s)")
+    ex_launches, held = load_examples()
+    log(f"phase 21: {time.perf_counter() - t_start:.1f} s")
+    return np.array(report["kernel_launches"]) + ex_launches, held
+
+
 # seconds of each phase function in the whole run, printed before the
 # kernels line so that runs compare phase by phase
 PHASE_SECONDS = {}
@@ -4859,14 +5027,14 @@ def main():
     alone = sys.argv[1:] in (["--distributed-only"], ["--wire-only"],
                              ["--raw-only"], ["--tools-only"],
                              ["--rest-only"], ["--wide-only"],
-                             ["--pieces-only"])
+                             ["--pieces-only"], ["--loadtest-only"])
     sweep = sys.argv[1:2] == ["--sf100-only"] and (
         len(sys.argv) == 2 or (len(sys.argv) == 4
                                and sys.argv[2] == "--queries"))
     if sys.argv[1:] and not (alone or sweep):
         print("usage: python3 chip_smoke.py [--distributed-only | "
               "--wire-only | --raw-only | --tools-only | --rest-only | "
-              "--wide-only | --pieces-only | --sf100-only "
+              "--wide-only | --pieces-only | --loadtest-only | --sf100-only "
               "[--queries 1,6,...]]",
               file=sys.stderr)
         sys.exit(2)
@@ -4912,6 +5080,16 @@ def main():
     log(f"phase 2: {masked_sums.smem_bytes('cuda')} B of shared memory per "
         f"block on request; a_chunk(26) = {masked_sums.a_chunk(26, 'cuda')}")
 
+    with tpch_cache():
+        run_phases(sweep, alone, t_script)
+
+
+def run_phases(sweep, alone, t_script):
+    """Every phase after the build, in the mode the arguments chose, with
+    BALLISTA_TPCH_CACHE set (`tpch_cache`): the first generation of SF1
+    (phase 4's lineitem, phase 6's other tables) writes it, and every later
+    process that generates SF1 reads it (phase 14's, 15's and 21's
+    executors and schedulers, phase 17's workers)."""
     if sweep:
         queries = ([int(q) for q in sys.argv[3].split(",")]
                    if len(sys.argv) == 4 else list(range(1, 23)))
@@ -4941,6 +5119,9 @@ def main():
             err = held_err(held)
         elif sys.argv[1] == "--pieces-only":
             launches, held = phase_pieces_alone()
+            err = held_err(held)
+        elif sys.argv[1] == "--loadtest-only":
+            launches, held = phase_loadtest()
             err = held_err(held)
         else:
             launches, held = phase_raw_alone()
@@ -4978,6 +5159,7 @@ def main():
         raw_launches, raw_held = timed(phase_raw, ctx)
         wide_launches, wide_err, _ = timed(phase_wide_reads, ctx)
         piece_launches, piece_held = timed(phase_pieces, ctx)
+        load_launches, load_held = timed(phase_loadtest, ctx)
         ctx.evict_device()
         tools_launches, tools_held = timed(
             phase_tools,
@@ -4994,19 +5176,20 @@ def main():
     # gives each wrapper's own numbers on that call; launches are those of
     # the 22 queries', the analytic slice's and the client slice's first
     # runs, counted per wrapper, those the executor processes of phases
-    # 14, 15 and 16 reported, and phase 16's runner, load test, scaling,
-    # Avro and plugin runs, and phase 17's, its worker processes' included.
+    # 14, 15, 16 and 21 reported, phase 16's runner, load test, scaling,
+    # Avro and plugin runs, phase 17's, its worker processes' included, and
+    # phase 21's example twins.
     launches = (launches + join_launches + rest_launches + part_launches
                 + analytic_launches + client_launches + sf10_launches
                 + dist_launches + wire_launches + raw_launches
                 + tools_launches + last_launches + sf100_launches
-                + wide_launches + piece_launches)
+                + wide_launches + piece_launches + load_launches)
     worst = max(max_err, held_err(q1_held), held_err(q5_held), rest_err,
                 part_err, analytic_err, client_err, sf10_err, dist_err,
                 held_err(wire_held_numbers), held_err(raw_held),
                 held_err(tools_held), held_err(last_held),
                 held_err(mp_held), sf100_held["max_abs_err"], wide_err,
-                held_err(piece_held))
+                held_err(piece_held), held_err(load_held))
     log("phase seconds: " + json.dumps(PHASE_SECONDS))
     entries = [dict(name=name, launches=int(count), **q1_held[name])
                for name, count in zip(("masked_slot_sums_rows",

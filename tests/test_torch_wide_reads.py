@@ -79,6 +79,14 @@ RUNTIMES = ["in_core", "serial", "distributed"]
 _jax_cache = {}
 
 
+def _host_copy(columns):
+    """`jax_to_numpy`'s columns copied off the JAX buffers: its arrays are
+    numpy views of them on the CPU, and a view kept in a module-level
+    cache keeps them alive for every later file of the worker."""
+    return {name: tuple(np.array(a, copy=True) for a in col)
+            for name, col in columns.items()}
+
+
 def _jax(table, sql):
     """The JAX package's (numpy columns, field types) of `sql` over t."""
     key = (table, sql)
@@ -86,7 +94,7 @@ def _jax(table, sql):
         ctx = JaxContext(capacity_mode="exact")
         ctx.register_arrow("t", TABLES[table])
         batch, schema = ctx.sql(sql).collect()
-        _jax_cache[key] = (jax_to_numpy(batch, schema),
+        _jax_cache[key] = (_host_copy(jax_to_numpy(batch, schema)),
                            [(f.name, repr(f.dtype)) for f in schema.fields])
     return _jax_cache[key]
 
@@ -181,7 +189,7 @@ def test_many_to_many_join_sum_is_narrowed(runtime):
     jctx = JaxContext(capacity_mode="exact")
     jctx.register_arrow("a", JOIN_A)
     jctx.register_arrow("b", JOIN_B)
-    want = (jax_to_numpy(*jctx.sql(JOIN_SQL).collect()),
+    want = (_host_copy(jax_to_numpy(*jctx.sql(JOIN_SQL).collect())),
             [("ak", "int64"), ("s", "decimal(18,2)")])
     ctx = _port_ctx(runtime, {"a": JOIN_A, "b": JOIN_B})
     _assert_equal(_answer(*ctx.sql(JOIN_SQL).collect()), want)
