@@ -47,6 +47,7 @@ from ..exprs import drop_device_luts
 from ..planner import logical as L
 from ..planner.physical import PhysicalOptions, create_physical_plan
 from ..schema import STRING, Field, Schema, TypeKind
+from ..tracing import span
 from .dataframe import DataFrame
 
 
@@ -775,29 +776,35 @@ class SessionContext:
                                   ShowColumns, ShowTables, parse_statements)
         from ..sql.planner import SqlPlanner
 
-        self._ensure_referenced_meta(query)
-        last = None
-        for stmt in parse_statements(query):
-            if isinstance(stmt, CreateView):
-                self.views[stmt.name] = (stmt.query, stmt.columns)
-            elif isinstance(stmt, DropView):
-                self.views.pop(stmt.name, None)
-            elif isinstance(stmt, CreateExternalTable):
-                self._create_external_table(stmt)
-            elif isinstance(stmt, CreateTableAs):
-                self._create_table_as(stmt.name, DataFrame(
-                    self, SqlPlanner(self).plan_select(stmt.query)))
-            elif isinstance(stmt, ExplainStmt):
-                last = self._explain(stmt.query)
-            elif isinstance(stmt, ShowTables):
-                last = self._show_tables()
-            elif isinstance(stmt, ShowColumns):
-                last = self._show_columns(stmt.name)
-            else:
-                last = DataFrame(self, SqlPlanner(self).plan_select(stmt))
-        if last is None:
-            raise ValueError("no SELECT statement in script")
-        return last
+        with span("ballista.sql"):
+            self._ensure_referenced_meta(query)
+            last = None
+            with span("ballista.sql.parse"):
+                stmts = parse_statements(query)
+            for stmt in stmts:
+                if isinstance(stmt, CreateView):
+                    self.views[stmt.name] = (stmt.query, stmt.columns)
+                elif isinstance(stmt, DropView):
+                    self.views.pop(stmt.name, None)
+                elif isinstance(stmt, CreateExternalTable):
+                    self._create_external_table(stmt)
+                elif isinstance(stmt, CreateTableAs):
+                    with span("ballista.sql.plan"):
+                        plan = SqlPlanner(self).plan_select(stmt.query)
+                    self._create_table_as(stmt.name, DataFrame(self, plan))
+                elif isinstance(stmt, ExplainStmt):
+                    last = self._explain(stmt.query)
+                elif isinstance(stmt, ShowTables):
+                    last = self._show_tables()
+                elif isinstance(stmt, ShowColumns):
+                    last = self._show_columns(stmt.name)
+                else:
+                    with span("ballista.sql.plan"):
+                        plan = SqlPlanner(self).plan_select(stmt)
+                    last = DataFrame(self, plan)
+            if last is None:
+                raise ValueError("no SELECT statement in script")
+            return last
 
     # -- DDL / catalog statements intercepted like BallistaContext::sql --
     def _create_external_table(self, stmt):
@@ -912,25 +919,27 @@ class SessionContext:
         raised as it is. In distributed mode the plan is a job of the
         standalone cluster (`cluster()`)."""
         from ..scheduler.serial import execute_serial
-        if self.distributed:
-            cl = self.cluster()
-            return cl.wait(cl.submit_plan(plan))
-        if self.serial_partitions:
-            return execute_serial(self, plan, self.serial_partitions,
+        with span("ballista.collect"):
+            if self.distributed:
+                cl = self.cluster()
+                return cl.wait(cl.submit_plan(plan))
+            if self.serial_partitions:
+                return execute_serial(self, plan, self.serial_partitions,
+                                      max_retries=max_retries)
+            with span("ballista.route"):
+                route_n = self.serial_route(plan)
+            if route_n:
+                return execute_serial(self, plan, route_n,
+                                      max_retries=max_retries)
+            try:
+                exec_plan, _, out = self.converge(plan, max_retries)
+                return out, exec_plan.schema
+            except torch.cuda.OutOfMemoryError:
+                pass
+            # out of the except block: the traceback, whose frames hold the
+            # failed run's tensors, is gone, so the memory can be given back
+            return execute_serial(self, plan, self.oom_partitions(plan),
                                   max_retries=max_retries)
-        route_n = self.serial_route(plan)
-        if route_n:
-            return execute_serial(self, plan, route_n,
-                                  max_retries=max_retries)
-        try:
-            exec_plan, _, out = self.converge(plan, max_retries)
-            return out, exec_plan.schema
-        except torch.cuda.OutOfMemoryError:
-            pass
-        # out of the except block: the traceback, whose frames hold the
-        # failed run's tensors, is gone, so the memory can be given back
-        return execute_serial(self, plan, self.oom_partitions(plan),
-                              max_retries=max_retries)
 
     def serial_route(self, plan: L.LogicalPlan) -> int:
         """The partition count of the serial runtime a plan is routed to
@@ -997,14 +1006,20 @@ class SessionContext:
         plan = rebind_scans(plan, self)
         opts = self.options
         for attempt in range(max_retries):
-            exec_plan = self.physical_plan(plan, opts)
-            inputs = self.bind_inputs([leaf.input_id
-                                       for leaf in exec_plan.leaves()])
-            run = Run(inputs)
-            out = eval_plan(run, exec_plan)
-            verdict = run.verdict()
-            if verdict is None or not run.overflowed(int(verdict)):
-                return exec_plan, inputs, out
+            with span("ballista.attempt"):
+                with span("ballista.plan.physical"):
+                    exec_plan = self.physical_plan(plan, opts)
+                with span("ballista.plan.bind"):
+                    inputs = self.bind_inputs([leaf.input_id
+                                               for leaf in exec_plan.leaves()])
+                run = Run(inputs)
+                out = eval_plan(run, exec_plan)
+                verdict = run.verdict()
+                if verdict is not None:
+                    with span("ballista.verdict"):
+                        verdict = int(verdict)
+                if verdict is None or not run.overflowed(verdict):
+                    return exec_plan, inputs, out
             self.warnings.append(
                 f"output overflowed capacity on attempt {attempt + 1} "
                 f"(max_group_table {opts.max_group_table}, join_out_factor "

@@ -38,6 +38,7 @@ from ..ops.sort import SortKeySpec, sort_batch
 from ..ops.vsort import compact_batch, sort_batch_columns
 from ..schema import (FLOAT64, INT64, Field, Schema, narrow_wide,
                       wide_read_error)
+from ..tracing import exec_span
 from .aggregate import AggExpr, BoundAgg, _avg_dtype, _out_sum_dtype
 
 # sorted-layout sentinel: dead rows sort behind every normalised key
@@ -162,7 +163,8 @@ class Run:
 
     def _evaluate(self, node: "ExecNode") -> Batch:
         self.evaluated += 1
-        out = node.evaluate(self)
+        with exec_span(node):
+            out = node.evaluate(self)
         if self.op_rows is not None and isinstance(node, _ROW_RECORDED):
             self.op_rows.append((node._label(), out.num_rows))
         return out

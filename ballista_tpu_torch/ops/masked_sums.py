@@ -50,6 +50,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..tracing import span
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "masked_slot_sums.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -382,30 +384,32 @@ def masked_slot_sums_rows(row_slot: torch.Tensor, rows: Sequence[Row],
     the current stream (or raise): one launch takes up to `MAX_ROWS`
     columns to stream and as many outputs as its shared memory holds.
     `masked_slot_sums_rows.launches` counts the kernel launches."""
-    rows = _checked_rows(row_slot, rows, T)
-    if row_slot.device.type == "cpu":
-        return masked_slot_sums_rows_reference(row_slot, rows, T)
-    n, A = row_slot.shape[0], len(rows)
-    if n == 0 or A == 0:
-        return torch.zeros((T, A), dtype=torch.int64, device=row_slot.device)
-    # as many outputs per launch as its shared memory has cells for
-    limit = smem_bytes(row_slot.device) // (8 * T)
-    descriptors = _descriptors(rows, fuse=limit >= 2)
-    if len(descriptors) <= MAX_ROWS and A <= limit:
-        parts = [descriptors]
-    else:
-        parts, outputs = [[]], 0
-        for d in descriptors:
-            need = 1 + (d[4] >= 0)
-            if parts[-1] and (len(parts[-1]) == MAX_ROWS
-                              or outputs + need > limit):
-                parts.append([])
-                outputs = 0
-            parts[-1].append(d)
-            outputs += need
-    return _launches(masked_slot_sums_rows, _library().masked_slot_sums_rows,
-                     row_slot, T, A, [(_pack(part), n, T, len(part))
-                                      for part in parts])
+    with span("ballista.kernel.masked_slot_sums"):
+        rows = _checked_rows(row_slot, rows, T)
+        if row_slot.device.type == "cpu":
+            return masked_slot_sums_rows_reference(row_slot, rows, T)
+        n, A = row_slot.shape[0], len(rows)
+        if n == 0 or A == 0:
+            return torch.zeros((T, A), dtype=torch.int64,
+                               device=row_slot.device)
+        # as many outputs per launch as its shared memory has cells for
+        limit = smem_bytes(row_slot.device) // (8 * T)
+        descriptors = _descriptors(rows, fuse=limit >= 2)
+        if len(descriptors) <= MAX_ROWS and A <= limit:
+            parts = [descriptors]
+        else:
+            parts, outputs = [[]], 0
+            for d in descriptors:
+                need = 1 + (d[4] >= 0)
+                if parts[-1] and (len(parts[-1]) == MAX_ROWS
+                                  or outputs + need > limit):
+                    parts.append([])
+                    outputs = 0
+                parts[-1].append(d)
+                outputs += need
+        return _launches(masked_slot_sums_rows,
+                         _library().masked_slot_sums_rows, row_slot, T, A,
+                         [(_pack(part), n, T, len(part)) for part in parts])
 
 
 masked_slot_sums_rows.launches = 0
