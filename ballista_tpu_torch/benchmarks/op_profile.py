@@ -16,7 +16,7 @@ from numpy arrays. For each query, over tables generated at
 - `collect()` and `run_plan` wall times (host clock around work that ends
   in a synchronize; median of `--reps`). `run_plan` runs the plan built
   with the context's options; where that plan overflows (`overflowed`),
-  `collect()` runs it and then a rebuilt one with 4x the capacities, and
+  `collect()` runs it and then one rebuilt with the capacities it counted, and
   the per-run numbers below are those of the first;
 - device-busy time per `run_plan` (sum of kernel times from
   torch.profiler) and its share of the `run_plan` wall time;

@@ -46,6 +46,7 @@ from ..exec.plan import Run, eval_plan
 from ..exprs import drop_device_luts
 from ..planner import logical as L
 from ..planner.physical import PhysicalOptions, create_physical_plan
+from ..scheduler.runtime import grow_capacities
 from ..schema import STRING, Field, Schema, TypeKind
 from ..tracing import span
 from .dataframe import DataFrame
@@ -997,14 +998,18 @@ class SessionContext:
 
         A plan whose group table or expanding-join output outgrows its
         static capacity raises the run's overflow flag; the flags are read
-        once per run (`Run.verdict`) and the plan is rebuilt with 4x the
-        capacities. After `max_retries` runs that overflowed this raises: a
-        clipped batch would be a wrong answer. A run where a wide SUM read
-        above passed int64 raises NotImplementedError at once."""
+        once per run (`Run.verdict`). A run that overflowed also reads how
+        far each kind of capacity fell short (`Run.growth`), and the plan
+        is rebuilt with the capacities the serial and standalone runtimes'
+        retries take (`grow_capacities`: each kind grown to a power of two
+        at or above its need, and by at least 4x). After `max_retries` runs
+        that overflowed this raises: a clipped batch would be a wrong
+        answer. A run where a wide SUM read above passed int64 raises
+        NotImplementedError at once."""
         # the scans' schemas taken anew: a parquet dataset reads its
         # columns' metadata on first use
         plan = rebind_scans(plan, self)
-        opts = self.options
+        opts = ran = self.options
         for attempt in range(max_retries):
             with span("ballista.attempt"):
                 with span("ballista.plan.physical"):
@@ -1014,25 +1019,37 @@ class SessionContext:
                                                for leaf in exec_plan.leaves()])
                 run = Run(inputs)
                 out = eval_plan(run, exec_plan)
-                verdict = run.verdict()
+                verdict, growth = run.verdict(), None
                 if verdict is not None:
                     with span("ballista.verdict"):
-                        verdict = int(verdict)
-                if verdict is None or not run.overflowed(verdict):
+                        if run.overflowed(_read(verdict)):
+                            # a second read, only where the run is dropped
+                            growth = _read(run.growth())
+                if growth is None:
                     return exec_plan, inputs, out
+            # the dropped run's batches are freed before the next run
+            del out, run
+            ran, opts = opts, grow_capacities(opts, growth)
             self.warnings.append(
                 f"output overflowed capacity on attempt {attempt + 1} "
-                f"(max_group_table {opts.max_group_table}, join_out_factor "
-                f"{opts.join_out_factor})")
-            opts = dataclasses.replace(
-                opts, max_group_table=opts.max_group_table * 4,
-                join_out_factor=opts.join_out_factor * 4)
+                f"(max_group_table {ran.max_group_table}, join_out_factor "
+                f"{ran.join_out_factor}); growth group "
+                f"{opts.max_group_table // ran.max_group_table}x "
+                f"(need {growth[0]}x), join "
+                f"{int(opts.join_out_factor / ran.join_out_factor)}x "
+                f"(need {growth[1]}x)")
         raise RuntimeError(
             f"join/group output overflowed capacity after {max_retries} "
-            f"runs (last max_group_table {opts.max_group_table // 4}, "
-            f"join_out_factor {opts.join_out_factor / 4}); raise "
+            f"runs (last max_group_table {ran.max_group_table}, "
+            f"join_out_factor {ran.join_out_factor}); raise "
             "max_retries, PhysicalOptions.max_group_table or "
             "PhysicalOptions.join_out_factor")
+
+
+def _read(t: torch.Tensor):
+    """A device tensor's value on the host (a Python int, or a list of
+    them): converge's one way to read a run's flags."""
+    return t.tolist()
 
 
 def file_metadata(path: str) -> dict:

@@ -1020,7 +1020,8 @@ class NestedLoopJoinExec(ExecNode):
     order (chunk by chunk, build-row major), to the next free output rows.
     The output offset stays a device tensor, so the chunk loop never waits
     for the device. The capacity follows join_out_factor; a larger total
-    raises the run's overflow flag and the client retries with 4x."""
+    raises the run's overflow flag, and the retry grows the factor to the
+    total counted (`Run.growth`)."""
 
     def __init__(self, build: ExecNode, probe: ExecNode, predicate: Expr,
                  opts):

@@ -832,7 +832,7 @@ def bind_expr(e: Expr, schema: Schema) -> Bound:
         if c.dtype.kind is not TypeKind.STRING:
             raise TypeError("LIKE on non-string")
         lut = like_lut(c.dictionary, e.pattern)
-        return _bool_lut(c, ~lut if e.negated else lut)
+        return _bool_lut(c, _negated(lut) if e.negated else lut)
 
     if isinstance(e, Case):
         return _bind_case(e, schema)
@@ -957,6 +957,13 @@ def value_hash_lut(dictionary: Optional[np.ndarray]) -> np.ndarray:
     return dict_cached(dictionary, ("value_hash",), make)
 
 
+def _negated(lut: np.ndarray) -> np.ndarray:
+    """~lut, made once per LUT object: a new array on every bind would be
+    copied to the device, and held by the device LUT cache, anew on every
+    collect (NOT LIKE over a RAW column's LUT, as long as its column)."""
+    return dict_cached(lut, ("not",), lambda: ~lut)
+
+
 def _bool_lut(c: Bound, lut: np.ndarray) -> Bound:
     """A string predicate as a host boolean LUT over the dictionary,
     gathered by code on the device; NULL in, NULL out."""
@@ -1047,7 +1054,7 @@ def _bind_in_list(e: InList, schema: Schema) -> Bound:
             values = tuple(sorted({str(v.value) for v in e.values}))
             lut = dict_cached(dic, ("in", values),
                               lambda: np.isin(dict_str(dic), values))
-            return _bool_lut(c, ~lut if e.negated else lut)
+            return _bool_lut(c, _negated(lut) if e.negated else lut)
         lut = np.zeros(len(dic) if dic is not None else 0, dtype=bool)
         for v in e.values:
             pos, exact = _string_lit_to_code(str(v.value), dic)

@@ -35,12 +35,13 @@ from . import logical as L
 @dataclasses.dataclass
 class PhysicalOptions:
     # cap on sorted-layout group slots (power of two); more groups than
-    # the table holds trip the overflow flag, and the client retries with
-    # 4x the cap. (The reference's group_table_hint sizes the distributed
-    # runtime's tables: not ported.)
+    # the table holds trip the overflow flag, and the retry grows the cap
+    # to a power of two at or above the need the run counted, by at least
+    # 4x (`scheduler.runtime.grow_capacities`). (The reference's
+    # group_table_hint sizes the distributed runtime's tables: not ported.)
     max_group_table: int = 1 << 21
     # expanding-join output capacity = factor * (build_cap + probe_cap);
-    # an overflow retries with 4x the factor
+    # an overflow grows the factor the same way
     join_out_factor: float = 1.0
 
 

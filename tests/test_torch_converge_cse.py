@@ -7,13 +7,15 @@ import numpy as np
 import pytest
 import torch
 
-from ballista_tpu_torch.benchmarks import TPCH_QUERIES
-from ballista_tpu_torch.client import SessionContext
+from ballista_tpu.benchmarks import h2o as ref_h2o
+from ballista_tpu_torch.benchmarks import TPCH_QUERIES, h2o
+from ballista_tpu_torch.client import SessionContext, context
 from ballista_tpu_torch.datagen import register_tpch
 from ballista_tpu_torch.exec import plan as TP
 from ballista_tpu_torch.exec.cse import cse_tree
-from ballista_tpu_torch.exec.plan import Run, run_plan
+from ballista_tpu_torch.exec.plan import Run, _next_pow2, run_plan
 from ballista_tpu_torch.planner.physical import PhysicalOptions
+from test_torch_h2o import _both, _register
 from test_torch_tpch_six import _assert_same, _contexts, _same_sql
 
 torch.set_num_threads(2)
@@ -53,7 +55,9 @@ def test_converge_returns_a_plan_that_reruns_without_overflow():
     exec_plan, inputs, out = df.converge()
     _assert_same(out, exec_plan.schema, jbatch, jschema)
     warnings = list(tctx.warnings)
-    assert len(warnings) == 3 and "join_out_factor 0.25" in warnings[-1]
+    # the run counted the join's need: 1/64 grows to 1 in one re-run
+    assert len(warnings) == 1 and "join_out_factor 0.015625" in warnings[0]
+    assert "join 64x" in warnings[0]
     join = next(n for n in _nodes(exec_plan)[0]
                 if isinstance(n, TP.HashJoinExec))
     first = next(n for n in _nodes(tctx.physical_plan(df.plan))[0]
@@ -69,8 +73,110 @@ def test_converge_returns_a_plan_that_reruns_without_overflow():
     batch, schema = df.collect()
     _assert_same(batch, schema, jbatch, jschema)
     assert tctx.warnings == warnings
-    with pytest.raises(RuntimeError, match="overflowed capacity after 2 runs"):
-        tctx.converge(df.plan, max_retries=2)
+    with pytest.raises(RuntimeError, match=r"overflowed capacity after 1 "
+                       r"runs \(last max_group_table 2097152, "
+                       r"join_out_factor 0.015625\)"):
+        tctx.converge(df.plan, max_retries=1)
+
+
+def _planned(ctx):
+    """The PhysicalOptions of each plan `ctx` builds from here on."""
+    seen, plan = [], ctx.physical_plan
+    ctx.physical_plan = lambda p, options=None: (seen.append(options),
+                                                 plan(p, options))[1]
+    return seen
+
+
+def _reads(monkeypatch):
+    """Every tensor `converge` reads on the host from here on."""
+    seen, read = [], context._read
+    monkeypatch.setattr(context, "_read",
+                        lambda t: (seen.append(t), read(t))[1])
+    return seen
+
+
+def test_one_group_per_row_converges_in_one_rerun(monkeypatch):
+    """h2o q10 has one group per row. The run over a table of 2^10 slots
+    counts them, and the one re-run takes the table to 2^10 times the
+    power of two at or above the need over 2^10 (4x steps would take
+    three re-runs)."""
+    n = 20_000
+    jctx, tctx = _register({"x": ref_h2o.groupby_table(n)},
+                           {"x": h2o.groupby_table(n)})
+    tctx.options = PhysicalOptions(max_group_table=1 << 10)
+    planned, reads = _planned(tctx), _reads(monkeypatch)
+    exec_plan, _, out = tctx.sql(h2o.GROUPBY_QUERIES[10]).converge()
+    need = int(out.num_rows)
+    assert need > 16 << 10
+    assert [o.max_group_table for o in planned] == \
+        [1 << 10, (1 << 10) * _next_pow2(-(-need // (1 << 10)))]
+    (agg,) = _aggs(exec_plan)
+    assert agg.table_size == planned[-1].max_group_table
+    assert len(tctx.take_warnings()) == 1
+    # the verdict of each run, and the growth of the one that overflowed
+    assert [r.dim() for r in reads] == [0, 1, 0]
+    _both(jctx, tctx, h2o.GROUPBY_QUERIES[10],
+          ["id1", "id2", "id3", "id4", "id5", "id6"])
+
+
+# a group table feeding an expanding join: while the aggregate is clipped
+# the join counts its need from the rows it was given
+CHAINED = """select a.o_custkey, count(*) as n
+from (select o_custkey, o_orderpriority from orders
+      group by o_custkey, o_orderpriority) a
+join orders o on a.o_custkey = o.o_custkey
+group by a.o_custkey order by a.o_custkey"""
+
+
+@pytest.fixture(scope="module")
+def orders():
+    jctx, _ = _contexts(SF, ["orders"])
+    return jctx.sql(CHAINED).collect()
+
+
+def _orders_context(options):
+    tctx = SessionContext(device="cpu", options=options)
+    register_tpch(tctx, SF, tables=["orders"])
+    return tctx
+
+
+def test_group_overflow_grows_joins_by_the_minimum(orders):
+    """Only the group table overflowed: join_out_factor grows by
+    grow_capacities' least step, 4x, and the join then fits."""
+    tctx = _orders_context(PhysicalOptions(max_group_table=16))
+    planned = _planned(tctx)
+    exec_plan, _, out = tctx.sql(CHAINED).converge()
+    _assert_same(out, exec_plan.schema, *orders)
+    (warning,) = tctx.take_warnings()
+    assert warning.endswith("join 4x (need 1x)")
+    assert [o.join_out_factor for o in planned] == [1.0, 4.0]
+    assert planned[1].max_group_table > 4 * 16
+
+
+def test_clipped_aggregate_feeding_a_join_converges(orders):
+    """The first run clips the aggregate, so its join fits what it was
+    given; the second, with the table grown to the need, overflows the
+    join, and the third fits: each step sized from what its run counted."""
+    tctx = _orders_context(PhysicalOptions(max_group_table=16,
+                                           join_out_factor=1 / 16))
+    planned = _planned(tctx)
+    exec_plan, _, out = tctx.sql(CHAINED).converge()
+    _assert_same(out, exec_plan.schema, *orders)
+    first, second = tctx.take_warnings()
+    assert "join 4x (need 1x)" in first
+    assert "growth group 4x (need 1x)" in second
+    assert len(planned) == 3
+    assert planned[2].join_out_factor > 4 * planned[1].join_out_factor
+
+
+def test_a_run_that_fits_reads_the_host_once(orders, monkeypatch):
+    """A plan that could overflow and did not: one read, its verdict."""
+    tctx = _orders_context(PhysicalOptions(join_out_factor=4.0))
+    reads = _reads(monkeypatch)
+    exec_plan, _, out = tctx.sql(CHAINED).converge()
+    _assert_same(out, exec_plan.schema, *orders)
+    assert not tctx.warnings
+    assert [r.dim() for r in reads] == [0]
 
 
 def test_q21_shared_nodes_evaluate_once(contexts):

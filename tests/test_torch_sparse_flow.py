@@ -302,6 +302,33 @@ def test_row_index_is_made_once_per_capacity_and_device(monkeypatch):
     assert TB.row_mask(dense).sum() == 3
 
 
+def test_negated_string_predicates_reuse_their_lut(monkeypatch):
+    """NOT LIKE and NOT IN are bound on every collect: each bind gathers
+    through the same negated LUT object, so the device copy of a large
+    one is made once and not once per collect."""
+    from ballista_tpu_torch import batch as TB
+    from ballista_tpu_torch import exprs as E
+    from ballista_tpu_torch.schema import STRING, Field, Schema
+    monkeypatch.setattr(E, "_DICT_CACHE", {})
+    raw = np.array(["apple", "banana", "cherry"], dtype=object)
+    schema = Schema((Field("s", STRING),), dictionaries={"s": raw},
+                    unsorted=frozenset({"s"}))
+    seen = []
+    gather = E.gather_lut
+    monkeypatch.setattr(E, "gather_lut",
+                        lambda lut, col: (seen.append(lut), gather(lut, col))[1])
+    codes = TB.Column(torch.tensor([0, 1, 2]), torch.ones(3, dtype=bool))
+    batch = TB.Batch((codes,), torch.tensor(3))
+    for pred, want in (
+            (E.Like(E.Col("s"), "%an%", negated=True), [True, False, True]),
+            (E.InList(E.Col("s"), (E.Lit("cherry"),), negated=True),
+             [True, True, False])):
+        seen.clear()
+        for _ in range(2):
+            assert E.bind_expr(pred, schema).fn(batch).data.tolist() == want
+        assert seen[0] is seen[1]
+
+
 def test_dictionary_tables_are_built_once_per_dictionary_object(monkeypatch):
     """LIKE, substring and the string functions loop over the dictionary
     in Python: a second bind over the same dictionary object reuses the

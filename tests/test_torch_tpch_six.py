@@ -93,8 +93,9 @@ def test_plans_take_the_new_paths(contexts):
 
 def test_expanding_join_overflow_retries(contexts):
     """An expanding join whose output capacity is forced too small raises
-    the overflow flag; the port retries with 4x join_out_factor and
-    returns the JAX answer, never a clipped batch."""
+    the overflow flag; the port retries with join_out_factor grown to the
+    rows the run counted and returns the JAX answer, never a clipped
+    batch."""
     jctx, _ = contexts
     sql = TPCH_QUERIES[13]
     jbatch, jschema = jctx.sql(sql).collect()
@@ -103,10 +104,10 @@ def test_expanding_join_overflow_retries(contexts):
     register_tpch(tctx, SF, tables=["customer", "orders"])
     tbatch, tschema = tctx.sql(sql).collect()
     _assert_same(tbatch, tschema, jbatch, jschema)
-    assert len(tctx.warnings) == 3   # factors 1/64, 1/16 and 1/4 overflowed
-    assert "join_out_factor 0.25" in tctx.warnings[-1]
+    assert len(tctx.warnings) == 1   # factor 1/64 overflowed; 1 fit
+    assert "join_out_factor 0.015625); growth group 4x" in tctx.warnings[0]
     with pytest.raises(RuntimeError, match="overflowed"):
-        tctx.collect(tctx.sql(sql).plan, max_retries=2)
+        tctx.collect(tctx.sql(sql).plan, max_retries=1)
 
 
 def test_view_script(contexts):
