@@ -14,11 +14,17 @@ Each column of an `Answer` is one of:
 - "float": float64 values.
 
 The comparison takes the program's columns as `port.answer_to_host` gives
-them. It aligns the rows: where the query has an ORDER BY, the program's
-rows must come in the reference's order of the ordering keys, and rows
-tied on those keys are matched as a multiset (a LIMIT that cuts a run of
-ties may keep any of them); without one, both sides are sorted by every
-exact column. Then it counts:
+them (a validity of None: every row valid). A string column is put in the
+reference's codes through its dictionary: each entry's UTF-8 bytes packed
+into big-endian 64-bit words, matched to the reference's entries by a sort
+over those words on the comparison's device (`string_lut`); `DictMaps`
+keeps the packed form of each program dictionary and the mapping of each
+pair of dictionaries for the answers of one judging. It aligns the rows:
+where the query has an ORDER BY, the program's rows must come in the
+reference's order of the ordering keys, and rows tied on those keys are
+matched as a multiset (a LIMIT that cuts a run of ties may keep any of
+them); without one, both sides are sorted by every exact column. Then it
+counts:
 
 - `wrong_cells`: cells of exact columns (int, string, decimal, ratio at
   its scale) that differ, plus every cell of a column of the wrong type or
@@ -32,7 +38,7 @@ exact column. Then it counts:
 from __future__ import annotations
 
 from fractions import Fraction
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,16 +84,143 @@ def _lexsort(keys: Sequence[torch.Tensor], desc: Sequence[bool]) -> torch.Tensor
     return perm
 
 
-def _string_lut(port_dict: np.ndarray, ref_dict: np.ndarray) -> np.ndarray:
+# A dictionary entry is packed into at most MAX_WORDS 64-bit words of its
+# UTF-8 bytes, first byte most significant, zero-padded, its byte length
+# beside them: equal keys are equal strings. Entries that are longer or
+# hold a NUL ("odd" ones) are matched by a Python dict instead; they are
+# few in any answer here.
+MAX_WORDS = 16
+_SIGN = -(1 << 63)      # flipped in each word: signed order is byte order
+# an answer that uses fewer than one in FEW of its dictionary's entries has
+# those alone mapped (where no mapping of the whole is kept)
+FEW = 8
+
+
+class Packed(NamedTuple):
+    words: List[torch.Tensor]   # word w of every entry (odd ones: zeros)
+    lens: torch.Tensor          # byte length of every entry (odd ones: -1)
+    odd: Dict[int, str]         # position -> entry
+
+
+def _ends(entries: list, device):
+    """The entries' UTF-8 bytes, each ended by a NUL, on `device`, and the
+    places of the NULs."""
+    buf = bytearray("\x00".join(entries) + "\x00", "utf-8")
+    blob = torch.frombuffer(buf, dtype=torch.uint8).to(device)
+    return blob, torch.nonzero(blob == 0).flatten()
+
+
+def _pack(d: np.ndarray, device) -> Packed:
+    """The packed keys of a dictionary's entries (see MAX_WORDS); an entry
+    that is no str is taken as numpy makes it one."""
+    entries, odd = d.tolist(), {}
+    n = len(entries)
+    if n == 0:
+        none = torch.zeros(0, dtype=torch.int64, device=device)
+        return Packed([none], none, odd)
+    try:
+        blob, ends = _ends(entries, device)
+    except TypeError:
+        bad = [i for i, s in enumerate(entries) if not isinstance(s, str)]
+        for i, s in zip(bad, d[bad].astype(str).tolist()):
+            entries[i] = s
+        blob, ends = _ends(entries, device)
+    if len(ends) != n:
+        # entries that hold a NUL
+        for i, s in enumerate(entries):
+            if "\x00" in s:
+                odd[i], entries[i] = s, ""
+        blob, ends = _ends(entries, device)
+    starts = torch.zeros_like(ends)
+    starts[1:] = ends[:-1] + 1
+    lens = ends - starts
+    for i in torch.nonzero(lens > 8 * MAX_WORDS).flatten().tolist():
+        odd[i] = entries[i]
+    if odd:
+        lens[torch.as_tensor(sorted(odd), device=lens.device)] = -1
+    top = int(lens.max())
+    words = []
+    for w in range(max(1, -(-top // 8))):
+        word = torch.zeros(n, dtype=torch.int64, device=lens.device)
+        for k in range(8):
+            j = 8 * w + k
+            byte = blob[(starts + j).clamp_(max=len(blob) - 1)]
+            word |= torch.where(lens > j, byte.to(torch.int64), 0) \
+                << (56 - 8 * k)
+        words.append(word ^ _SIGN)
+    return Packed(words, lens, odd)
+
+
+def _match(port: Packed, ref: Packed) -> torch.Tensor:
+    """The reference position of each program entry (the last, where the
+    reference repeats it), or -2 - its own position where the reference
+    lacks it: both sets sorted together by their keys, each program entry
+    matched to the nearest reference entry before it."""
+    n_port, n_ref = len(port.lens), len(ref.lens)
+    dev = port.lens.device
+    lut = torch.empty(n_port, dtype=torch.int64, device=dev)
+    if n_port == 0:
+        return lut
+
+    def word(p: Packed, w: int) -> torch.Tensor:
+        return p.words[w] if w < len(p.words) else torch.full_like(
+            p.lens, _SIGN)
+    width = max(len(port.words), len(ref.words))
+    keys = [torch.cat([word(ref, w), word(port, w)]) for w in range(width)]
+    # an odd reference entry matches nothing here: -2 is no length
+    keys.append(torch.cat([torch.where(ref.lens < 0, -2, ref.lens),
+                           port.lens]))
+    perm = _lexsort(keys, [False] * len(keys))
+    pos = torch.arange(len(perm), device=dev)
+    last = torch.where(perm < n_ref, pos, -1).cummax(0).values
+    cand = perm[last.clamp(min=0)]
+    same = last >= 0
+    for k in keys:
+        same &= k[perm] == k[cand]
+    mine = perm >= n_ref
+    at = perm[mine] - n_ref
+    lut[at] = torch.where(same[mine], cand[mine], -2 - at)
+    if port.odd:
+        index = {s: i for i, s in ref.odd.items()}
+        for i, s in port.odd.items():
+            lut[i] = index.get(s, -2 - i)
+    return lut
+
+
+def string_lut(port_dict: np.ndarray, ref_dict: np.ndarray,
+               device="cpu") -> torch.Tensor:
     """The reference code of each program dictionary entry (a string the
     reference does not know gets a code below -1, unique to it)."""
-    index = {s: i for i, s in enumerate(ref_dict.tolist())}
-    return np.array([index.get(s, -2 - i) for i, s in
-                     enumerate(np.asarray(port_dict).astype(str).tolist())],
-                    dtype=np.int64)
+    return _match(_pack(np.asarray(port_dict), device),
+                  _pack(np.asarray(ref_dict), device))
 
 
-def _port_col(entry: dict, ref: RCol, device) -> Tuple[object, Optional[str]]:
+class DictMaps:
+    """The mappings of one judging: each program dictionary packed once,
+    each pair of a program and a reference dictionary mapped once (by
+    object identity; the objects are held, so no id is reused)."""
+
+    def __init__(self):
+        self._packed, self._luts = {}, {}
+
+    def has(self, port_dict, ref_dict) -> bool:
+        return (id(port_dict), id(ref_dict)) in self._luts
+
+    def lut(self, port_dict: np.ndarray, ref_dict: np.ndarray,
+            device) -> torch.Tensor:
+        key = (id(port_dict), id(ref_dict))
+        if key not in self._luts:
+            if id(port_dict) not in self._packed:
+                self._packed[id(port_dict)] = (port_dict,
+                                               _pack(port_dict, device))
+            port = self._packed[id(port_dict)][1]
+            ref = _pack(np.asarray(ref_dict), port.lens.device)
+            self._luts[key] = (port_dict, ref_dict, _match(port, ref))
+        return self._luts[key][2].to(device)
+
+
+def _port_col(entry: dict, ref: RCol, device,
+              maps: DictMaps) -> Tuple[object, Optional[str]]:
     """The program's column in the reference's terms, or (None, why)."""
     kind = entry["kind"]
     values = entry["values"]
@@ -95,17 +228,20 @@ def _port_col(entry: dict, ref: RCol, device) -> Tuple[object, Optional[str]]:
         if kind != "string":
             return None, f"type {kind}, want string"
         port_dict = np.asarray(entry["dictionary"])
-        codes = np.asarray(values, dtype=np.int64)
+        codes = torch.as_tensor(np.asarray(values)).to(device, torch.int64)
         if len(port_dict) == 0:
             return torch.full((len(codes),), -1, dtype=torch.int64,
                               device=device), None
-        codes = np.clip(codes, 0, len(port_dict) - 1)
-        if len(codes) < len(port_dict):
+        codes = codes.clamp(0, len(port_dict) - 1)
+        if FEW * len(codes) < len(port_dict) and \
+                not maps.has(port_dict, ref.dictionary):
             # the entries the answer uses, not the whole dictionary
-            used, codes = np.unique(codes, return_inverse=True)
-            port_dict = port_dict[used]
-        lut = _string_lut(port_dict, ref.dictionary)
-        return torch.as_tensor(lut[codes.reshape(-1)], device=device), None
+            used, codes = torch.unique(codes, return_inverse=True)
+            lut = string_lut(port_dict[used.cpu().numpy()], ref.dictionary,
+                             device)
+        else:
+            lut = maps.lut(port_dict, ref.dictionary, device)
+        return lut[codes], None
     if ref.kind in ("decimal", "ratio"):
         if kind == "wide":
             values = np.array([int(v) for v in values], dtype=object)
@@ -135,9 +271,12 @@ def _ratio_wrong(got: List[int], want: List[Fraction], scale: int) -> int:
     return wrong
 
 
-def compare(port_cols: List[dict], ref: Answer, device=None) -> Verdict:
+def compare(port_cols: List[dict], ref: Answer, device=None,
+            maps: Optional[DictMaps] = None) -> Verdict:
     """How far the program's answer is from the reference's (see the
-    module's docstring)."""
+    module's docstring). `maps` keeps the dictionaries' mappings for the
+    next answer of the same judging."""
+    maps = DictMaps() if maps is None else maps
     device = device or (ref.cols[0].values.device
                         if isinstance(ref.cols[0].values, torch.Tensor)
                         else "cpu")
@@ -153,12 +292,14 @@ def compare(port_cols: List[dict], ref: Answer, device=None) -> Verdict:
                        f"{n_port} rows, want {want_rows}")
     got, notes, wrong = [], [], 0
     for i, (entry, rc) in enumerate(zip(port_cols, ref.cols)):
-        col, why = _port_col(entry, rc, device)
+        col, why = _port_col(entry, rc, device, maps)
         if why:
             notes.append(f"{ref.names[i]}: {why}")
             wrong += n_port
         got.append(col)
-        valid = torch.as_tensor(entry["valid"], device=device)
+        valid = (torch.ones(n_port, dtype=torch.bool, device=device)
+                 if entry["valid"] is None
+                 else torch.as_tensor(entry["valid"], device=device))
         want_valid = (torch.ones(n_ref, dtype=torch.bool, device=device)
                       if rc.valid is None else rc.valid.to(device))
         got[-1] = (col, valid, want_valid)

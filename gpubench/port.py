@@ -10,7 +10,7 @@ from __future__ import annotations
 import functools
 import re
 import sys
-from typing import Callable, List, Optional
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
@@ -87,13 +87,18 @@ def overflow_reruns(warnings: List[str]) -> int:
 
 def answer_to_host(batch, schema) -> List[dict]:
     """The live rows of an answer on the host, undecoded: per column its
-    kind, values (int64, float64, or int32 codes), validity, decimal
-    scale, and a string column's dictionary as the schema holds it."""
+    kind, values (int64, float64, or int32 codes), validity (None where
+    every row is valid), decimal scale, and a string column's dictionary
+    as the schema holds it."""
+    return list(host_columns(batch, schema))
+
+
+def host_columns(batch, schema) -> Iterator[dict]:
+    """The columns of `answer_to_host`, each copied as it is asked for."""
     from ballista_tpu_torch.schema import TypeKind
     import torch
     n = int(batch.num_rows)
     live = batch.live
-    out = []
     for f, col in zip(schema.fields, batch.columns):
         data, valid = col.data, col.validity
         if live is not None:
@@ -101,7 +106,8 @@ def answer_to_host(batch, schema) -> List[dict]:
         else:
             data, valid = data[:n], valid[:n]
         kind = f.dtype.kind
-        entry = {"name": f.name, "valid": valid.cpu().numpy()}
+        entry = {"name": f.name,
+                 "valid": None if bool(valid.all()) else valid.cpu().numpy()}
         if f.dtype.is_wide:
             entry.update(kind="wide", scale=f.dtype.scale,
                          values=data.cpu().numpy())
@@ -118,8 +124,7 @@ def answer_to_host(batch, schema) -> List[dict]:
                          values=data.to(torch.float64).cpu().numpy())
         else:
             entry.update(kind="int", values=data.to(torch.int64).cpu().numpy())
-        out.append(entry)
-    return out
+        yield entry
 
 
 class EntryWrap:

@@ -14,9 +14,12 @@ mix's order again and again, each query timed from the call of
 seconds have passed. For each query of the mix two answers of the window
 are copied to the host (the copies are left out of the window's time):
 its first, and the one of a pass drawn from the seed among the first
-four fifths of the passes predicted. After the window the program's
-state is freed and the plain reference, on the card, judges every kept
-answer.
+four fifths of the passes predicted; each column of a sampled copy equal
+to the first's byte for byte is dropped as it is made and the first's
+held for both (`host_copy`). After the window the program's state is
+freed and the plain reference, on the card, judges every kept answer.
+The kept answers' host bytes and the process's peak resident memory are
+logged after the window and after judging.
 
 With `--trace 0` the result's metrics are the cell's end-to-end metrics,
 with `--trace 1` its per-layer ones, read from a profiler trace of the
@@ -39,6 +42,7 @@ import contextlib  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import resource  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from typing import NamedTuple, Optional  # noqa: E402
@@ -95,6 +99,69 @@ def _power_limit() -> Optional[float]:
         return float(out.split()[0])
     except (OSError, ValueError, IndexError, subprocess.SubprocessError):
         return None
+
+
+def _same_bytes(u, v, step: int = 1 << 24) -> bool:
+    """Two arrays equal byte for byte (object arrays: entry by entry),
+    compared a block at a time as integers of their width."""
+    import numpy as np
+    if u.dtype != v.dtype or u.shape != v.shape:
+        return False
+    if u.dtype == object:
+        return np.array_equal(u, v)
+    width = f"i{u.itemsize}" if u.itemsize in (1, 2, 4, 8) else np.uint8
+    u, v = (np.ascontiguousarray(w).reshape(-1).view(width) for w in (u, v))
+    return all(np.array_equal(u[i:i + step], v[i:i + step])
+               for i in range(0, len(u), step))
+
+
+def same_column(x: dict, y: dict) -> bool:
+    """Whether two host copies of a column (`port.host_columns`) are equal
+    byte for byte: name, kind, scale, values and validity, and the
+    dictionary the same object or equal."""
+    import numpy as np
+    if x.keys() != y.keys():
+        return False
+    for u, v in ((x[k], y[k]) for k in x):
+        if u is v:
+            continue
+        arrays = isinstance(u, np.ndarray) + isinstance(v, np.ndarray)
+        if (arrays == 2 and not _same_bytes(u, v)) or arrays == 1 or \
+                (arrays == 0 and u != v):
+            return False
+    return True
+
+
+def host_copy(batch, schema, first: Optional[list] = None) -> list:
+    """The answer on the host (`port.answer_to_host`), a column at a time:
+    a column equal byte for byte to the same column of `first`, another
+    pass's copy of the same query, is dropped as soon as it is made and
+    `first`'s is held in its place; a copy equal to `first` in every
+    column is `first` itself."""
+    from gpubench import port
+    copy = []
+    for i, entry in enumerate(port.host_columns(batch, schema)):
+        if first is not None and i < len(first) and \
+                same_column(first[i], entry):
+            entry = first[i]
+        copy.append(entry)
+    if first is not None and len(copy) == len(first) and \
+            all(a is b for a, b in zip(copy, first)):
+        return first
+    return copy
+
+
+def host_bytes(kept: dict) -> int:
+    """Bytes of the kept answers' values and validities, each array once
+    (the dictionaries are the program's own objects)."""
+    arrays = {id(e[k]): e[k] for passes in kept.values()
+              for a in passes.values() for e in a for k in ("values", "valid")}
+    return sum(getattr(v, "nbytes", 0) for v in arrays.values())
+
+
+def peak_resident() -> int:
+    """The process's peak resident memory in bytes (Linux counts KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
 def sample_passes(seed: int, order, passes: int) -> dict:
@@ -156,7 +223,7 @@ def window(ctx, cell, seed: int, seconds: float, passes: int, traced: bool,
             if j in keep_at[q]:
                 p0 = clock()
                 with rf(trace.PAUSE):
-                    kept[q][j] = port.answer_to_host(out, schema)
+                    kept[q][j] = host_copy(out, schema, kept[q].get(0))
                 paused += clock() - p0
             del out, schema
         window_s = clock() - start - paused
@@ -166,9 +233,10 @@ def window(ctx, cell, seed: int, seconds: float, passes: int, traced: bool,
 def judge(cell, tables, kept, device, reference_module, failed: int) -> dict:
     """Every kept answer against the plain reference: the numbers compared,
     each with its limit."""
-    from gpubench.answer import compare
+    from gpubench.answer import DictMaps, compare
     ref = reference_module.Reference(tables, device)
     limits = cell.config["limits"]
+    maps = DictMaps()
     wrong, err, notes = 0, 0.0, []
     for q in dict.fromkeys(cell.traffic["order"]):
         if not kept.get(q):
@@ -176,14 +244,20 @@ def judge(cell, tables, kept, device, reference_module, failed: int) -> dict:
             notes.append(f"{q}: no answer in the window")
             continue
         want = ref.answer(q)
+        verdicts = {}
         for j, answer in sorted(kept[q].items()):
-            v = compare(answer, want, device)
+            # a pass held once reads what pass 0 reads
+            if id(answer) not in verdicts:
+                verdicts[id(answer)] = compare(answer, want, device, maps)
+            v = verdicts[id(answer)]
             wrong += v.wrong_cells
             err = max(err, v.float_err)
             if v.wrong_cells or v.note:
                 notes.append(f"{q} pass {j}: {v.wrong_cells} wrong cells "
                              f"{v.note}".strip())
-        notes.append(f"{q}: passes {sorted(kept[q])} compared")
+        once = [j for j, a in kept[q].items() if j and a is kept[q].get(0)]
+        notes.append(f"{q}: passes {sorted(kept[q])} compared" + "".join(
+            f"; pass {j} equal to pass 0, held once" for j in once))
     checks = {"wrong_cells": {"value": wrong, "limit": limits["wrong_cells"]},
               "failed_queries": {"value": failed, "limit": 0}}
     if "float_err" in limits:
@@ -289,6 +363,8 @@ def main(argv=None, device: Optional[str] = None) -> int:
                  entries)
     log(f"window: {len(lat)} answered of {attempted}, {window_s:.3f} s, "
         f"{reruns} overflow re-runs, {failed} failed")
+    log(f"host: kept answers {host_bytes(kept)} bytes, peak resident "
+        f"{peak_resident()} bytes after the window")
 
     # the program's state freed before the reference takes the card
     ctx.evict_device()
@@ -299,6 +375,7 @@ def main(argv=None, device: Optional[str] = None) -> int:
     t0 = time.time()
     checks, notes = judge(cell, tables, kept, device, reference, failed)
     log(f"reference: {time.time() - t0:.3f} s")
+    log(f"host: peak resident {peak_resident()} bytes after judging")
     for n in notes:
         log(f"check: {n}")
     correct = all(c["value"] <= c["limit"] for c in checks.values())

@@ -123,6 +123,61 @@ def test_a_broken_program_is_not_correct(base, cell, fault):
         last["checks"].get("float_err", {}).get("limit", 1)
 
 
+# every query's answers of the window's passes 0 and 1 kept
+PASS_1 = """
+import gpubench.run as R
+R.sample_passes = lambda seed, order, passes: {q: [0, 1] for q in order}
+"""
+
+# ... and the program's answer altered in pass 1 alone: each text runs
+# twice in set-up, so its fourth answer is the window's pass 1
+PASS_1_ALTERED = PASS_1 + """
+import collections
+import gpubench.port as P
+_run_query, _calls = P.run_query, collections.Counter()
+def run_query(ctx, text, clock, spans):
+    out, schema, sql_s = _run_query(ctx, text, clock, spans)
+    _calls[text] += 1
+    if _calls[text] == 4:
+        cols = list(out.columns)
+        d = cols[-1].data.clone()
+        d[0] += 1
+        cols[-1] = cols[-1]._replace(data=d)
+        out = out._replace(columns=type(out.columns)(cols))
+    return out, schema, sql_s
+P.run_query = run_query
+"""
+
+
+def test_a_sampled_pass_equal_to_pass_0_is_held_once(base):
+    rc, last, err = toy.run(base, "toy.tpch", prelude=PASS_1)
+    assert rc == 0, err[-2000:]
+    assert last["correct"] is True
+    notes = [line for line in err.splitlines() if line.startswith("# check:")]
+    once = [n for n in notes if "pass 1 equal to pass 0, held once" in n]
+    assert once and all("passes [0, 1] compared" in n for n in once), notes
+    assert "# host: kept answers " in err
+
+
+@pytest.mark.parametrize("cell", ["toy.tpch", "toy.h2o"])
+def test_a_change_in_the_sampled_pass_alone_is_not_correct(base, cell):
+    rc, last, err = toy.run(base, cell, prelude=PASS_1_ALTERED)
+    assert rc == 0, err[-2000:]
+    notes = [line.split(" ", 2)[2] for line in err.splitlines()
+             if line.startswith("# check: ")]
+    # an answer the change reached is judged as its own (an empty one is
+    # the same either way)
+    changed = {n.split()[0] for n in notes if " pass 1: " in n}
+    assert changed, notes
+    for n in notes:
+        if n.split()[0].rstrip(":") in changed:
+            assert "held once" not in n, notes
+    assert last["correct"] is False
+    assert last["checks"]["wrong_cells"]["value"] > 0 or \
+        last["checks"].get("float_err", {}).get("value", 0) > \
+        last["checks"].get("float_err", {}).get("limit", 1)
+
+
 @pytest.mark.cuda
 def test_toy_cell_on_the_card(base, card):
     rc, last, err = toy.run(base, "toy.tpch", trace=1, device="cuda")
