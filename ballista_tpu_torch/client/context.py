@@ -52,6 +52,12 @@ from ..tracing import span
 from .dataframe import DataFrame
 
 
+# tables of at most this many rows have every column's uniqueness inferred
+# on the host (`SessionContext.unique_keys`); a larger one only its join
+# columns', on the device (`SessionContext.join_unique_keys`)
+INFER_UNIQUE_ROWS = 1_000_000
+
+
 class LazyColumn(NamedTuple):
     """A registered column not ingested yet: its row count, and `make()`,
     which ingests it from its source (a numpy array, an arrow column, a
@@ -140,6 +146,9 @@ class TableProvider:
         self.num_rows = lengths.pop() if lengths else 0
         self._cols: Dict[str, B.Column] = {}
         self._inferred_unique = None
+        # column -> whether its live values are distinct (`SessionContext.
+        # join_unique_keys`, tables above INFER_UNIQUE_ROWS)
+        self._distinct: Dict[str, bool] = {}
 
     @property
     def capacity(self) -> int:
@@ -724,15 +733,17 @@ class SessionContext:
 
     def unique_keys(self, name: str):
         """Unique column sets for join build-side selection and
-        functional-dependency reasoning: the declared primary key, else
-        the single columns whose values are all distinct (tables of up to
-        a million rows; a NULL counts as one value)."""
+        functional-dependency reasoning: the declared primary key alone,
+        else the single columns whose values are all distinct (tables of
+        up to INFER_UNIQUE_ROWS rows, every column checked on the host
+        when first asked; a NULL counts as one value). A larger table's
+        join columns are checked by `join_unique_keys`."""
         tp = self.tables[name]
         if tp.primary_key:
             return [tp.primary_key]
         if tp._inferred_unique is None:
             tp._inferred_unique = []
-            if tp.num_rows <= 1_000_000:
+            if tp.num_rows <= INFER_UNIQUE_ROWS:
                 # a parquet dataset has no host columns to infer from
                 for f in (f for f in tp.fields if f.name in tp.host):
                     h = tp.host[f.name]
@@ -744,6 +755,45 @@ class SessionContext:
                     if n_distinct == tp.num_rows:
                         tp._inferred_unique.append((f.name,))
         return tp._inferred_unique
+
+    def join_unique_keys(self, name: str, columns: Sequence[str]):
+        """`unique_keys`, and for a table of more than INFER_UNIQUE_ROWS
+        rows with no primary key, those of `columns` (the columns an
+        equi-join compares) that hold each live value once and at most one
+        NULL: each checked once on the device (`_distinct_on_device`) and
+        the verdict kept for the table's registration. An integer, date,
+        decimal or sorted-dictionary column is checked; a float or bool
+        column, a RAW string column (its codes are row indices) and a
+        column of a parquet dataset are not, and count as not unique."""
+        tp = self.tables[name]
+        keys = self.unique_keys(name)
+        if tp.primary_key or tp.num_rows <= INFER_UNIQUE_ROWS:
+            return keys
+        with span("ballista.join.unique_keys"):
+            found = [(c,) for c in dict.fromkeys(columns)
+                     if self._distinct_on_device(tp, c)]
+        return keys + found
+
+    def _distinct_on_device(self, tp: "TableProvider", name: str) -> bool:
+        """Whether column `name` of `tp` holds each live value once and at
+        most one NULL: its valid values uploaded from the host (and not
+        kept), sorted on the device and neighbours compared, with one host
+        read. Cached per column."""
+        if name in tp._distinct:
+            return tp._distinct[name]
+        kind = next(f.dtype.kind for f in tp.fields if f.name == name)
+        verdict = False
+        if name in tp.host and kind not in (TypeKind.FLOAT32,
+                                            TypeKind.FLOAT64, TypeKind.BOOL):
+            h = tp.host[name]
+            nulls = tp.num_rows - int(h.validity.sum())
+            if not h.raw and nulls <= 1:
+                live = h.values if not nulls else h.values[h.validity]
+                s = torch.sort(torch.from_numpy(np.ascontiguousarray(
+                    live)).to(self.device)).values
+                verdict = not bool((s[1:] == s[:-1]).any())
+        tp._distinct[name] = verdict
+        return verdict
 
     def table(self, name: str) -> DataFrame:
         tp = self.tables[name]

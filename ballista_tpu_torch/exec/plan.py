@@ -19,14 +19,15 @@ from __future__ import annotations
 import os
 import sys
 import time
+from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..batch import LANE, Batch, Column, round_capacity, row_mask
-from ..exprs import (Alias, Col, Expr, bind_expr, expr_name, gather_lut,
-                     recode_tables, sorted_recode)
+from ..exprs import (Alias, Col, Expr, bind_expr, dict_cached, expr_name,
+                     gather_lut, recode_tables, sorted_recode)
 from ..ops import segagg
 from ..ops.compact import compaction_perm, filter_batch, gather_batch
 from ..ops.expand_join import expand_join
@@ -38,7 +39,7 @@ from ..ops.sort import SortKeySpec, sort_batch
 from ..ops.vsort import compact_batch, sort_batch_columns
 from ..schema import (FLOAT64, INT64, Field, Schema, narrow_wide,
                       wide_read_error)
-from ..tracing import exec_span
+from ..tracing import exec_span, span
 from .aggregate import AggExpr, BoundAgg, _avg_dtype, _out_sum_dtype
 
 # sorted-layout sentinel: dead rows sort behind every normalised key
@@ -47,6 +48,12 @@ DEAD = 2 ** 62
 
 # what a capacity retry grows, in the order of Run.growth's entries
 GROWTH_KINDS = ("group", "join")
+
+# HashJoinExec's counts in this process: evaluations by mode ("unique",
+# "expanding") and union-dictionary lookup tables built ("key_remap",
+# `join_key_luts`); a host counter, read by difference around the calls
+# of interest
+JOIN_COUNTS: Counter = Counter()
 
 
 def _next_pow2(n: int) -> int:
@@ -729,31 +736,16 @@ class HashJoinExec(ExecNode):
             if da is None or db is None:
                 raise ValueError(
                     f"join key {a}={bn}: string/non-string mismatch")
-            # a RAW dictionary repeats values under different codes, so
-            # even one shared RAW dictionary needs the remap
-            raw = (not build.schema.is_sorted_dict(a)
-                   or not probe.schema.is_sorted_dict(bn))
-            if not raw and (da is db or (len(da) == len(db)
-                                         and bool((da == db).all()))):
+            sa, sb = (build.schema.is_sorted_dict(a),
+                      probe.schema.is_sorted_dict(bn))
+            if sa and sb and da is db:
                 dict_bounds[ki] = (0, max(len(da) - 1, 0))
                 continue
-            # each side's distinct values (a RAW side's through its
-            # dense-rank tables) and the code -> distinct-value map
-            sides = [recode_tables(d) if not srt
-                     else (d, np.arange(max(len(d), 1)))
-                     for d, srt in ((da, build.schema.is_sorted_dict(a)),
-                                    (db, probe.schema.is_sorted_dict(bn)))]
-            union = np.unique(np.concatenate([u.astype(str)
-                                              for u, _ in sides]))
-
-            def _lut(uniq, rank):
-                if not len(uniq):
-                    return np.zeros(1, np.int64)
-                return np.searchsorted(union, uniq.astype(str)).astype(
-                    np.int64)[rank]
-
-            self._key_luts[ki] = (_lut(*sides[0]), _lut(*sides[1]))
-            dict_bounds[ki] = (0, max(len(union) - 1, 0))
+            with span("ballista.join.key_remap"):
+                luts, n_union = join_key_luts(da, sa, db, sb)
+            if luts is not None:
+                self._key_luts[ki] = luts
+            dict_bounds[ki] = (0, max(n_union - 1, 0))
 
         # multi-key joins: pack bounded keys into shared limbs (both sides
         # use the merged bounds so equality is preserved)
@@ -794,14 +786,17 @@ class HashJoinExec(ExecNode):
         bkeys = self._keys(build_b, self._build_idx, 0)
         pkeys = self._keys(probe_b, self._probe_idx, 1)
         if not self.unique_build:
+            JOIN_COUNTS["expanding"] += 1
             return self._evaluate_expanding(run, build_b, probe_b, bkeys,
                                             pkeys, blive, plive)
+        JOIN_COUNTS["unique"] += 1
         args = ([c.data for c in bkeys], [c.validity for c in bkeys], blive,
                 [c.data for c in pkeys], [c.validity for c in pkeys], plive)
-        if self.join_type == "full_outer":
-            match, build_matched = merge_full_unique(*args)
-        else:
-            match = probe_unique(*args)
+        with span("ballista.join.probe"):
+            if self.join_type == "full_outer":
+                match, build_matched = merge_full_unique(*args)
+            else:
+                match = probe_unique(*args)
         matched = match >= 0
         if self.join_type in ("semi", "anti"):
             keep = (matched if self.join_type == "semi" else ~matched) & plive
@@ -822,6 +817,8 @@ class HashJoinExec(ExecNode):
                                        match.clamp(min=0), valid_and=matched))
         build_cols = tuple(synth[i] if i in synth else next(gathered)
                            for i in range(len(build_b.columns)))
+        if self.join_type in ("left_outer", "full_outer"):
+            build_cols = _zero_unmatched(build_cols, matched)
         joined = Batch(build_cols + probe_b.columns, probe_b.num_rows,
                        probe_b.live)
         if self.join_type == "left_outer":
@@ -854,17 +851,23 @@ class HashJoinExec(ExecNode):
                             blive, plive):
         """Duplicate-key build: output slot j holds (probe row, k-th
         matching build row) from ops.expand_join."""
-        em = expand_join(
-            [c.data for c in bkeys], [c.validity for c in bkeys], blive,
-            [c.data for c in pkeys], [c.validity for c in pkeys], plive,
-            self.out_capacity,
-            left_outer=self.join_type in ("left_outer", "full_outer"))
+        outer = self.join_type in ("left_outer", "full_outer")
+        with span("ballista.join.probe"):
+            em = expand_join(
+                [c.data for c in bkeys], [c.validity for c in bkeys], blive,
+                [c.data for c in pkeys], [c.validity for c in pkeys], plive,
+                self.out_capacity, left_outer=outer)
         run.flag_overflow(em.need, self.out_capacity, "join")
         matched = em.build_row >= 0
-        cols = (gather_columns(build_b.columns, em.build_row.clamp(min=0),
-                               valid_and=matched)
-                + gather_columns(probe_b.columns, em.probe_row.clamp(min=0),
-                                 valid_and=em.valid))
+        build_cols = gather_columns(build_b.columns,
+                                    em.build_row.clamp(min=0),
+                                    valid_and=matched)
+        if outer:
+            build_cols = _zero_unmatched(build_cols, matched)
+        cols = (tuple(build_cols)
+                + tuple(gather_columns(probe_b.columns,
+                                       em.probe_row.clamp(min=0),
+                                       valid_and=em.valid)))
         out = Batch(tuple(cols), em.total)
         if self.join_type == "full_outer":
             out = self._append_unmatched_build(out, build_b,
@@ -875,6 +878,52 @@ class HashJoinExec(ExecNode):
         mode = "unique" if self.unique_build else "expanding"
         return (f"HashJoinExec[{self.join_type},{mode}](on={list(self.on)})"
                 + (" sparse" if self.emit_sparse else ""))
+
+
+def join_key_luts(da: np.ndarray, a_sorted: bool, db: np.ndarray,
+                  b_sorted: bool
+                  ) -> Tuple[Optional[Tuple[np.ndarray, np.ndarray]], int]:
+    """The lookup tables that put the codes of two dictionaries of one join
+    key into their sorted union (each side's distinct values, a RAW side's
+    through its dense-rank tables; a RAW dictionary repeats values under
+    different codes, so even one shared RAW dictionary needs them), and
+    the union's size; no tables (None) for two equal sorted dictionaries.
+    Made once per pair of dictionary objects (`dict_cached`; the entry
+    holds both, so neither id is reused while it lives): a plan is built
+    anew on every collect. Each build counts in JOIN_COUNTS
+    ("key_remap")."""
+    def make():
+        if a_sorted and b_sorted and len(da) == len(db) and \
+                bool((da == db).all()):
+            return db, None, len(da)
+        JOIN_COUNTS["key_remap"] += 1
+        sides = [(d, np.arange(max(len(d), 1))) if srt else recode_tables(d)
+                 for d, srt in ((da, a_sorted), (db, b_sorted))]
+        union = np.unique(np.concatenate([u.astype(str) for u, _ in sides]))
+
+        def lut(uniq, rank):
+            if not len(uniq):
+                return np.zeros(1, np.int64)
+            return np.searchsorted(union, uniq.astype(str)).astype(
+                np.int64)[rank]
+        return db, (lut(*sides[0]), lut(*sides[1])), len(union)
+    _, luts, n_union = dict_cached(da, ("join_key_luts", id(db), a_sorted,
+                                        b_sorted), make)
+    return luts, n_union
+
+
+def _zero_unmatched(cols: Sequence[Column],
+                    matched: torch.Tensor) -> Tuple[Column, ...]:
+    """The NULL-extended build cells of an outer join hold 0 (code 0 of a
+    string column), as the NULL probe cells of a full outer join do: the
+    answer's bytes do not depend on the build row a miss was gathered
+    from."""
+    out = []
+    for c in cols:
+        m = matched.view(-1, *([1] * (c.data.dim() - 1)))
+        out.append(Column(torch.where(m, c.data, c.data.new_zeros(())),
+                          c.validity))
+    return tuple(out)
 
 
 def _final_agg(a: AggExpr, in_schema: Schema) -> BoundAgg:

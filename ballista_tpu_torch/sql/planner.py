@@ -39,13 +39,15 @@ from .parser import (AggCall, ExistsExpr, InSubquery, SelectStmt,
 
 class Relation:
     def __init__(self, rel_id: int, names: List[str], plan: L.LogicalPlan,
-                 alias: Optional[str], unique_sets: List[frozenset]):
+                 alias: Optional[str], unique_sets: List[frozenset],
+                 table: Optional[str] = None):
         self.rel_id = rel_id
         self.names = names          # original column names
         self.plan = plan
         self.alias = alias          # table alias (or table name)
         self.out_names = dict(zip(names, names))  # orig -> output name
         self.unique_sets = unique_sets
+        self.table = table          # the registered table it scans
 
     def rename_for_collisions(self, collisions: Set[str]):
         if not any(n in collisions for n in self.names):
@@ -339,7 +341,40 @@ class SqlPlanner:
         plan = L.TableScan(name, schema,
                            unique_cols=tuple(tuple(k)
                                              for k in self.ctx.unique_keys(name)))
-        return Relation(rel_id, names, plan, ref.alias or name, uniq)
+        return Relation(rel_id, names, plan, ref.alias or name, uniq, name)
+
+    def _unique_join_keys(self, relations: List[Relation], join_edges,
+                          uniq_by_rel: Dict[int, List[frozenset]]) -> None:
+        """For each pair of relations an equi-join links where neither
+        side is known unique on its join columns, ask the context whether
+        a scanned table's join column is unique (`join_unique_keys`
+        checks a large table's there, on the device, once); the later
+        relation first, the earlier only where the later is not. Found
+        columns join `uniq_by_rel` under their output names."""
+        pairs: Dict[Tuple[int, int], Tuple[set, set]] = {}
+        for a, ca, b, cb in join_edges:
+            if a > b:
+                a, ca, b, cb = b, cb, a, ca
+            cols_a, cols_b = pairs.setdefault((a, b), (set(), set()))
+            cols_a.add(ca)
+            cols_b.add(cb)
+        by_id = {r.rel_id: r for r in relations}
+        for (a, b), (cols_a, cols_b) in pairs.items():
+            if any(s <= cols_a for s in uniq_by_rel[a]) or \
+                    any(s <= cols_b for s in uniq_by_rel[b]):
+                continue
+            for rid, cols in ((b, cols_b), (a, cols_a)):
+                rel = by_id[rid]
+                if rel.table is None:
+                    continue
+                orig = {out: n for n, out in rel.out_names.items()}
+                found = [frozenset(rel.out_names[c] for c in k)
+                         for k in self.ctx.join_unique_keys(
+                             rel.table, [orig[c] for c in sorted(cols)])]
+                found = [s for s in found if s <= cols]
+                if found:
+                    uniq_by_rel[rid] += found
+                    break
 
     def _mangle(self) -> str:
         self._sq_counter += 1
@@ -444,6 +479,7 @@ class SqlPlanner:
                 p = L.Filter(p, f)
             plans[r.rel_id] = p
             uniq_by_rel[r.rel_id] = list(r.unique_sets)
+        self._unique_join_keys(relations, join_edges, uniq_by_rel)
 
         # greedy join assembly (build side = unique side; else expanding)
         how_by_rel = {}

@@ -20,6 +20,14 @@ never a label with parameters in it:
       .plan.bind, ballista.verdict
     ballista.exec.<OperatorClass>            Run._evaluate
     ballista.kernel.masked_slot_sums         masked_slot_sums_rows
+    ballista.join.unique_keys                SessionContext.join_unique_
+                                               keys: a large table's join
+                                               columns
+    ballista.join.key_remap                  HashJoinExec: a union-
+                                               dictionary lookup table built
+    ballista.join.probe                      HashJoinExec.evaluate: probe_
+                                               unique, merge_full_unique or
+                                               expand_join
 """
 
 from __future__ import annotations
